@@ -4,22 +4,35 @@
     python3 chip_smoke.py
 
 From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
-1. prints the card's name and power limit, builds the CUDA kernel from
-   mmnas_tpu_torch/csrc and turns TF32 off for matmuls and cuDNN;
-2. holds the fused attention kernel against its plain PyTorch version on
-   the card at the shapes of the searched VQA net (B 64, 8 heads of 64:
-   14x14, 100x100, 100x14 with the pad mask, 100x100 with mask + RSA
-   geometry chain, 100x100 with an additive bias), in fp32 and bf16, and
-   times both;
-3. drives the port's eval path, `Execution(cfg, cuda).run()` for
-   `--RUN val --SYNTH --ARCH_PATH ./arch/mmnas_vqa.json --BS 64
-   --SYNTH_SIZE 256` at full width (HSIZE 512, 100 regions of 2048), in
-   fp32 and bf16, from a checkpoint written in the JAX package's pickle
-   format from a seeded port init. The kernel must have launched exactly
-   16 times per batch (5 encoder SA, 6 GA, 4 RSA, 1 decoder SA), the
-   logits must be finite and must match the same net and batch run on the
-   CPU through the plain versions;
-4. prints one JSON line with the kernel's numbers and, last, the device
+1. prints the card's name and power limit, builds the CUDA kernels from
+   mmnas_tpu_torch/csrc (one nvcc per source, all started together) and
+   turns TF32 off for matmuls and cuDNN;
+2. holds the forward kernel (no dropout) against its plain PyTorch version
+   at the shapes of the searched VQA net (B 64, 8 heads of 64: 14x14,
+   100x100, 100x14 with the pad mask, 100x100 with mask + RSA geometry
+   chain, 100x100 with an additive bias), in fp32 and bf16, and times both
+   and `scaled_dot_product_attention` where one call computes the function;
+3. does the same for the training kernels at r = 0.1: the dropout forward
+   (keep fraction 0.9 +- 0.005, the mask bits follow the seed and equal the
+   numpy Philox, the output equals the plain version on the emitted mask),
+   the backward and the relation pass (every gradient equals autograd
+   through the plain version on that mask), and times forward + backward;
+4. drives the eval path, `Execution(cfg, cuda).run()` for `--RUN val
+   --SYNTH --ARCH_PATH ./arch/mmnas_vqa.json --BS 64 --SYNTH_SIZE 256` at
+   full width (HSIZE 512, 100 regions of 2048), in fp32 and bf16, from a
+   checkpoint written in the JAX package's pickle format from a seeded port
+   init: 16 forward launches per batch (5 encoder SA, 6 GA, 4 RSA, 1 decoder
+   SA), finite logits that match the same net and batch on the CPU;
+5. drives the training path, `Execution(cfg, cuda).run()` for `--RUN train
+   --SYNTH --ARCH_PATH ./arch/mmnas_vqa.json --BS 64 --MAX_EPOCH 1
+   --SYNTH_SIZE 640` (10 steps, fp32, DROPOUT_R 0.1, the per-epoch eval on):
+   per step exactly 16 dropout-forward, 16 backward and 4 relation-pass
+   launches, 16 forward launches per eval batch; finite losses, the mean of
+   the last 3 below the first; the epoch checkpoint exists and the eval path
+   reloads it. Then one step at DROPOUT_R 0 from one seeded init on the card
+   and on the CPU (plain versions) agrees, and the train step is timed and
+   profiled;
+6. prints one JSON line with every kernel's numbers and, last, the device
    line `{"ok": true, "device": {...}}`.
 Any failed check raises, so the script exits non-zero and prints no result
 line. It exits 2 when no CUDA device is present.
@@ -33,18 +46,31 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "build", "mmnas_tpu_torch", "smoke")
 ARCH = os.path.join(HERE, "arch", "mmnas_vqa.json")
-KERNEL_SOURCE = "mmnas_tpu_torch/csrc/fused_attention_fwd.cu"
-REPLACES = "mmnas_tpu/ops/pallas_attention.py:173"
+SOURCES = ("fused_attention_fwd", "fused_attention_bwd")
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "fused_attention_fwd": ("mmnas_tpu_torch/csrc/fused_attention_fwd.cu",
+                            "mmnas_tpu/ops/pallas_attention.py:173"),
+    "fused_attention_fwd_dropout": ("mmnas_tpu_torch/csrc/fused_attention_fwd.cu",
+                                    "mmnas_tpu/ops/pallas_attention.py:201"),
+    "fused_attention_bwd": ("mmnas_tpu_torch/csrc/fused_attention_bwd.cu",
+                            "mmnas_tpu/ops/pallas_attention.py:325"),
+    "fused_attention_bwd_rel": ("mmnas_tpu_torch/csrc/fused_attention_bwd.cu",
+                                "mmnas_tpu/ops/pallas_attention.py:390"),
+}
 
 B, H, D, RR, R = 64, 8, 64, 4, 64
+RATE = 0.1
 SYNTH_SIZE, BATCH = 256, 64
-LAUNCHES_PER_BATCH = 16          # arch/mmnas_vqa.json at LAYERS 1
+TRAIN_SIZE = 640                  # 10 steps of 64
+LAUNCHES_PER_BATCH = 16           # arch/mmnas_vqa.json at LAYERS 1
+REL_LAUNCHES_PER_BATCH = 4        # its 4 rel_self_att_64 nodes
 CASES = [(14, 14, "mask"), (100, 100, "mask"), (100, 14, "mask"),
          (100, 100, "mask+rel"), (100, 100, "bias")]
 # kernel vs plain version on the same inputs. fp32: both sum in fp32 in
@@ -55,10 +81,32 @@ CASES = [(14, 14, "mask"), (100, 100, "mask"), (100, 14, "mask"),
 # inputs: 5e-2.
 KERNEL_TOL = {(torch.float32, False): 1e-4, (torch.float32, True): 1e-3,
               (torch.bfloat16, False): 5e-2, (torch.bfloat16, True): 5e-2}
+# gradients, kernel vs autograd through the plain version on the same keep
+# mask, as a share of the largest reference gradient (the method of
+# tests/test_pallas_dropout_tpu.py:5-12): fp32 1e-4 (sums of up to 100
+# products in other orders), 1e-3 with the RSA chain (dpre = ds / pre grows
+# the fp32 rounding of pre near the 1e-6 clamp); bf16 2e-2 (the kernel
+# rounds ds and the dropped-out probabilities to bf16, 2^-9 relative, before
+# its products; the plain version runs in fp32 on the same bf16 inputs)
+GRAD_TOL = {(torch.float32, False): 1e-4, (torch.float32, True): 1e-3,
+            (torch.bfloat16, False): 2e-2, (torch.bfloat16, True): 2e-2}
+KEEP_TOL = 0.005                  # keep fraction, >= 5 sd at 100352 draws
 # logits, card against CPU, same net, batch and dtype: fp32 1e-3; bf16
 # 5e-2 (bf16 rounds every layer's activations, 30 layers deep, in other
 # places on the two devices)
 LOGIT_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# one train step, card against CPU, fp32, DROPOUT_R 0: the loss to 1e-5
+# relative; the whole gradient to 1e-4 in norm, ||g_card - g_cpu|| / ||g_cpu||
+# (sums in other orders; single elements of the LayerNorm and softmax
+# backward cancel, so an element-wise bound would measure the cancellation);
+# the parameters to 2 lr plus fp32 rounding: Adam's first step moves each
+# weight by lr g / (|g| + eps), about +-lr whatever |g|, so a weight whose
+# gradient is at the rounding noise (the AttFlat glimpse biases, whose
+# gradient is 0 in exact arithmetic) can move either way
+STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-5, 1e-4
+# the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
 def cuda_time_ms(fn, iters=20, warmup=3):
@@ -73,69 +121,283 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_cases(FA, dev):
-    """Kernel against its plain version at the main path's shapes."""
-    g = torch.Generator().manual_seed(0)
+def bound(nbytes, ops, dtype):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the type's peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
+
+def make_case(g, Lq, Lk, kind):
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g) * scale
 
     def uniform(*shape, bound):
         return (torch.rand(*shape, generator=g) * 2 - 1) * bound
 
+    q, k, v = randn(B, H, Lq, D), randn(B, H, Lk, D), randn(B, H, Lk, D)
+    mask = torch.rand(B, 1, 1, Lk, generator=g) > 0.7
+    mask[..., 0] = False                     # every row keeps a valid key
+    bias = randn(B, H, Lq, Lk) if kind == "bias" else None
+    rel = None
+    if "rel" in kind:                        # init-like stem and Wr weights
+        rel = (randn(B, Lq, Lk, RR, scale=2.0), uniform(R, RR, bound=0.5),
+               uniform(R, bound=0.5), uniform(H, R, bound=0.125), uniform(H, bound=0.125))
+    return q, k, v, (mask if "mask" in kind else None), bias, rel
+
+
+def to_dev(dev, dt, q, k, v, mask, bias, rel):
+    return ([t.to(dev, dt) for t in (q, k, v)], None if mask is None else mask.to(dev),
+            None if bias is None else bias.to(dev, dt),
+            None if rel is None else tuple(t.to(dev, dt) for t in rel))
+
+
+def f32(t):
+    return None if t is None else t.float()
+
+
+def sdpa_inputs(args, mask, bias):
+    """The float attn_mask for scaled_dot_product_attention (mask -> -1e9,
+    plus the bias), or None for the RSA case, which no library call does."""
+    if bias is None and mask is None:
+        return None
+    m = torch.zeros((), device=args[0].device, dtype=args[0].dtype)
+    if mask is not None:
+        m = m + torch.where(mask, -1e9, 0.0).to(args[0].dtype)
+    if bias is not None:
+        m = m + bias
+    return m
+
+
+def attention_bytes_ops(Lq, Lk, kind, dt, dropout, backward):
+    """Bytes each input read once and each output written once, and the
+    operations, of one call at B, H, D."""
+    es = torch.finfo(dt).bits // 8
+    n_s = B * H * Lq * Lk
+    ops = (2 if not backward else 10) * n_s * D + 5 * n_s   # products + softmax
+    nbytes = B * H * (2 * Lq * D + 2 * Lk * D) * es          # q, k, v, o
+    if backward:
+        nbytes += B * H * (Lq * D + 2 * Lk * D) * es         # do in, dq dk dv out (q,k,v in)
+    if "mask" in kind:
+        nbytes += B * Lk
+    if "bias" in kind:
+        nbytes += n_s * es * (2 if backward else 1)
+    if "rel" in kind:
+        nbytes += B * Lq * Lk * RR * es + n_s * 4 * backward  # raw; dpre out
+        ops += n_s * R * (2 * RR + 2) + 2 * n_s               # the chain, per head
+    if dropout:
+        nbytes += n_s                                         # uint8 keep out / in
+    return nbytes, ops
+
+
+def kernel_cases(FA, dev):
+    """Forward kernel (no dropout) against its plain version."""
+    g = torch.Generator().manual_seed(0)
     rows = []
     for dt in (torch.float32, torch.bfloat16):
         for Lq, Lk, kind in CASES:
-            q, k, v = randn(B, H, Lq, D), randn(B, H, Lk, D), randn(B, H, Lk, D)
-            mask = torch.rand(B, 1, 1, Lk, generator=g) > 0.7
-            mask[..., 0] = False                 # every row keeps a valid key
-            bias = randn(B, H, Lq, Lk) if kind == "bias" else None
-            rel = None
-            if "rel" in kind:                    # init-like stem and Wr weights
-                rel = (randn(B, Lq, Lk, RR, scale=2.0), uniform(R, RR, bound=0.5),
-                       uniform(R, bound=0.5), uniform(H, R, bound=0.125),
-                       uniform(H, bound=0.125))
-            m = mask.to(dev) if "mask" in kind else None
-            args = [t.to(dev, dt) for t in (q, k, v)]
-            b_ = None if bias is None else bias.to(dev, dt)
-            r_ = None if rel is None else tuple(t.to(dev, dt) for t in rel)
+            args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind))
             got = FA.fused_attention(*args, m, b_, rel=r_)
             torch.cuda.synchronize()
             ref = FA.fused_attention_reference(
-                *[a.float() for a in args], m, None if b_ is None else b_.float(),
-                rel=None if r_ is None else tuple(t.float() for t in r_))
+                *[a.float() for a in args], m, f32(b_),
+                rel=None if r_ is None else tuple(map(f32, r_)))
             err = (got.float() - ref).abs().max().item()
-            tol = KERNEL_TOL[(dt, rel is not None)]
+            tol = KERNEL_TOL[(dt, r_ is not None)]
             ms = cuda_time_ms(lambda: FA.fused_attention(*args, m, b_, rel=r_))
             plain_ms = cuda_time_ms(lambda: FA.fused_attention_reference(*args, m, b_, rel=r_))
+            am = sdpa_inputs(args, m, b_)
+            library_ms = None if r_ is not None else cuda_time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(*args, attn_mask=am))
+            bound_ms, bound_by = bound(*attention_bytes_ops(Lq, Lk, kind, dt, False, False), dt)
             row = {"dtype": str(dt).replace("torch.", ""), "Lq": Lq, "Lk": Lk, "operands": kind,
-                   "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms}
-            print(f"kernel {row['dtype']:8s} ({Lq:3d},{Lk:3d}) {kind:8s} max_abs_err {err:.3e} "
-                  f"(tol {tol:g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms", flush=True)
+                   "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            print(f"fwd     {row['dtype']:8s} ({Lq:3d},{Lk:3d}) {kind:8s} max_abs_err {err:.3e} "
+                  f"(tol {tol:g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
+                  f"{library_ms if library_ms is None else round(library_ms, 4)} ms  bound "
+                  f"{bound_ms:.4f} ms ({bound_by})", flush=True)
             if not (math.isfinite(err) and err <= tol):
                 raise AssertionError(f"kernel disagrees with its plain version: {row}")
             rows.append(row)
     return rows
 
 
-def main_path(FA, dev, card):
-    from mmnas_tpu.config import cfg_from_args, make_arg_parser
+def rel_err(got, want):
+    return (got.float() - want.float()).abs().max().item() / max(want.abs().max().item(), 1e-6)
+
+
+def train_kernel_cases(FA, dev):
+    """Dropout forward, backward and relation pass against their plain
+    versions, and their times."""
+    g = torch.Generator().manual_seed(1)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for Lq, Lk, kind in CASES:
+            args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind))
+            name = f"{str(dt).replace('torch.', ''):8s} ({Lq:3d},{Lk:3d}) {kind:8s}"
+            # the mask: keep rate, reproducible by seed, the numpy Philox bits
+            out, keep = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=1234)
+            _, keep2 = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=1234)
+            _, keep3 = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=1235)
+            torch.cuda.synchronize()
+            frac = keep.float().mean().item()
+            if not abs(frac - (1 - RATE)) <= KEEP_TOL:
+                raise AssertionError(f"{name}: keep fraction {frac}")
+            if not torch.equal(keep, keep2) or torch.equal(keep, keep3):
+                raise AssertionError(f"{name}: the keep mask does not follow its seed")
+            if dt == torch.float32 and kind == "mask":
+                want_keep = FA.keep_mask_reference(1234, B, H, Lq, Lk, RATE)
+                if not torch.equal(keep.cpu().bool(), want_keep):
+                    raise AssertionError(f"{name}: keep bits differ from Philox4x32-10")
+            ref = FA.fused_attention_reference(*[a.float() for a in args], m, f32(b_),
+                                               rel=None if r_ is None else tuple(map(f32, r_)),
+                                               keep=keep, dropout_r=RATE)
+            fwd_err = (out.float() - ref).abs().max().item()
+            fwd_tol = KERNEL_TOL[(dt, r_ is not None)]
+
+            # the backward on that mask against autograd through the plain version
+            do = torch.randn(B, H, Lq, D, generator=g).to(dev, dt)
+            dq, dk, dv, dbias, drel = FA.attention_bwd(*args, m, b_, r_, keep, RATE, do)
+            leaves = [a.float().requires_grad_() for a in args]
+            bl = None if b_ is None else b_.float().requires_grad_()
+            rl = None if r_ is None else [t.float().requires_grad_() for t in r_]
+            plain = FA.fused_attention_reference(*leaves, m, bl, rel=rl, keep=keep,
+                                                 dropout_r=RATE)
+            wrt = leaves + ([bl] if bl is not None else []) + (rl[1:] if rl is not None else [])
+            want = torch.autograd.grad(plain, wrt, do.float())
+            got = [dq, dk, dv] + ([dbias] if b_ is not None else []) + \
+                (list(drel[1:]) if r_ is not None else [])
+            labels = ["dq", "dk", "dv"] + (["dbias"] if b_ is not None else []) + \
+                (["dW1", "db1", "dWr", "dbr"] if r_ is not None else [])
+            errs = {lab: rel_err(x, w) for lab, x, w in zip(labels, got, want)}
+            # the backward kernel's own outputs; dW1.. come from the relation pass
+            abs_err = max((x.float() - w).abs().max().item()
+                          for lab, x, w in zip(labels, got, want) if lab in ("dq", "dk", "dv", "dbias"))
+            tol = GRAD_TOL[(dt, r_ is not None)]
+
+            # times: forward + backward of the kernels, of the plain version, of SDPA
+            def kernel_step():
+                leaves_k = [a.detach().requires_grad_() for a in args]
+                o = FA.FusedAttentionFn.apply(*leaves_k, m, b_, *(r_ or (None,) * 5), RATE, 7)
+                torch.autograd.grad(o, leaves_k, do)
+
+            def plain_step():
+                leaves_p = [a.detach().requires_grad_() for a in args]
+                o = FA.fused_attention_reference(*leaves_p, m, b_, rel=r_, keep=keep,
+                                                 dropout_r=RATE)
+                torch.autograd.grad(o, leaves_p, do)
+
+            am = sdpa_inputs(args, m, b_)
+
+            def sdpa_fwd(leaves_s):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    *leaves_s, attn_mask=am, dropout_p=RATE)
+
+            def sdpa_step():
+                leaves_s = [a.detach().requires_grad_() for a in args]
+                torch.autograd.grad(sdpa_fwd(leaves_s), leaves_s, do)
+
+            fwd_ms = cuda_time_ms(lambda: FA.attention_fwd(*args, m, b_, r_, RATE, 7))
+            bwd_ms = cuda_time_ms(lambda: FA.attention_bwd(*args, m, b_, r_, keep, RATE, do))
+            step_ms = cuda_time_ms(kernel_step)
+            plain_fwd_ms = cuda_time_ms(lambda: FA.fused_attention_reference(
+                *args, m, b_, rel=r_, keep=keep, dropout_r=RATE))
+            plain_leaves = [a.detach().requires_grad_() for a in args]
+            plain_out = FA.fused_attention_reference(*plain_leaves, m, b_, rel=r_, keep=keep,
+                                                     dropout_r=RATE)
+            plain_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                plain_out, plain_leaves, do, retain_graph=True))
+            plain_ms = cuda_time_ms(plain_step)
+            sdpa_ms = sdpa_fwd_ms = sdpa_bwd_ms = None
+            if r_ is None:
+                sdpa_leaves = [a.detach().requires_grad_() for a in args]
+                sdpa_out = sdpa_fwd(sdpa_leaves)
+                sdpa_fwd_ms = cuda_time_ms(lambda: sdpa_fwd(args))
+                sdpa_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                    sdpa_out, sdpa_leaves, do, retain_graph=True))
+                sdpa_ms = cuda_time_ms(sdpa_step)
+            fb, fo = attention_bytes_ops(Lq, Lk, kind, dt, True, False)
+            bb, bo = attention_bytes_ops(Lq, Lk, kind, dt, True, True)
+            row = {"dtype": str(dt).replace("torch.", ""), "Lq": Lq, "Lk": Lk, "operands": kind,
+                   "keep_fraction": frac, "fwd_err": fwd_err, "fwd_tol": fwd_tol,
+                   "grad_rel_err": errs, "grad_abs_err": abs_err, "grad_tol": tol,
+                   "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_bwd_ms": step_ms,
+                   "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
+                   "plain_fwd_bwd_ms": plain_ms, "sdpa_fwd_ms": sdpa_fwd_ms,
+                   "sdpa_bwd_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_ms,
+                   "fwd_bound_ms": bound(fb, fo, dt)[0], "bwd_bound_ms": bound(bb, bo, dt)[0],
+                   "fwd_bwd_bound_ms": bound(fb + bb, fo + bo, dt)[0]}
+            print(f"train   {name} keep {frac:.4f}  fwd err {fwd_err:.2e} (tol {fwd_tol:g})  "
+                  f"grad rel err max {max(errs.values()):.2e} (tol {tol:g})  kernel fwd "
+                  f"{fwd_ms:.4f} + bwd {bwd_ms:.4f} ms, fwd+bwd {step_ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  sdpa {sdpa_ms if sdpa_ms is None else round(sdpa_ms, 4)}"
+                  f" ms  bound {row['fwd_bwd_bound_ms']:.4f} ms", flush=True)
+            if not (math.isfinite(fwd_err) and fwd_err <= fwd_tol):
+                raise AssertionError(f"dropout forward disagrees with its plain version: {row}")
+            if not all(math.isfinite(e) and e <= tol for e in errs.values()):
+                raise AssertionError(f"backward disagrees with its plain version: {row}")
+            rows.append(row)
+    return rows
+
+
+def relation_case(FA, dev):
+    """The relation pass alone against its plain version, at the RSA shape,
+    with a dpre of the kernel's own making."""
+    g = torch.Generator().manual_seed(2)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        _, _, _, _, _, rel = make_case(g, 100, 100, "mask+rel")
+        rel = tuple(t.to(dev, dt) for t in rel)
+        dpre = (torch.randn(B, H, 100, 100, generator=g) * 0.1).to(dev)
+        got = FA.relation_bwd(*rel, dpre)
+        want = FA.relation_bwd_reference(*rel, dpre)
+        errs = {lab: rel_err(x, w) for lab, x, w in zip(("dW1", "db1", "dWr", "dbr"),
+                                                         got[1:], want[1:])}
+        abs_err = max((x.float() - w).abs().max().item() for x, w in zip(got[1:], want[1:]))
+        ms = cuda_time_ms(lambda: FA.relation_bwd(*rel, dpre))
+        plain_ms = cuda_time_ms(lambda: FA.relation_bwd_reference(*rel, dpre))
+        raw, w1, b1 = (t.float() for t in rel[:3])
+        live = (torch.matmul(raw, w1.t()) + b1 > 0).float().mean().item()  # features with t > 0
+        n = B * 100 * 100
+        nbytes = n * RR * (torch.finfo(dt).bits // 8) + n * H * 4
+        ops = n * R * 2 * RR + n * R * live * (4 * H + 2 * RR + 1) + n * H
+        bound_ms, bound_by = bound(nbytes, ops, torch.float32)   # the chain runs in fp32
+        # fp32 sums of 640000 terms per weight in other orders: 1e-4 of the
+        # largest; bf16 weights get their gradients rounded to bf16 (2^-9)
+        tol = 1e-4 if dt == torch.float32 else 4e-3
+        row = {"dtype": str(dt).replace("torch.", ""), "max_rel_err": max(errs.values()),
+               "max_abs_err": abs_err, "errs": errs, "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "live_features": live}
+        print(f"rel     {row['dtype']:8s} (100,100) grad rel err {errs} (tol {tol:g})  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
+        if not all(math.isfinite(e) and e <= tol for e in errs.values()):
+            raise AssertionError(f"relation pass disagrees with its plain version: {row}")
+        rows.append(row)
+    return rows
+
+
+def cfg_for(run, dtype, **extra):
+    from mmnas_tpu_torch.config import cfg_from_args, make_arg_parser
+
+    args = ["--RUN", run, "--SYNTH", "--ARCH_PATH", ARCH, "--BS", str(BATCH), "--SEED", "0",
+            "--NW", "8", "--DTYPE", dtype]
+    for k, v in extra.items():
+        args += [f"--{k}", str(v)]
+    cfg = cfg_from_args("vqa", make_arg_parser("vqa").parse_args(args))
+    return cfg.replace(LOG_ROOT=os.path.join(WORK, "log"), CKPT_ROOT=os.path.join(WORK, "ckpts"))
+
+
+def eval_path(FA, dev, card):
     from mmnas_tpu_torch.engine.vqa import Execution, batch_to_device
     from mmnas_tpu_torch.models.convert import to_jax_params
     from mmnas_tpu_torch.train.checkpoint import save_checkpoint
 
     ckpt = os.path.join(WORK, "mmnas_vqa_seed0.pkl")
 
-    def cfg_for(dtype):
-        args = make_arg_parser("vqa").parse_args(
-            ["--RUN", "val", "--SYNTH", "--ARCH_PATH", ARCH, "--BS", str(BATCH),
-             "--SYNTH_SIZE", str(SYNTH_SIZE), "--SEED", "0", "--NW", "8",
-             "--CKPT_PATH", ckpt, "--DTYPE", dtype])
-        return cfg_from_args("vqa", args).replace(
-            LOG_ROOT=os.path.join(WORK, "log"), CKPT_ROOT=os.path.join(WORK, "ckpts"))
-
     # a seeded port init, written in the JAX package's checkpoint format
-    cfg32 = cfg_for("float32")
+    cfg32 = cfg_for("val", "float32", SYNTH_SIZE=SYNTH_SIZE, CKPT_PATH=ckpt)
     exe = Execution(cfg32, dev)
     dataset = exe.build_dataset("val")
     net = exe.build_net(dataset)
@@ -148,15 +410,18 @@ def main_path(FA, dev, card):
     n_batches = math.ceil(SYNTH_SIZE / BATCH)
     out = {}
     for dtype in ("float32", "bfloat16"):
-        cfg = cfg_for(dtype)
+        cfg = cfg_for("val", dtype, SYNTH_SIZE=SYNTH_SIZE, CKPT_PATH=ckpt)
         exe = Execution(cfg, dev)
-        FA.LAUNCHES = 0
+        for n in FA.LAUNCHES:
+            FA.LAUNCHES[n] = 0
         result = exe.run()
         torch.cuda.synchronize()
-        launches = FA.LAUNCHES
-        if launches != LAUNCHES_PER_BATCH * n_batches:
-            raise AssertionError(f"{dtype}: kernel launched {launches} times, expected "
-                                 f"{LAUNCHES_PER_BATCH} x {n_batches} batches")
+        launches = dict(FA.LAUNCHES)
+        want = {"fused_attention_fwd": LAUNCHES_PER_BATCH * n_batches,
+                "fused_attention_fwd_dropout": 0, "fused_attention_bwd": 0,
+                "fused_attention_bwd_rel": 0}
+        if launches != want:
+            raise AssertionError(f"{dtype} eval: kernel launches {launches}, expected {want}")
         if result.preds.shape != (SYNTH_SIZE,):
             raise AssertionError(f"{dtype}: predictions of shape {result.preds.shape}")
 
@@ -178,16 +443,142 @@ def main_path(FA, dev, card):
         diff = (gpu_logits - cpu_logits).abs().max().item()
         tol = LOGIT_TOL[dtype]
         agree = (gpu_logits.argmax(-1) == cpu_logits.argmax(-1)).float().mean().item()
-        print(f"eval {dtype}: {launches} kernel launches over {n_batches} batches; accuracy "
-              f"{result.accuracy}; {SYNTH_SIZE / result.seconds:.1f} examples/s end to end "
-              f"(loader included), {BATCH / fwd_ms * 1000:.1f} examples/s forward only "
-              f"({fwd_ms:.3f} ms per batch of {BATCH}) on {card}; logits card vs CPU max "
+        print(f"eval {dtype}: {launches['fused_attention_fwd']} kernel launches over {n_batches} "
+              f"batches; accuracy {result.accuracy}; {SYNTH_SIZE / result.seconds:.1f} examples/s "
+              f"end to end (loader included), {BATCH / fwd_ms * 1000:.1f} examples/s forward "
+              f"only ({fwd_ms:.3f} ms per batch of {BATCH}) on {card}; logits card vs CPU max "
               f"abs diff {diff:.3e} (tol {tol:g}), argmax agreement {agree:.3f}", flush=True)
         if not diff <= tol:
             raise AssertionError(f"{dtype}: card logits differ from the CPU run by {diff}")
-        out[dtype] = {"launches": launches, "examples_per_s": SYNTH_SIZE / result.seconds,
-                      "forward_ms": fwd_ms, "logit_diff": diff}
+        out[dtype] = {"launches": launches["fused_attention_fwd"],
+                      "examples_per_s": SYNTH_SIZE / result.seconds, "forward_ms": fwd_ms,
+                      "logit_diff": diff}
     return out
+
+
+def train_path(FA, dev, card):
+    from mmnas_tpu_torch.engine.vqa import Execution, batch_to_device
+    from mmnas_tpu_torch.models.net import INPUT_KEYS
+    from mmnas_tpu_torch.train.checkpoint import ckpt_path
+    from mmnas_tpu_torch.train.optimizer import build_net_optimizer
+
+    cfg = cfg_for("train", "float32", SYNTH_SIZE=TRAIN_SIZE, MAX_EPOCH=1)
+    if not (cfg.DROPOUT_R == RATE and cfg.EVAL_EVERY_EPOCH and cfg.NET_GRAD_CLIP > 0):
+        raise AssertionError(f"unexpected train config {cfg}")
+    steps = TRAIN_SIZE // BATCH
+    exe = Execution(cfg, dev)
+    for n in FA.LAUNCHES:
+        FA.LAUNCHES[n] = 0
+    t0 = time.perf_counter()
+    result = exe.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(FA.LAUNCHES)
+    want = {"fused_attention_fwd": LAUNCHES_PER_BATCH * steps,          # the per-epoch eval
+            "fused_attention_fwd_dropout": LAUNCHES_PER_BATCH * steps,
+            "fused_attention_bwd": LAUNCHES_PER_BATCH * steps,
+            "fused_attention_bwd_rel": REL_LAUNCHES_PER_BATCH * steps}
+    if launches != want:
+        raise AssertionError(f"train: kernel launches {launches}, expected {want}")
+    losses = result.step_losses
+    print(f"train fp32: {steps} steps, losses per batch of {BATCH} {[round(x, 3) for x in losses]}"
+          f"; {launches}; {seconds:.1f} s with the loader and the eval", flush=True)
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train: losses {losses}")
+    if not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError(f"train: loss did not fall: {losses}")
+    ckpt = ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, 1)
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"train: no checkpoint at {ckpt}")
+    for n in FA.LAUNCHES:
+        FA.LAUNCHES[n] = 0
+    reloaded = Execution(cfg_for("val", "float32", SYNTH_SIZE=BATCH, CKPT_PATH=ckpt), dev).run()
+    torch.cuda.synchronize()
+    if reloaded.preds.shape != (BATCH,) or FA.LAUNCHES["fused_attention_fwd"] != LAUNCHES_PER_BATCH:
+        raise AssertionError(f"eval of the epoch checkpoint: {reloaded.preds.shape}, "
+                             f"{FA.LAUNCHES}")
+    print(f"eval of {os.path.relpath(ckpt, HERE)}: accuracy {reloaded.accuracy}", flush=True)
+
+    # the train step alone, one resident batch, dropout on
+    net = result.net
+    params = dict(net.named_parameters())
+    dataset = exe.build_dataset("train")
+    host_batch = list(exe.make_loader(dataset, BATCH))[0]
+    keys = INPUT_KEYS + ("ans",)
+    batch = batch_to_device(host_batch, dev, keys)
+    optim = build_net_optimizer(cfg, steps)
+    state = optim.init(params)
+    gen = torch.Generator(dev).manual_seed(3)
+    step_ms = cuda_time_ms(lambda: exe.train_step(net, optim, state, params, batch, gen),
+                           iters=10, warmup=2)
+    split = profile_step(lambda: exe.train_step(net, optim, state, params, batch, gen))
+    print(f"train step fp32 BS {BATCH}: {step_ms:.2f} ms, {BATCH / step_ms * 1000:.1f} "
+          f"examples/s on {card}; device time split {split}", flush=True)
+    del net, params, state, result
+
+    # one step at DROPOUT_R 0 from one seeded init, on the card and on the CPU
+    cfg0 = cfg.replace(DROPOUT_R=0.0)
+    exe0 = {d: Execution(cfg0, torch.device(d)) for d in ("cuda", "cpu")}
+    small = {k: v[:16] for k, v in host_batch.items()}
+    out = {}
+    for d, e in exe0.items():
+        net = e.build_net(dataset).to(d)                   # the init is drawn on the CPU
+        params = dict(net.named_parameters())
+        optim = build_net_optimizer(cfg0, steps)
+        state = optim.init(params)
+        b = batch_to_device(small, torch.device(d), keys)
+        grads = {}
+        hooks = [p.register_hook(lambda g, n=n: grads.__setitem__(n, g.detach().cpu().clone()))
+                 for n, p in params.items()]
+        loss, lr = e.train_step(net, optim, state, params, b, torch.Generator(d))
+        for h in hooks:
+            h.remove()
+        out[d] = (float(loss), {n: p.detach().cpu() for n, p in params.items()}, grads, float(lr))
+    (l_gpu, p_gpu, g_gpu, lr), (l_cpu, p_cpu, g_cpu, _) = out["cuda"], out["cpu"]
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    diff2 = sum(float(((g_gpu[n] - g_cpu[n]) ** 2).sum()) for n in g_cpu)
+    grad_err = math.sqrt(diff2 / sum(float((g ** 2).sum()) for g in g_cpu.values()))
+    worst = max(g_cpu, key=lambda n: (g_gpu[n] - g_cpu[n]).abs().max().item())
+    param_err = max((p_gpu[n] - p_cpu[n]).abs().max().item() for n in p_cpu)
+    param_tol = 2 * lr + 1e-6
+    moved = sum(int(((p_gpu[n] - p_cpu[n]).abs() > 1e-6).sum()) for n in p_cpu)
+    total = sum(p.numel() for p in p_cpu.values())
+    print(f"one step card vs CPU (fp32, DROPOUT_R 0, 16 examples): loss {l_gpu:.6f} vs "
+          f"{l_cpu:.6f} (rel {loss_err:.2e}, tol {STEP_LOSS_TOL:g}); gradient rel norm diff "
+          f"{grad_err:.2e} (tol {STEP_GRAD_TOL:g}; largest element diff in {worst}); "
+          f"parameters max diff {param_err:.2e} (tol {param_tol:.2e}), {moved} of {total} "
+          f"beyond 1e-6", flush=True)
+    if not (loss_err <= STEP_LOSS_TOL and grad_err <= STEP_GRAD_TOL and param_err <= param_tol):
+        raise AssertionError("one train step differs between the card and the CPU")
+    return {"launches": launches, "losses": losses, "seconds": seconds, "step_ms": step_ms,
+            "examples_per_s": BATCH / step_ms * 1000, "device_split": split,
+            "step_vs_cpu": {"loss_rel": loss_err, "grad_rel": grad_err, "param_abs": param_err}}
+
+
+def profile_step(step):
+    """Device time of one train step by kind of kernel, from torch.profiler:
+    the port's kernels, cuBLAS/CUTLASS products, everything else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    split = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+        if ev.device_type.name != "CUDA" or not us:
+            continue
+        name = ev.key.lower()
+        kind = ("port_kernels" if "fused_attention" in name else
+                "gemm" if any(s in name for s in ("gemm", "cublas", "cutlass", "xmma", "sm90"))
+                else "other")
+        split[kind] += us / 1e3 / 3
+    if not any(split.values()):
+        return "not measured (the profiler saw no device time)"
+    return {k: round(v, 3) for k, v in split.items()}
 
 
 def main() -> int:
@@ -208,23 +599,57 @@ def main() -> int:
     print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    lib, report = build.build("fused_attention_fwd")
-    print(f"built {os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    with ThreadPoolExecutor(len(SOURCES)) as pool:      # one nvcc per source, in parallel
+        built = list(pool.map(build.build, SOURCES))
+    print(f"built {[os.path.relpath(lib, HERE) for lib, _ in built]} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for _, report in built:
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  " + line.strip())
 
     dev = torch.device("cuda")
-    cases = kernel_cases(FA, dev)
-    runs = main_path(FA, dev, card)
+    fwd_cases = kernel_cases(FA, dev)
+    train_cases = train_kernel_cases(FA, dev)
+    rel_cases = relation_case(FA, dev)
+    evals = eval_path(FA, dev, card)
+    train = train_path(FA, dev, card)
 
-    rsa = next(c for c in cases if c["dtype"] == "float32" and "rel" in c["operands"])
-    print(json.dumps({"kernels": [{
-        "name": "fused_attention_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": runs["float32"]["launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases if c["dtype"] == "float32"),
-        "ms": rsa["ms"], "plain_ms": rsa["plain_ms"],
-        "launches_bf16": runs["bfloat16"]["launches"], "cases": cases, "eval": runs}]}))
+    def pick(rows, Lq, Lk, kind):
+        return next(r for r in rows if r["dtype"] == "float32" and (r["Lq"], r["Lk"],
+                                                                   r["operands"]) == (Lq, Lk, kind))
+
+    fwd, drop = pick(fwd_cases, 100, 100, "mask"), pick(train_cases, 100, 100, "mask")
+    rel = next(r for r in rel_cases if r["dtype"] == "float32")
+    fp32_train = [r for r in train_cases if r["dtype"] == "float32"]
+    drop_fb, drop_fo = attention_bytes_ops(100, 100, "mask", torch.float32, True, False)
+    bwd_b, bwd_o = attention_bytes_ops(100, 100, "mask", torch.float32, True, True)
+    drop_bound, drop_by = bound(drop_fb, drop_fo, torch.float32)
+    bwd_bound, bwd_by = bound(bwd_b, bwd_o, torch.float32)
+    rows = [
+        {"name": "fused_attention_fwd", "max_abs_err": max(
+            c["max_abs_err"] for c in fwd_cases if c["dtype"] == "float32"),
+         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
+         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
+         "shape": "B64 H8 (100,100) mask fp32", "cases": fwd_cases},
+        {"name": "fused_attention_fwd_dropout",
+         "max_abs_err": max(c["fwd_err"] for c in fp32_train),
+         "ms": drop["fwd_ms"], "plain_ms": drop["plain_fwd_ms"], "bound_ms": drop_bound,
+         "bound_by": drop_by, "library_ms": drop["sdpa_fwd_ms"],
+         "shape": "B64 H8 (100,100) mask fp32 r 0.1"},
+        {"name": "fused_attention_bwd", "max_abs_err": max(c["grad_abs_err"] for c in fp32_train),
+         "ms": drop["bwd_ms"], "plain_ms": drop["plain_bwd_ms"], "bound_ms": bwd_bound,
+         "bound_by": bwd_by, "library_ms": drop["sdpa_bwd_ms"],
+         "shape": "B64 H8 (100,100) mask fp32 r 0.1", "cases": train_cases},
+        {"name": "fused_attention_bwd_rel", "max_abs_err": rel["max_abs_err"], "ms": rel["ms"],
+         "plain_ms": rel["plain_ms"], "bound_ms": rel["bound_ms"], "bound_by": rel["bound_by"],
+         "library_ms": None, "shape": "B64 H8 (100,100) Rr4 R64 fp32", "cases": rel_cases},
+    ]
+    for row in rows:
+        source, replaces = KERNELS[row["name"]]
+        row.update(route="cuda", source=source, replaces=replaces,
+                   launches=train["launches"][row["name"]])
+    print(json.dumps({"kernels": rows, "eval": evals, "train": train}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,13 +1,23 @@
 // Fused SA / GA / RSA attention forward for Hopper (sm_90a).
 //
 // Replaces `_fwd_kernel` (with `_scores`, `_softmax`, `_rel_t_into` and
-// `_rel_pre_into`) in mmnas_tpu/ops/pallas_attention.py, without dropout.
-// One block handles kRows query rows of one (batch b, head h):
+// `_rel_pre_into`) in mmnas_tpu/ops/pallas_attention.py, with and without
+// attention dropout. One block handles kRows query rows of one (batch b,
+// head h):
 //
 //   s   = q k^T * scale  (+ bias[b,h])  (+ log(max(pre, 1e-6)))  (- 1e9 where mask[b])
 //   pre = sum_r relu(b1[r] + sum_c raw[b,i,j,c] * W1[r,c]) * Wr[h,r]  + br[h]
-//   a   = softmax(s) in fp32, rounded to the operand type (a.astype(v.dtype))
-//   o   = a v, accumulated in fp32, stored in the operand type
+//   a   = softmax(s) in fp32
+//   a   = a * keep / (1 - r)  with dropout, keep written to keep[b,h,i,j]
+//   o   = a v, with a rounded to the operand type (a.astype(v.dtype)),
+//         accumulated in fp32, stored in the operand type
+//
+// Dropout draws its keep mask counter-based: the first word of
+// Philox4x32-10 keyed by a 64-bit seed at counter (j, i, b*H + h, 0), kept
+// when below (1 - r) 2^32 as at pallas_attention.py:205-207. The mask thus
+// depends on the seed and the element only, not on the launch layout. It is
+// written out as a uint8 residual for the backward kernel (the TPU kernel
+// emits its mask as bf16 for the same reason, :36-48).
 //
 // Operands are fp32 or bf16 (T); the pad mask arrives as the caller's bool
 // [B, Lk] row (true = pad) and adds -1e9 to a padded key's score, as the
@@ -40,39 +50,34 @@
 // key counts. Shared memory is dynamic (about 64 KB at Lk = 100, D = 64,
 // above the 48 KB static limit) and opted in per launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention_common.cuh"
 
 namespace {
 
+using namespace mmnas;
+
 constexpr int kRows = 16;      // query rows per block
 constexpr int kThreads = 256;  // 8 warps; the softmax gives each warp 2 rows
-constexpr int kMaxRr = 8;      // raw relation channels held in registers
-constexpr float kClamp = 1e-6f;
-constexpr float kMaskAdd = -1e9f;  // added to a padded key's score
 
-__device__ __forceinline__ float load_f32(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f32(float* p, long i, float x) { p[i] = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, long i, float x) {
-  p[i] = __float2bfloat16(x);
-}
-// x rounded to the operand type T and widened back
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// Philox4x32-10 (Salmon et al., SC'11): the first output word for
+// counter (c0, c1, c2, 0) and key `seed`.
+__device__ __forceinline__ unsigned int philox_first(unsigned long long seed, unsigned int c0,
+                                                     unsigned int c1, unsigned int c2) {
+  unsigned int x0 = c0, x1 = c1, x2 = c2, x3 = 0u;
+  unsigned int k0 = static_cast<unsigned int>(seed);
+  unsigned int k1 = static_cast<unsigned int>(seed >> 32);
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const unsigned int hi0 = __umulhi(0xD2511F53u, x0), lo0 = 0xD2511F53u * x0;
+    const unsigned int hi1 = __umulhi(0xCD9E8D57u, x2), lo1 = 0xCD9E8D57u * x2;
+    x0 = hi1 ^ x1 ^ k0;
+    x1 = lo1;
+    x2 = hi0 ^ x3 ^ k1;
+    x3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return x0;
 }
 
 template <typename T>
@@ -88,8 +93,12 @@ struct Args {
   const T* wr;             // [H, R]
   const T* br;             // [H]
   T* out;                  // [B, H, Lq, D]
+  unsigned char* keep;     // [B, H, Lq, Lk] keep mask out, or null (no dropout)
   int H, Lq, Lk, D, Rr, R;
   float scale;
+  unsigned long long seed;  // dropout: Philox key
+  unsigned int keep_thr;    // dropout: keep when bits < keep_thr
+  float keep_p;             // dropout: 1 - r
 };
 
 size_t smem_floats(int Lk, int D, int Rr, int R, bool has_rel) {
@@ -146,20 +155,8 @@ __global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Arg
     const long ij = (long)(row0 + r) * Lk + j;
     if (a.bias != nullptr) s += load_f32(a.bias, bh * Lq * Lk + ij);
     if (has_rel) {
-      float x[kMaxRr];
       const T* rp = a.raw + ((long)b * Lq * Lk + ij) * Rr;
-#pragma unroll
-      for (int c = 0; c < kMaxRr; ++c) x[c] = c < Rr ? load_f32(rp, c) : 0.f;
-      float pre = 0.f;
-      for (int rr = 0; rr < R; ++rr) {
-        const float* w1r = w1s + rr * Rr;
-        float u = b1s[rr];
-#pragma unroll
-        for (int c = 0; c < kMaxRr; ++c)
-          if (c < Rr) u = fmaf(x[c], w1r[c], u);
-        pre = fmaf(fmaxf(u, 0.f), wrs[rr], pre);
-      }
-      s += logf(fmaxf(pre + br, kClamp));
+      s += logf(fmaxf(relation_pre(rp, Rr, R, w1s, b1s, wrs, br), kClamp));
     }
     if (a.mask != nullptr && a.mask[(long)b * Lk + j]) s += kMaskAdd;
     ss[r * Lk + j] = s;
@@ -180,7 +177,16 @@ __global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Arg
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < Lk; j += 32) sr[j] = round_to(sr[j] / sum, a.q);
+    const int i = row0 + r;
+    for (int j = lane; j < Lk; j += 32) {
+      float p = sr[j] / sum;
+      if (a.keep != nullptr) {
+        const bool kept = philox_first(a.seed, j, i, static_cast<unsigned int>(bh)) < a.keep_thr;
+        a.keep[(bh * Lq + i) * Lk + j] = kept;
+        p = (p * (kept ? 1.f : 0.f)) / a.keep_p;
+      }
+      sr[j] = round_to(p, a.q);
+    }
   }
   __syncthreads();
 
@@ -198,17 +204,20 @@ __global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Arg
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    const void* mask, const void* raw, const void* w1, const void* b1,
-                   const void* wr, const void* br, void* out, int B, int H, int Lq, int Lk,
-                   int D, int Rr, int R, float scale, cudaStream_t stream) {
+                   const void* wr, const void* br, void* out, void* keep, int B, int H,
+                   int Lq, int Lk, int D, int Rr, int R, float scale, unsigned long long seed,
+                   unsigned int keep_thr, float keep_p, cudaStream_t stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1) return cudaErrorInvalidValue;
   if (raw != nullptr && (Rr < 1 || Rr > kMaxRr || R < 1)) return cudaErrorInvalidValue;
+  if (keep != nullptr && !(keep_p > 0.f && keep_p <= 1.f)) return cudaErrorInvalidValue;
   Args<T> a{static_cast<const T*>(q),  static_cast<const T*>(k),
             static_cast<const T*>(v),  static_cast<const T*>(bias),
             static_cast<const unsigned char*>(mask),
             static_cast<const T*>(raw), static_cast<const T*>(w1),
             static_cast<const T*>(b1), static_cast<const T*>(wr),
             static_cast<const T*>(br), static_cast<T*>(out),
-            H, Lq, Lk, D, Rr, R, scale};
+            static_cast<unsigned char*>(keep),
+            H, Lq, Lk, D, Rr, R, scale, seed, keep_thr, keep_p};
   const size_t bytes = smem_floats(Lk, D, Rr, R, raw != nullptr) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -222,21 +231,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Pointers may be null for absent operands
-// (bias, mask, and raw together with w1/b1/wr/br). Returns the CUDA error
-// code of the launch (0 = launched); the kernel runs on `stream`.
+// (bias, mask, raw together with w1/b1/wr/br, and keep: no dropout). With
+// keep, the kernel draws the mask for `seed`, keeps an element when its bits
+// are below keep_thr, scales kept probabilities by 1 / keep_p and writes the
+// mask to keep. Returns the CUDA error code of the launch (0 = launched); the
+// kernel runs on `stream`.
 extern "C" int mmnas_fused_attention_fwd(int dtype, const void* q, const void* k,
                                          const void* v, const void* bias,
                                          const void* mask, const void* raw,
                                          const void* w1, const void* b1, const void* wr,
-                                         const void* br, void* out, int B, int H, int Lq,
-                                         int Lk, int D, int Rr, int R, float scale,
-                                         void* stream) {
+                                         const void* br, void* out, void* keep, int B, int H,
+                                         int Lq, int Lk, int D, int Rr, int R, float scale,
+                                         unsigned long long seed, unsigned int keep_thr,
+                                         float keep_p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, bias, mask, raw, w1, b1, wr, br, out, B, H, Lq, Lk, D,
-                         Rr, R, scale, s);
+    return launch<float>(q, k, v, bias, mask, raw, w1, b1, wr, br, out, keep, B, H, Lq, Lk,
+                         D, Rr, R, scale, seed, keep_thr, keep_p, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, bias, mask, raw, w1, b1, wr, br, out, B, H, Lq,
-                                 Lk, D, Rr, R, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, bias, mask, raw, w1, b1, wr, br, out, keep, B, H,
+                                 Lq, Lk, D, Rr, R, scale, seed, keep_thr, keep_p, s);
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,23 @@
 """VQA fixed-architecture execution on one device (counterpart of
-mmnas_tpu/engine/vqa.py, eval path).
+mmnas_tpu/engine/vqa.py).
 
-`Execution(cfg, device).run()` with RUN_MODE val|test builds the dataset
-and loader (shared with the JAX package), builds the genotype's `NetFull`,
-loads the pickled checkpoint at CKPT_FILE_PATH (either package's), and
-evaluates: argmax predictions, the soft-score VQA accuracy, the EvalAI
-result JSON and, where the dataset has annotation files, VQAEval
-(train_vqa.py:352-491).
+`Execution(cfg, device).run()` builds the dataset and loader and the
+genotype's `NetFull`, then
+
+- with RUN_MODE train, trains it (train_vqa.py:226-341): per step the
+  train-mode forward (every dropout site at DROPOUT_R, attention weights
+  included), the summed BCE-with-logits loss, the backward, the global-norm
+  clip at NET_GRAD_CLIP and a WarmupAdam step; per epoch the optimizer's
+  epoch hook, a checkpoint in the JAX package's pickle format (so either
+  package resumes from or evaluates it) and, with EVAL_EVERY_EPOCH, an
+  eval. RESUME starts from either package's checkpoint;
+- with RUN_MODE val|test, loads the pickled checkpoint at CKPT_FILE_PATH
+  (either package's) and evaluates: argmax predictions, the soft-score VQA
+  accuracy, the EvalAI result JSON and, where the dataset has annotation
+  files, VQAEval (train_vqa.py:352-491).
+
+One device, one process: the JAX package's division of the gradients by
+the number of data shards is a division by 1 here.
 """
 
 from __future__ import annotations
@@ -14,17 +25,20 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from mmnas_tpu.data.loader import Loader
-from mmnas_tpu.data.sampler import SubsetShardSampler
-from mmnas_tpu.genotype import load_genotype
-from mmnas_tpu_torch.models.convert import from_jax_params
+from mmnas_tpu_torch.data.loader import Loader
+from mmnas_tpu_torch.data.sampler import SubsetShardSampler
+from mmnas_tpu_torch.genotype import load_genotype
+from mmnas_tpu_torch.models.convert import (
+    from_jax_params, optim_state_from_jax, optim_state_to_jax, to_jax_params,
+)
 from mmnas_tpu_torch.models.net import INPUT_KEYS, NetFull, compute_dtype
-from mmnas_tpu_torch.train.checkpoint import load_checkpoint
+from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint, save_checkpoint
+from mmnas_tpu_torch.train.optimizer import WarmupAdam, build_net_optimizer, clip_by_global_norm
 from mmnas_tpu_torch.utils.logger import TextLogger, dump_result_json
 
 
@@ -35,10 +49,34 @@ class EvalResult:
     seconds: float              # wall time of the batch loop, loader included
 
 
-def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    """The model inputs of a host batch, as tensors on `device`."""
+@dataclass
+class TrainResult:
+    net: NetFull                # the trained net, on the device
+    opt_state: Dict             # the optimizer state after the last step
+    epoch_losses: List[float]   # per epoch: summed loss / examples seen
+    step_losses: List[float]    # per step: the batch's summed loss
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device,
+                    keys=INPUT_KEYS) -> Dict[str, torch.Tensor]:
+    """The arrays of a host batch under `keys` (default: the model inputs),
+    as tensors on `device`."""
     return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device, non_blocking=True)
-            for k in INPUT_KEYS if k in batch}
+            for k in keys if k in batch}
+
+
+def bce_with_logits_sum(logits, targets):
+    """torch.nn.BCEWithLogitsLoss(reduction='sum') (train_vqa.py:237), in the
+    JAX package's stable form max(x,0) - x t + log(1 + exp(-|x|))."""
+    per = torch.clamp(logits, min=0.0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    return per.sum()
+
+
+def step_seed(seed: int, global_step: int) -> int:
+    """The dropout seed of one train step: a function of the run's seed and
+    the step, so a resumed run draws what an uninterrupted one would (the
+    JAX package folds the step into its key, engine/vqa.py:182)."""
+    return ((seed + 1) * 1_000_003 + global_step) % 2**63
 
 
 class Execution:
@@ -51,16 +89,17 @@ class Execution:
     def build_dataset(self, run_mode: str):
         cfg = self.cfg
         if cfg.SYNTH:
-            from mmnas_tpu.data.synth import SynthVqaDataset
+            from mmnas_tpu_torch.data.synth import SynthVqaDataset
             return SynthVqaDataset(cfg, size=cfg.SYNTH_SIZE, seed=cfg.SEED)
-        from mmnas_tpu.data.vqa import VqaDataset
+        from mmnas_tpu_torch.data.vqa import VqaDataset
         return VqaDataset(cfg, run_mode)
 
-    def make_loader(self, dataset, batch_size: int) -> Loader:
-        """Eval loader: dataset order, one replica."""
+    def make_loader(self, dataset, batch_size: int, shuffle: bool = False) -> Loader:
+        """One replica; dataset order for eval, the epoch-seeded shuffle of
+        the shared sampler for training."""
         return Loader(
             dataset, batch_size,
-            sampler=SubsetShardSampler(len(dataset), shuffle=False),
+            sampler=SubsetShardSampler(len(dataset), shuffle=shuffle),
             num_workers=self.cfg.NUM_WORKERS)
 
     # ----------------------------------------------------------------- model
@@ -84,6 +123,84 @@ class Execution:
         ckpt = load_checkpoint(cfg.CKPT_FILE_PATH)
         net.load_state_dict(from_jax_params(ckpt["state_dict"]), strict=True)
         return net.to(self.device, compute_dtype(cfg)).eval()
+
+    # ----------------------------------------------------------------- train
+    def train_step(self, net: NetFull, optim, opt_state: Dict,
+                   params: Dict[str, torch.nn.Parameter], batch: Dict[str, torch.Tensor],
+                   generator: torch.Generator):
+        """One optimizer step on one device batch (mmnas_tpu/engine/vqa.py:115-126).
+        Returns (loss, lr); the loss stays on the device."""
+        cfg = self.cfg
+        logits = net(batch, train=True, generator=generator)
+        loss = bce_with_logits_sum(logits, batch["ans"])
+        names = list(params)
+        grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+        # a parameter the loss does not reach has a zero gradient, as in JAX
+        grads = [torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, grads)]
+        if cfg.NET_GRAD_CLIP > 0:
+            clip_by_global_norm(grads, cfg.NET_GRAD_CLIP)
+        lr = optim.step(opt_state, params, dict(zip(names, grads)))
+        return loss.detach(), lr
+
+    def train(self, train_loader: Loader, eval_loader: Optional[Loader] = None) -> TrainResult:
+        cfg = self.cfg
+        if compute_dtype(cfg) != torch.float32:
+            raise NotImplementedError(
+                "training runs in float32; bf16 training with fp32 master weights is not "
+                "ported yet (ROADMAP.md, queue 1 item 10)")
+        if cfg.CKPT_BACKEND != "pickle":
+            raise NotImplementedError("the port writes pickle checkpoints only")
+        net = self.build_net(train_loader.dataset).to(self.device)
+        params = dict(net.named_parameters())
+        epoch_steps = train_loader.steps_per_epoch()
+        optim = build_net_optimizer(cfg, epoch_steps)
+        opt_state = optim.init(params)
+        start_epoch = 0
+        if cfg.RESUME:
+            ckpt = load_checkpoint(cfg.CKPT_FILE_PATH)
+            net.load_state_dict(from_jax_params(ckpt["state_dict"]), strict=True)
+            opt_state = optim_state_from_jax(ckpt["net_optim"], self.device)
+            start_epoch = int(ckpt["epoch"])
+            opt_state = WarmupAdam.set_start_step(opt_state, start_epoch * epoch_steps)
+            print(f" ========== Resumed from {cfg.CKPT_FILE_PATH} @ epoch {start_epoch}")
+
+        generator = torch.Generator(self.device)
+        global_step = start_epoch * epoch_steps
+        epoch_losses, step_losses = [], []
+        for epoch in range(start_epoch, cfg.MAX_EPOCH):
+            train_loader.sampler.set_epoch(epoch)
+            opt_state = optim.epoch_hook(opt_state, epoch)
+            # losses stay on the device until the epoch ends: reading one per
+            # step would wait for the device every step
+            losses, t0, lr = [], time.time(), 0.0
+            for step, host_batch in enumerate(train_loader):
+                batch = batch_to_device(host_batch, self.device, INPUT_KEYS + ("ans",))
+                generator.manual_seed(step_seed(cfg.SEED, global_step))
+                loss, lr = self.train_step(net, optim, opt_state, params, batch, generator)
+                losses.append(loss)
+                global_step += 1
+                if cfg.DEBUG:
+                    print(step, float(loss) / cfg.BATCH_SIZE)
+            epoch_step_losses = torch.stack(losses).tolist() if losses else []
+            step_losses += epoch_step_losses
+            loss_sum = sum(epoch_step_losses)
+            epoch_finish = epoch + 1
+            dt = time.time() - t0
+            n_seen = epoch_steps * cfg.BATCH_SIZE
+            msg = (f"epoch = {epoch_finish}  loss = {loss_sum / max(n_seen, 1):.6f}  "
+                   f"lr = {float(lr):.8f}  ips = {n_seen / dt:.1f}")
+            print(msg)
+            self.logger.write(msg)
+            epoch_losses.append(loss_sum / max(n_seen, 1))
+
+            if epoch_finish % cfg.CKPT_EVERY == 0 or epoch_finish == cfg.MAX_EPOCH:
+                save_checkpoint(ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, epoch_finish),
+                                {"state_dict": to_jax_params(net),
+                                 "net_optim": optim_state_to_jax(opt_state, net),
+                                 "epoch": epoch_finish})
+            if eval_loader is not None and cfg.EVAL_EVERY_EPOCH:
+                self.eval(eval_loader, net=net, valid=True)
+        return TrainResult(net, opt_state, epoch_losses, step_losses)
 
     # ------------------------------------------------------------------ eval
     def eval(self, eval_loader: Loader, net: Optional[NetFull] = None,
@@ -127,7 +244,7 @@ class Execution:
             print(msg)
             self.logger.write(msg)
         if qid_list is not None and getattr(dataset, "has_annotations", False):
-            from mmnas_tpu.utils.vqa_eval import evaluate_result_file
+            from mmnas_tpu_torch.utils.vqa_eval import evaluate_result_file
             stats = evaluate_result_file(dataset, preds)
             if stats:
                 msg = ("VQAEval overall = {overall:.2f}  perAnswerType = {perAnswerType}"
@@ -138,11 +255,16 @@ class Execution:
         return EvalResult(accuracy, preds, seconds)
 
     # ------------------------------------------------------------------- run
-    def run(self) -> EvalResult:
+    def run(self):
+        """RUN train -> TrainResult; RUN val|test -> EvalResult."""
         cfg = self.cfg
         if cfg.RUN_MODE == "train":
-            raise NotImplementedError(
-                "fixed-net training is not ported yet (ROADMAP.md, queue 1 item 10)")
+            train_loader = self.make_loader(self.build_dataset("train"), cfg.BATCH_SIZE,
+                                            shuffle=True)
+            eval_loader = None
+            if cfg.EVAL_EVERY_EPOCH:
+                eval_loader = self.make_loader(self.build_dataset("val"), cfg.EVAL_BATCH_SIZE)
+            return self.train(train_loader, eval_loader)
         eval_set = self.build_dataset(cfg.RUN_MODE)
         eval_loader = self.make_loader(eval_set, cfg.EVAL_BATCH_SIZE)
         return self.eval(eval_loader, valid=(cfg.RUN_MODE == "val"))

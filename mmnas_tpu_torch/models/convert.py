@@ -7,12 +7,18 @@ cells as nested lists. The port's modules carry the same names, with
 Linear and LSTM weights transposed to torch's [out, in]. Every JAX leaf is
 consumed exactly once: a leaf that fits no rule raises here, and a missing
 or extra one raises in `load_state_dict(strict=True)`.
+
+The optimizer state goes through the same per-leaf rules: its params-shaped
+trees (Adam's moments "m", "v" and per-leaf step counts "t", SGD's "v")
+become dicts keyed by parameter name, the moments transposed like their
+parameters, the 0-d step counts as ints; its scalars ("step", "lr_base",
+"epoch") stay scalars.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -25,11 +31,13 @@ _LSTM_KEYS = {"w_ih", "w_hh", "b_ih", "b_hh"}
 
 def _t(x, transpose: bool = False) -> torch.Tensor:
     a = np.asarray(x)
-    return torch.tensor(a.T if transpose else a)           # a copy, contiguous
+    return torch.tensor(a.T if transpose else a)           # a copy, contiguous; 0-d stays 0-d
 
 
 def from_jax_params(tree) -> "OrderedDict[str, torch.Tensor]":
-    """JAX param pytree (of numpy arrays) -> state_dict for the port."""
+    """JAX param pytree (of numpy arrays) -> state_dict for the port. A tree
+    of 0-d leaves in the params' structure (the optimizer's step counts)
+    maps name by name, with nothing to transpose."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
 
     def walk(node: Any, prefix: str) -> None:
@@ -42,7 +50,7 @@ def from_jax_params(tree) -> "OrderedDict[str, torch.Tensor]":
                 sd[prefix + "a"] = _t(node["a"])
                 sd[prefix + "b"] = _t(node["b"])
             elif "w" in keys and keys <= {"w", "b"}:              # Linear
-                if np.ndim(node["w"]) != 2:
+                if np.ndim(node["w"]) not in (0, 2):
                     raise ValueError(f"{prefix}w: expected a 2-d Linear weight, "
                                      f"got shape {np.shape(node['w'])}")
                 sd[prefix + "weight"] = _t(node["w"], transpose=True)
@@ -65,33 +73,70 @@ def from_jax_params(tree) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
-def to_jax_params(module: nn.Module) -> Dict:
+def to_jax_params(module: nn.Module, values: Optional[Mapping[str, Any]] = None) -> Dict:
     """The port's module -> JAX param pytree of fp32 numpy arrays, the
-    inverse of `from_jax_params`."""
+    inverse of `from_jax_params`. With `values` (parameter name -> tensor or
+    int), the tree holds those values in place of the parameters: tensors
+    as fp32 arrays transposed like their parameters, ints as 0-d int32."""
 
-    def arr(p: torch.Tensor, transpose: bool = False) -> np.ndarray:
-        a = p.detach().to("cpu", torch.float32).numpy()
+    def arr(name: str, p: torch.Tensor, transpose: bool = False) -> np.ndarray:
+        x = p if values is None else values[name]
+        if not isinstance(x, torch.Tensor):
+            return np.asarray(x, np.int32)
+        a = x.detach().to("cpu", torch.float32).numpy()
         return np.ascontiguousarray(a.T if transpose else a)
 
-    def walk(m: nn.Module):
+    def walk(m: nn.Module, prefix: str):
         if isinstance(m, nn.Linear):
-            out = {"w": arr(m.weight, transpose=True)}
+            out = {"w": arr(prefix + "weight", m.weight, transpose=True)}
             if m.bias is not None:
-                out["b"] = arr(m.bias)
+                out["b"] = arr(prefix + "bias", m.bias)
             return out
         if isinstance(m, LayerNorm):
-            return {"a": arr(m.a), "b": arr(m.b)}
+            return {"a": arr(prefix + "a", m.a), "b": arr(prefix + "b", m.b)}
         if isinstance(m, LSTM):
-            return {"w_ih": arr(m.w_ih, True), "w_hh": arr(m.w_hh, True),
-                    "b_ih": arr(m.b_ih), "b_hh": arr(m.b_hh)}
+            return {"w_ih": arr(prefix + "w_ih", m.w_ih, True),
+                    "w_hh": arr(prefix + "w_hh", m.w_hh, True),
+                    "b_ih": arr(prefix + "b_ih", m.b_ih), "b_hh": arr(prefix + "b_hh", m.b_hh)}
         if isinstance(m, nn.Embedding):
-            return arr(m.weight)
+            return arr(prefix + "weight", m.weight)
         if isinstance(m, nn.ModuleList):
-            return [walk(c) for c in m]
+            return [walk(c, f"{prefix}{i}.") for i, c in enumerate(m)]
         own = list(m.named_parameters(recurse=False))
         if own:
             raise ValueError(f"{type(m).__name__} holds parameters "
                              f"{[n for n, _ in own]} with no JAX counterpart")
-        return {name: walk(c) for name, c in m.named_children()}
+        return {name: walk(c, f"{prefix}{name}.") for name, c in m.named_children()}
 
-    return walk(module)
+    return walk(module, "")
+
+
+def optim_state_from_jax(state: Mapping[str, Any], device=None) -> Dict:
+    """The JAX optimizer state pytree (WarmupAdam or MomentumSGD, numpy
+    leaves) -> the port's optimizer state, tensors on `device`."""
+    out = {}
+    for key, val in state.items():
+        if isinstance(val, (dict, list, tuple)):
+            sd = from_jax_params(val)
+            out[key] = {n: (int(t) if t.dim() == 0 and not t.is_floating_point()
+                            else t.to(device)) for n, t in sd.items()}
+        elif np.issubdtype(np.asarray(val).dtype, np.integer):
+            out[key] = int(val)
+        else:
+            out[key] = np.float32(val)
+    return out
+
+
+def optim_state_to_jax(state: Mapping[str, Any], module: nn.Module) -> Dict:
+    """The port's optimizer state -> the JAX package's pytree (fp32 numpy
+    moments in the params' layout, int32 step counts, fp32 lr), the inverse
+    of `optim_state_from_jax`."""
+    out = {}
+    for key, val in state.items():
+        if isinstance(val, dict):
+            out[key] = to_jax_params(module, values=val)
+        elif isinstance(val, (int, np.integer)):
+            out[key] = np.asarray(val, np.int32)
+        else:
+            out[key] = np.asarray(val, np.float32)
+    return out

@@ -20,7 +20,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from mmnas_tpu.genotype import Genotype
+from mmnas_tpu_torch.genotype import Genotype
 from mmnas_tpu_torch.ops import primitives as P
 from mmnas_tpu_torch.ops.modules import AttFlat, OpCfg
 from mmnas_tpu_torch.ops.registry import make_op

@@ -1,22 +1,39 @@
-"""Fused SA / GA / RSA attention forward: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Fused SA / GA / RSA attention: the CUDA kernels' wrappers, their plain
+PyTorch versions, and the autograd Function that ties them together.
 
-Counterpart of mmnas_tpu/ops/pallas_attention.py (forward, no dropout). The
-kernel is `csrc/fused_attention_fwd.cu`, built with nvcc at first use and
-called through ctypes. Per (batch, head) it computes
+Counterpart of mmnas_tpu/ops/pallas_attention.py. Per (batch, head):
 
     s = q k^T / sqrt(d)  (+ log_bias | + RSA bias from the raw geometry)
                          (+ additive -1e9 pad row)
-    o = softmax(s) v     (fp32 softmax, fp32 accumulation)
+    a = softmax(s)       (fp32)
+    o = (a * keep / (1 - r)) v    (keep: the attention-dropout mask, train only)
 
-Dispatch follows the tensor: a CUDA tensor launches the kernel (or raises),
-a CPU tensor takes `fused_attention_reference`. The kernel adds the -1e9 pad
-row to the scores while the plain version replaces masked scores with -1e9
+The kernels live in `csrc/`, are built with nvcc at first use and are
+called through ctypes:
+
+- `fused_attention_fwd` (csrc/fused_attention_fwd.cu): the forward without
+  dropout (replaces `_fwd_kernel`, pallas_attention.py:173-213);
+- `fused_attention_fwd_dropout`: the same kernel drawing the keep mask with
+  a counter-based Philox4x32-10 (key: a 64-bit seed, counter: (j, i, b*H+h))
+  and emitting it as a uint8 [B,H,Lq,Lk] residual (replaces the dropout
+  variant, :201-210);
+- `fused_attention_bwd` (csrc/fused_attention_bwd.cu): dq, dk, dv, dbias
+  and, with the RSA chain, dpre = d s / d pre (replaces `_bwd_kernel`,
+  :325-467, without its relation reductions);
+- `fused_attention_bwd_rel`: the relation pass, per (batch, row chunk) the
+  gradients of W1, b1, Wr, br as partials, and the raw geometry's gradient
+  when asked for (the relation half of `_bwd_kernel`).
+
+`FusedAttentionFn` is the counterpart of the custom VJP (:572-599).
+Dispatch follows the tensor: a CUDA tensor goes through the kernels (or
+raises), a CPU tensor through `fused_attention_reference`, whose autograd
+is the plain backward. The kernels add the -1e9 pad row to the scores while
+the plain version replaces masked scores with -1e9
 (mmnas_tpu/ops/primitives.py:113-117); the two agree whenever a row has at
 least one valid key.
 
-`LAUNCHES` counts kernel launches, so a run can show that its attention
-went through the kernel.
+`LAUNCHES` counts launches per kernel, so a run can show that its attention
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -25,16 +42,24 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from mmnas_tpu_torch.ops.primitives import mask_scores
 
-MAX_REL_CHANNELS = 8  # raw geometry channels the kernel holds in registers
+MAX_REL_CHANNELS = 8  # raw geometry channels the kernels hold in registers
+MAX_REL_HEADS = 16    # heads the relation pass holds in registers
 
-LAUNCHES = 0
+LAUNCHES = {"fused_attention_fwd": 0, "fused_attention_fwd_dropout": 0,
+            "fused_attention_bwd": 0, "fused_attention_bwd_rel": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_REL_ROWS = 4  # query rows per block of the relation pass: 1600 blocks at B 64, L 100
 
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 def rsa_log_bias(raw, w1, b1, wr, br):
     """The RSA bias chain from the raw geometry tensor, materialized in fp32:
@@ -46,58 +71,197 @@ def rsa_log_bias(raw, w1, b1, wr, br):
     return torch.log(torch.clamp(r, min=1e-6)).permute(0, 3, 1, 2)
 
 
-def fused_attention_reference(q, k, v, mask=None, log_bias=None, *, rel=None):
-    """Plain PyTorch version of the kernel, with the same arguments as
-    `fused_attention`: the bias chain is materialized, scores and softmax
-    are fp32, the probabilities are rounded to v's dtype before the a.v
-    product (as mmnas_tpu/ops/attention.py:152 does) and the output takes
-    q's dtype."""
+def fused_attention_reference(q, k, v, mask=None, log_bias=None, *, rel=None,
+                              keep=None, dropout_r: float = 0.0):
+    """Plain PyTorch version of the kernels, with the arguments of
+    `fused_attention` plus a given keep mask (bool or 0/1 [B,H,Lq,Lk]) that
+    is applied as `a * keep / (1 - dropout_r)`: the bias chain is
+    materialized, scores and softmax are fp32, the (dropped-out)
+    probabilities are rounded to v's dtype before the a.v product (as
+    mmnas_tpu/ops/attention.py:152 does) and the output takes q's dtype.
+    Autograd through it is the plain backward."""
     if rel is not None:
         log_bias = rsa_log_bias(*rel)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if log_bias is not None:
         scores = scores + log_bias.float()
-    att = torch.softmax(mask_scores(scores, mask), dim=-1).to(v.dtype)
+    att = torch.softmax(mask_scores(scores, mask), dim=-1)
+    if keep is not None:
+        att = att * keep.float() / (1.0 - dropout_r)
+    att = att.to(v.dtype)
     return torch.matmul(att.float(), v.float()).to(q.dtype)
 
 
-def fused_attention(q, k, v, mask=None, log_bias=None, *, rel=None):
+def relation_bwd_reference(raw, w1, b1, wr, br, dpre, need_draw: bool = False):
+    """Plain version of the relation pass: autograd of the relation chain
+    pre = relu(raw W1^T + b1) Wr^T + br ([B,H,Lq,Lk] after the permute)
+    for the cotangent dpre, in fp32. Returns (draw or None, dW1, db1, dWr,
+    dbr) in fp32."""
+    leaves = [t.detach().float().requires_grad_() for t in (raw, w1, b1, wr, br)]
+    x, w1f, b1f, wrf, brf = leaves
+    pre = (torch.matmul(torch.relu(torch.matmul(x, w1f.t()) + b1f), wrf.t()) + brf)
+    grads = torch.autograd.grad(pre.permute(0, 3, 1, 2), leaves if need_draw else leaves[1:],
+                                dpre.float())
+    return tuple(grads) if need_draw else (None, *grads)
+
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def philox4x32_10(counter, seed: int):
+    """Philox4x32-10 (Salmon et al., SC'11) in numpy: counter uint32 [..., 4],
+    key = the 64-bit seed -> uint32 [..., 4]. The plain version of the bits
+    the dropout kernel draws."""
+    mask32 = np.uint64(0xFFFFFFFF)
+    x = [np.asarray(counter, np.uint64)[..., i] for i in range(4)]
+    k0, k1 = np.uint64(seed & 0xFFFFFFFF), np.uint64((seed >> 32) & 0xFFFFFFFF)
+    m0, m1 = np.uint64(_PHILOX_M[0]), np.uint64(_PHILOX_M[1])
+    for _ in range(10):
+        p0, p1 = m0 * x[0], m1 * x[2]
+        x = [(p1 >> np.uint64(32)) ^ x[1] ^ k0, p1 & mask32,
+             (p0 >> np.uint64(32)) ^ x[3] ^ k1, p0 & mask32]
+        k0 = (k0 + np.uint64(_PHILOX_W[0])) & mask32
+        k1 = (k1 + np.uint64(_PHILOX_W[1])) & mask32
+    return np.stack(x, axis=-1).astype(np.uint32)
+
+
+def keep_threshold(dropout_r: float) -> int:
+    """Keep an element when its 32 random bits are below (1 - r) 2^32
+    (pallas_attention.py:205-207)."""
+    return min(int((1.0 - dropout_r) * 4294967296.0), 4294967295)
+
+
+def keep_mask_reference(seed: int, B: int, H: int, Lq: int, Lk: int, dropout_r: float):
+    """The keep mask [B,H,Lq,Lk] (bool) that the dropout kernel draws for
+    `seed`: the first word of Philox4x32-10 at counter (j, i, b*H+h, 0)."""
+    bh, i, j = np.meshgrid(np.arange(B * H), np.arange(Lq), np.arange(Lk), indexing="ij")
+    counter = np.stack([j, i, bh, np.zeros_like(j)], axis=-1)
+    bits = philox4x32_10(counter, seed)[..., 0]
+    return torch.from_numpy(bits < keep_threshold(dropout_r)).reshape(B, H, Lq, Lk)
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """A 64-bit dropout seed from a CUDA `generator`, on the host with no
+    device sync: the generator's seed and Philox offset live on the host, so
+    the seed is the two mixed, and the offset is advanced as one of the
+    generator's own draws would."""
+    offset = generator.get_offset()
+    generator.set_offset(offset + 4)
+    x = (generator.initial_seed() * 0x9E3779B97F4A7C15 + offset) & (2**64 - 1)
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & (2**64 - 1)   # splitmix64 finalizer
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & (2**64 - 1)
+    return x ^ (x >> 31)
+
+
+# ---------------------------------------------------------------------------
+# entry point
+# ---------------------------------------------------------------------------
+
+def fused_attention(q, k, v, mask=None, log_bias=None, *, rel=None,
+                    dropout_r: float = 0.0, generator=None):
     """q [B,H,Lq,D]; k, v [B,H,Lk,D]; mask [B,1,1,Lk] bool (True = pad);
     log_bias [B,H,Lq,Lk] additive pre-softmax bias; rel (RSA fusion):
     (raw [B,Lq,Lk,Rr], W1 [R,Rr], b1 [R], Wr [H,R], br [H]), the whole bias
-    chain computed in the kernel. Returns o [B,H,Lq,D] in q's dtype."""
+    chain computed in the kernels. dropout_r > 0 applies attention-weight
+    dropout with a mask drawn from `generator` (a CPU tensor draws the mask
+    itself, a CUDA tensor a seed for the kernel). Returns o [B,H,Lq,D] in
+    q's dtype, differentiable in q, k, v, log_bias and the rel weights."""
     if rel is not None and log_bias is not None:
         raise ValueError("pass log_bias or rel, not both")
+    if dropout_r > 0.0 and generator is None:
+        raise ValueError("attention dropout needs a generator")
     if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, mask, log_bias, rel=rel)
-    return _launch(q, k, v, mask, log_bias, rel)
+        keep = None
+        if dropout_r > 0.0:
+            shape = (q.shape[0], q.shape[1], q.shape[2], k.shape[2])
+            keep = torch.rand(shape, generator=generator) < 1.0 - dropout_r
+        return fused_attention_reference(q, k, v, mask, log_bias, rel=rel, keep=keep,
+                                         dropout_r=dropout_r)
+    if dropout_r > 0.0 and generator.device.type != q.device.type:
+        raise ValueError(f"attention dropout of a {q.device.type} tensor needs a generator "
+                         f"on that device, got one on {generator.device}")
+    seed = draw_seed(generator) if dropout_r > 0.0 else 0
+    raw, w1, b1, wr, br = rel if rel is not None else (None,) * 5
+    return FusedAttentionFn.apply(q, k, v, mask, log_bias, raw, w1, b1, wr, br,
+                                  float(dropout_r), seed)
+
+
+class FusedAttentionFn(torch.autograd.Function):
+    """The kernels' forward and backward as one differentiable op
+    (counterpart of `_fused`, pallas_attention.py:572-599). The forward
+    saves its inputs and the keep mask; the backward recomputes the
+    probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, log_bias, raw, w1, b1, wr, br, dropout_r, seed):
+        rel = None if raw is None else (raw, w1, b1, wr, br)
+        out, keep = attention_fwd(q, k, v, mask, log_bias, rel, dropout_r, seed)
+        ctx.save_for_backward(q, k, v, mask, log_bias, raw, w1, b1, wr, br, keep)
+        ctx.dropout_r = dropout_r
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask, log_bias, raw, w1, b1, wr, br, keep = ctx.saved_tensors
+        rel = None if raw is None else (raw, w1, b1, wr, br)
+        # the production path never differentiates the geometry (input data)
+        need_draw = raw is not None and ctx.needs_input_grad[5]
+        dq, dk, dv, dbias, drel = attention_bwd(q, k, v, mask, log_bias, rel, keep,
+                                                ctx.dropout_r, do.contiguous(), need_draw)
+        drel = drel if drel is not None else (None,) * 5
+        return (dq, dk, dv, None, dbias, *drel, None, None)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _library(name):
+    from mmnas_tpu_torch.csrc import build
+
+    path, _ = build.build(name)
+    return ctypes.CDLL(str(path))
 
 
 @functools.cache
-def _kernel():
-    from mmnas_tpu_torch.csrc import build
-
-    path, _ = build.build("fused_attention_fwd")
-    fn = ctypes.CDLL(str(path)).mmnas_fused_attention_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+def _fwd_kernel():
+    fn = _library("fused_attention_fwd").mmnas_fused_attention_fwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(t, name, shape, like):
+@functools.cache
+def _bwd_kernels():
+    lib = _library("fused_attention_bwd")
+    bwd = lib.mmnas_fused_attention_bwd
+    bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
+                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    bwd.restype = ctypes.c_int
+    rel = lib.mmnas_fused_attention_bwd_rel
+    rel.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                    + [ctypes.c_void_p])
+    rel.restype = ctypes.c_int
+    return bwd, rel
+
+
+def _check(t, name, shape, like, dtype=None):
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, q on {like.device}")
-    if t.dtype != like.dtype:
-        raise TypeError(f"{name} is {t.dtype}, q is {like.dtype}")
+    if t.dtype != (dtype or like.dtype):
+        raise TypeError(f"{name} is {t.dtype}, expected {dtype or like.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(q, k, v, mask, log_bias, rel):
-    global LAUNCHES
+def _validate(q, k, v, mask, log_bias, rel):
+    """Checks what the kernels take; returns (B, H, Lq, Lk, D, Rr, R)."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention has no kernel for device {q.device}")
     if q.dtype not in _DTYPE_CODES:
@@ -106,7 +270,7 @@ def _launch(q, k, v, mask, log_bias, rel):
         raise ValueError("q, k, v must be [B, H, L, D]")
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
-    if min(B, H, Lq, Lk, D) < 1 or B > 65535 or H > 65535:
+    if min(B, H, Lq, Lk, D) < 1 or B > 65535 or H > 65535 or Lq > 65535 or Lk > 65535:
         raise ValueError(f"unsupported attention shape q {tuple(q.shape)}, k {tuple(k.shape)}")
     _check(q, "q", (B, H, Lq, D), q)
     _check(k, "k", (B, H, Lk, D), q)
@@ -117,7 +281,6 @@ def _launch(q, k, v, mask, log_bias, rel):
                              or mask.device != q.device or not mask.is_contiguous()):
         raise ValueError(f"mask must be a contiguous bool [B,1,1,Lk] on {q.device}, got "
                          f"{mask.dtype} {tuple(mask.shape)} on {mask.device}")
-    raw = w1 = b1 = wr = br = None
     Rr = R = 0
     if rel is not None:
         raw, w1, b1, wr, br = rel
@@ -131,17 +294,109 @@ def _launch(q, k, v, mask, log_bias, rel):
         _check(b1, "b1", (R,), q)
         _check(wr, "Wr", (H, R), q)
         _check(br, "br", (H,), q)
+    return B, H, Lq, Lk, D, Rr, R
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def attention_fwd(q, k, v, mask=None, log_bias=None, rel=None, dropout_r: float = 0.0,
+                  seed: int = 0):
+    """Launch the forward kernel: o [B,H,Lq,D] in q's dtype and, with
+    dropout_r > 0, the keep mask it drew for `seed` (uint8 [B,H,Lq,Lk];
+    else None)."""
+    B, H, Lq, Lk, D, Rr, R = _validate(q, k, v, mask, log_bias, rel)
+    if not 0.0 <= dropout_r < 1.0:
+        raise ValueError(f"dropout rate {dropout_r} outside [0, 1)")
+    raw, w1, b1, wr, br = rel if rel is not None else (None,) * 5
     out = torch.empty_like(q)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    keep = (torch.empty((B, H, Lq, Lk), dtype=torch.uint8, device=q.device)
+            if dropout_r > 0.0 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(_DTYPE_CODES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(log_bias),
-                        ptr(mask), ptr(raw), ptr(w1), ptr(b1), ptr(wr), ptr(br),
-                        ptr(out), B, H, Lq, Lk, D, Rr, R, 1.0 / math.sqrt(D), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_attention_fwd launch failed with CUDA error {err}")
-    LAUNCHES += 1
-    return out
+        err = _fwd_kernel()(_DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(log_bias),
+                            _ptr(mask), _ptr(raw), _ptr(w1), _ptr(b1), _ptr(wr), _ptr(br),
+                            _ptr(out), _ptr(keep), B, H, Lq, Lk, D, Rr, R,
+                            1.0 / math.sqrt(D), seed & (2**64 - 1),
+                            keep_threshold(dropout_r) if keep is not None else 0,
+                            1.0 - dropout_r, stream)
+    name = "fused_attention_fwd_dropout" if keep is not None else "fused_attention_fwd"
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out, keep
+
+
+def attention_bwd(q, k, v, mask, log_bias, rel, keep, dropout_r: float, do,
+                  need_draw: bool = False):
+    """Launch the backward kernel (and, with rel, the relation pass) for the
+    forward on the same inputs and keep mask. Returns (dq, dk, dv, dbias,
+    drel): dbias is None without log_bias; drel is None without rel, else
+    (draw or None, dW1, db1, dWr, dbr) in the layouts and dtypes of rel."""
+    B, H, Lq, Lk, D, Rr, R = _validate(q, k, v, mask, log_bias, rel)
+    _check(do, "do", (B, H, Lq, D), q)
+    if (keep is None) != (dropout_r <= 0.0):
+        raise ValueError("pass a keep mask exactly when dropout_r > 0")
+    if keep is not None:
+        _check(keep, "keep", (B, H, Lq, Lk), q, dtype=torch.uint8)
+    if rel is not None and H > MAX_REL_HEADS:
+        raise ValueError(f"the relation pass takes at most {MAX_REL_HEADS} heads, got {H}")
+    raw, w1, b1, wr, br = rel if rel is not None else (None,) * 5
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty_like(log_bias) if log_bias is not None else None
+    dpre = (torch.empty((B, H, Lq, Lk), dtype=torch.float32, device=q.device)
+            if rel is not None else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_kernels()[0](
+            _DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(log_bias), _ptr(mask),
+            _ptr(raw), _ptr(w1), _ptr(b1), _ptr(wr), _ptr(br), _ptr(keep), _ptr(do),
+            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(dpre),
+            B, H, Lq, Lk, D, Rr, R, 1.0 / math.sqrt(D), 1.0 - dropout_r, stream)
+    _raise_on(err, "fused_attention_bwd")
+    LAUNCHES["fused_attention_bwd"] += 1
+    drel = None if rel is None else relation_bwd(raw, w1, b1, wr, br, dpre, need_draw)
+    return dq, dk, dv, dbias, drel
+
+
+def relation_bwd(raw, w1, b1, wr, br, dpre, need_draw: bool = False):
+    """Launch the relation pass for the cotangent dpre [B,H,Lq,Lk] (fp32) of
+    pre = relu(raw W1^T + b1) Wr^T + br. Returns (draw or None, dW1, db1,
+    dWr, dbr) in the layouts and dtypes of raw, w1, b1, wr, br."""
+    B, Lq, Lk, Rr = raw.shape
+    R, H = w1.shape[0], wr.shape[0]
+    if raw.device.type != "cuda" or raw.dtype not in _DTYPE_CODES:
+        raise ValueError(f"the relation pass takes float32/bfloat16 CUDA tensors, got "
+                         f"{raw.dtype} on {raw.device}")
+    if not 1 <= Rr <= MAX_REL_CHANNELS or H > MAX_REL_HEADS:
+        raise ValueError(f"the relation pass takes 1..{MAX_REL_CHANNELS} channels and at most "
+                         f"{MAX_REL_HEADS} heads, got {Rr} and {H}")
+    _check(w1, "W1", (R, Rr), raw)
+    _check(b1, "b1", (R,), raw)
+    _check(wr, "Wr", (H, R), raw)
+    _check(br, "br", (H,), raw)
+    _check(dpre, "dpre", (B, H, Lq, Lk), raw, dtype=torch.float32)
+    chunks = -(-Lq // _REL_ROWS)
+    f32 = dict(dtype=torch.float32, device=raw.device)
+    dw1_p = torch.empty((B, chunks, R, Rr), **f32)
+    db1_p = torch.empty((B, chunks, R), **f32)
+    dwr_p = torch.empty((B, chunks, H, R), **f32)
+    dbr_p = torch.empty((B, chunks, H), **f32)
+    draw = torch.empty((B, Lq, Lk, Rr), **f32) if need_draw else None
+    with torch.cuda.device(raw.device):
+        stream = torch.cuda.current_stream(raw.device).cuda_stream
+        err = _bwd_kernels()[1](_DTYPE_CODES[raw.dtype], _ptr(raw), _ptr(w1), _ptr(b1), _ptr(wr),
+                                _ptr(dpre), _ptr(dw1_p), _ptr(db1_p), _ptr(dwr_p), _ptr(dbr_p),
+                                _ptr(draw), B, H, Lq, Lk, Rr, R, _REL_ROWS, stream)
+    _raise_on(err, "fused_attention_bwd_rel")
+    LAUNCHES["fused_attention_bwd_rel"] += 1
+    # per-(batch, row chunk) partials, summed here in a fixed order (as
+    # pallas_attention.py:558-564 sums its per-batch partials)
+    return (None if draw is None else draw.to(raw.dtype),
+            dw1_p.sum(dim=(0, 1)).to(w1.dtype), db1_p.sum(dim=(0, 1)).to(b1.dtype),
+            dwr_p.sum(dim=(0, 1)).to(wr.dtype), dbr_p.sum(dim=(0, 1)).to(br.dtype))

@@ -85,18 +85,18 @@ class MHAtt(nn.Module):
         if with_rel:
             self.wr = nn.Linear(cfg.rel_size, self.n_heads)
 
-    def attend(self, v, k, q, mask, train, rel=None):
+    def attend(self, v, k, q, mask, train, generator, rel=None):
         vh = _split_heads(self.wv(v), self.n_heads)
         kh = _split_heads(self.wk(k), self.n_heads)
         qh = _split_heads(self.wq(q), self.n_heads)
-        atted = scaled_dot_attention(qh, kh, vh, mask, rel=rel,
-                                     dropout_r=self.dropout_r, train=train)
+        atted = scaled_dot_attention(qh, kh, vh, mask, rel=rel, dropout_r=self.dropout_r,
+                                     train=train, generator=generator)
         return self.wm(_merge_heads(atted))
 
 
 class SelfAtt(MHAtt):
     def forward(self, x, y, x_mask, y_mask, rel, train=False, generator=None):
-        return self.attend(x, x, x, x_mask, train)
+        return self.attend(x, x, x, x_mask, train, generator)
 
 
 class RelSelfAtt(MHAtt):
@@ -109,7 +109,7 @@ class RelSelfAtt(MHAtt):
 
     def forward(self, x, y, x_mask, y_mask, rel, train=False, generator=None):
         fused = (rel["raw"], rel["w1"], rel["b1"], self.wr.weight, self.wr.bias)
-        return self.attend(x, x, x, x_mask, train, rel=fused)
+        return self.attend(x, x, x, x_mask, train, generator, rel=fused)
 
 
 class GuidedAtt(MHAtt):
@@ -117,7 +117,7 @@ class GuidedAtt(MHAtt):
     (modules.py:331-336)."""
 
     def forward(self, x, y, x_mask, y_mask, rel, train=False, generator=None):
-        return self.attend(y, y, x, y_mask, train)
+        return self.attend(y, y, x, y_mask, train, generator)
 
 
 class FeedForward(P.MLP):

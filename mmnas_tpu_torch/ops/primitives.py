@@ -53,9 +53,13 @@ class LayerNorm(nn.Module):
 
 def dropout(x, rate: float, train: bool, generator: Optional[torch.Generator] = None):
     """Inverted dropout (torch semantics). No-op when eval or rate == 0.
-    The keep mask is drawn from `generator` (on x's device)."""
+    The keep mask is drawn from `generator`, which lives on x's device (a
+    CPU generator cannot draw a CUDA tensor)."""
     if not train or rate <= 0.0:
         return x
+    if generator is not None and generator.device.type != x.device.type:
+        raise ValueError(f"dropout of a {x.device.type} tensor needs a generator on that "
+                         f"device, got one on {generator.device}")
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))

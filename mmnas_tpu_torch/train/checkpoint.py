@@ -4,7 +4,8 @@ A checkpoint is `{state_dict, net_optim, epoch}` with pytrees of numpy
 arrays, pickled (mmnas_tpu/train/checkpoint.py:53-83). The port reads and
 writes exactly that, so the two packages read each other's checkpoints:
 models/convert.py turns the `state_dict` tree into the port's modules and
-back. The orbax backend is not ported.
+the `net_optim` tree into the port's optimizer state, and back. The orbax
+backend is not ported.
 """
 
 from __future__ import annotations
@@ -30,3 +31,8 @@ def load_checkpoint(path: str) -> Dict:
     with open(path, "rb") as f:
         return pickle.load(f)
 
+
+def ckpt_path(ckpt_root: str, version: str, epoch: int) -> str:
+    """Reference naming: <root><version>_epoch<N>.pkl (train_vqa.py:321;
+    mmnas_tpu/train/checkpoint.py:86 with the pickle backend)."""
+    return os.path.join(ckpt_root, f"{version}_epoch{epoch}.pkl")

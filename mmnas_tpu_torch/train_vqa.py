@@ -1,19 +1,22 @@
-"""Fixed-architecture VQA eval CLI of the PyTorch port, on one CUDA GPU.
+"""Fixed-architecture VQA CLI of the PyTorch port, on one CUDA GPU.
 
 The same flags as the JAX package's train_vqa.py (reference train_vqa.py:23-79):
 
+    python -m mmnas_tpu_torch.train_vqa --RUN train --SYNTH \
+        --ARCH_PATH ./arch/mmnas_vqa.json
     python -m mmnas_tpu_torch.train_vqa --RUN val --SYNTH \
         --ARCH_PATH ./arch/mmnas_vqa.json --CKPT_PATH logs/ckpts/train_vqa-full_epoch13.pkl
 
-Checkpoints are the pickled numpy pytrees either package writes. Training
-(--RUN train) and --MULTIHOST are not ported yet.
+Checkpoints are the pickled numpy pytrees either package writes; --RESUME
+--CKPT_PATH continues from either package's. Training runs in float32;
+--MULTIHOST is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mmnas_tpu.config import cfg_from_args, make_arg_parser
+from mmnas_tpu_torch.config import cfg_from_args, make_arg_parser
 from mmnas_tpu_torch.engine.vqa import Execution
 
 
@@ -22,7 +25,7 @@ def main(argv=None):
     if args.MULTIHOST:
         raise NotImplementedError("--MULTIHOST is not ported (ROADMAP.md, queue 1 item 12)")
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port's eval runs on the GPU")
+        raise RuntimeError("no CUDA device: the port runs on the GPU")
     cfg = cfg_from_args("vqa", args)
     print("Use the GENOTYPE PATH:", cfg.ARCH_PATH)
     print("Use the GENOTYPE EPOCH:", cfg.GENO_EPOCH)

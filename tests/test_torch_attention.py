@@ -3,16 +3,25 @@
 The port's plain `fused_attention_reference` (what a CPU tensor takes) and
 `scaled_dot_attention` are held against the JAX jnp `scaled_dot_attention`
 for SA, GA (Lq != Lk), bias and mask+rel, and against the Pallas kernel
-`pallas_attention.fused_attention` in interpret mode. fp32, tolerance
-1e-5 (as tests/test_pallas_attention.py). Masked scores: the Pallas kernel
-adds -1e9 while the plain paths replace with -1e9; every row here has a
-valid key, where the two agree. The CUDA kernel itself is checked against
-the plain version on the card by chip_smoke.py."""
+`pallas_attention.fused_attention` in interpret mode. With attention
+dropout, the random streams of the two packages are not meant to match, so
+both sides get one keep mask: the port's forward with it is held against
+the jnp expression of tests/test_pallas_dropout_tpu.py:42-46, and autograd
+through it against the Pallas backward `_bwd_call` in interpret mode, which
+takes the mask as an input. fp32, tolerance 1e-5 (as
+tests/test_pallas_attention.py). Masked scores: the Pallas kernel adds -1e9
+while the plain paths replace with -1e9; every row here has a valid key,
+where the two agree. The CUDA kernels themselves are checked against the
+plain version on the card by chip_smoke.py and
+tests/test_torch_cuda_kernel.py."""
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mmnas_tpu.ops import pallas_attention as PA
@@ -22,6 +31,7 @@ from mmnas_tpu_torch.ops.attention import scaled_dot_attention
 
 TOL = 1e-5
 B, H, D, RR, R = 2, 2, 16, 4, 8
+RATE = 0.1
 
 
 @pytest.fixture
@@ -89,10 +99,13 @@ def test_port_attention_matches_pallas_kernel(interpret, kind, Lq, Lk):
 
 def test_wrapper_takes_plain_version_only_for_cpu_tensors():
     _, (tq, tkw) = make_case("mask", 8, 6)
-    before = FA.LAUNCHES
+    before = dict(FA.LAUNCHES)
     got = FA.fused_attention(*tq, tkw["mask"])
     torch.testing.assert_close(got, FA.fused_attention_reference(*tq, tkw["mask"]),
                                rtol=0, atol=0)
+    g = torch.Generator().manual_seed(0)
+    leaves = [t.clone().requires_grad_() for t in tq]
+    FA.fused_attention(*leaves, tkw["mask"], dropout_r=RATE, generator=g).sum().backward()
     assert FA.LAUNCHES == before                # the CPU path launches nothing
     with pytest.raises(ValueError, match="no kernel"):
         FA.fused_attention(*[a.to("meta") for a in tq])
@@ -102,6 +115,96 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
 
 
 def test_attention_dropout_is_not_ported():
-    _, (tq, _) = make_case("plain", 4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scaled_dot_attention(*tq, dropout_r=0.1, train=True)
+    """Attention dropout on the CPU path: the keep rate is 1 - r, the mask
+    follows the generator's seed, eval mode and rate 0 drop nothing, and a
+    generator is required."""
+    r = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(r.randn(4, 4, 50, 50).astype(np.float32)) for _ in range(3))
+    v = torch.ones_like(v)                      # o = rowsum(dropped-out a): sees the mask
+
+    def run(seed, train=True, rate=RATE):
+        return scaled_dot_attention(q, k, v, dropout_r=rate, train=train,
+                                    generator=torch.Generator().manual_seed(seed))
+
+    plain = scaled_dot_attention(q, k, v)
+    torch.testing.assert_close(run(0, train=False), plain, rtol=0, atol=0)
+    torch.testing.assert_close(run(0, rate=0.0), plain, rtol=0, atol=0)
+    torch.testing.assert_close(run(1), run(1), rtol=0, atol=0)
+    assert not torch.equal(run(1), run(2))
+    g = torch.Generator().manual_seed(1)
+    keep = torch.rand(4, 4, 50, 50, generator=g) < 1 - RATE   # the draw the CPU path makes
+    assert abs(keep.float().mean().item() - (1 - RATE)) < 0.01  # 40000 draws: sd 0.0015
+    want = FA.fused_attention_reference(q, k, v, keep=keep, dropout_r=RATE)
+    torch.testing.assert_close(run(1), want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="generator"):
+        scaled_dot_attention(q, k, v, dropout_r=RATE, train=True)
+
+
+def test_philox_and_keep_mask_reference():
+    """The numpy Philox4x32-10 the dropout kernel is held against: the
+    Random123 known-answer vectors, and a keep mask with rate 1 - r that
+    follows its seed."""
+    zeros = FA.philox4x32_10(np.zeros(4, np.uint32), 0)
+    assert [int(x) for x in zeros] == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+    pi = FA.philox4x32_10(np.array([0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344],
+                                   np.uint32), 0x299F31D0A4093822)
+    assert [int(x) for x in pi] == [0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1]
+    keep = FA.keep_mask_reference(5, 4, 8, 25, 50, RATE)
+    assert keep.shape == (4, 8, 25, 50) and keep.dtype == torch.bool
+    assert abs(keep.float().mean().item() - (1 - RATE)) < 0.01     # 40000 draws
+    assert torch.equal(keep, FA.keep_mask_reference(5, 4, 8, 25, 50, RATE))
+    assert not torch.equal(keep, FA.keep_mask_reference(6, 4, 8, 25, 50, RATE))
+
+
+def keep_for(Lq, Lk, seed=4):
+    return np.random.RandomState(seed).rand(B, H, Lq, Lk) < 1 - RATE
+
+
+def test_dropout_forward_with_a_given_mask_matches_jnp():
+    (jq, jkw), (tq, tkw) = make_case("mask", 8, 6, seed=5)
+    keep = keep_for(8, 6)
+    jmask = jnp.where(jkw["mask"][:, :, :, :], -1e9, 0.0)
+    s = jnp.einsum("bhqd,bhkd->bhqk", jq[0], jq[1]) / math.sqrt(D) + jmask
+    want = jnp.einsum("bhqk,bhkd->bhqd", jax.nn.softmax(s, axis=-1) * keep / (1 - RATE), jq[2])
+    got = FA.fused_attention_reference(*tq, tkw["mask"], keep=torch.from_numpy(keep),
+                                       dropout_r=RATE)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+BWD_CASES = [("sa", "mask", 8, 8), ("ga", "mask", 8, 6), ("bias", "bias", 8, 8),
+             ("rsa", "rel", 8, 8)]
+
+
+@pytest.mark.parametrize("name,kind,Lq,Lk", BWD_CASES)
+def test_plain_backward_matches_pallas_bwd(interpret, name, kind, Lq, Lk):
+    """Autograd through the plain version, with a keep mask at r 0.1, against
+    the Pallas `_bwd_call` (interpret mode) given the same mask: dq, dk, dv,
+    dbias, dW1, db1, dWr, dbr and the raw geometry's gradient."""
+    (jq, jkw), (tq, tkw) = make_case(kind, Lq, Lk, seed=6)
+    keep = keep_for(Lq, Lk)
+    do = np.random.RandomState(7).randn(B, H, Lq, D).astype(np.float32)
+    jrel = None
+    if jkw["rel"] is not None:
+        raw, w1, b1, wr, br = jkw["rel"]
+        jrel = (tuple(raw[..., c] for c in range(RR)), w1, b1, wr, br)
+    mask_add = None if jkw["mask"] is None else jnp.where(jkw["mask"][:, 0, 0, :], -1e9, 0.0)
+    dq, dk, dv, dbias, drel = PA._bwd_call(
+        *jq, jkw["log_bias"], mask_add, jrel, jnp.asarray(keep, jnp.bfloat16),
+        1.0 / math.sqrt(D), RATE, True, jnp.asarray(do))
+    want = [dq, dk, dv] + ([dbias] if dbias is not None else [])
+    if drel is not None:
+        draw, dw1, db1, dwr, dbr = drel
+        # port layouts: raw [B,Lq,Lk,Rr], W1 [R,Rr], Wr [H,R]
+        want += [jnp.stack(draw, axis=-1), dw1.T, db1, dwr.T, dbr]
+
+    leaves = [t.clone().requires_grad_() for t in tq]
+    bias = tkw["log_bias"]
+    bias = None if bias is None else bias.clone().requires_grad_()
+    rel = None if tkw["rel"] is None else [t.clone().requires_grad_() for t in tkw["rel"]]
+    out = FA.fused_attention_reference(*leaves, tkw["mask"], bias, rel=rel,
+                                       keep=torch.from_numpy(keep), dropout_r=RATE)
+    wrt = leaves + ([bias] if bias is not None else []) + (rel or [])
+    got = torch.autograd.grad(out, wrt, torch.from_numpy(do))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL, atol=TOL)

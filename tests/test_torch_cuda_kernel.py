@@ -1,14 +1,26 @@
-"""The CUDA fused attention kernel against its plain PyTorch version, on the
-card, at shapes the smoke run does not reach: ragged and tiny lengths, keys
-past a warp's width, D 32/128, the 3-channel text relation and the largest
-channel count, odd batch and head counts, bf16; plus the wrapper's input
-checks and its launch counter.
+"""The CUDA fused attention kernels against their plain PyTorch versions, on
+the card, at shapes the smoke run does not reach: ragged and tiny lengths,
+keys past a warp's width, D 32/128, the 3-channel text relation and the
+largest channel count, odd batch and head counts, bf16; plus the wrappers'
+input checks and launch counters.
+
+- forward (no dropout) against `fused_attention_reference`;
+- forward with dropout: its keep mask equals the Philox bits of
+  `keep_mask_reference` for the seed, and its output equals the plain
+  version on that mask;
+- backward and relation pass: every gradient equals autograd through the
+  plain version on the same keep mask, and two runs give the same bits;
+- `FusedAttentionFn`: autograd through the kernels, launch counts.
 
 Needs a CUDA GPU and nvcc; skipped elsewhere. This file imports no JAX, so
 on a machine without it run it as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernel.py -q
-Tolerances as in chip_smoke.py: fp32 1e-4 (1e-3 with the relation chain,
-whose log amplifies fp32 rounding near the 1e-6 clamp), bf16 5e-2."""
+Tolerances as in chip_smoke.py: forward fp32 1e-4 (1e-3 with the relation
+chain, whose log amplifies fp32 rounding near the 1e-6 clamp), bf16 5e-2;
+gradients as a share of the largest reference gradient: fp32 1e-4 (1e-3
+with the relation chain), bf16 2e-2 (the kernel rounds ds and the
+dropped-out probabilities to bf16 before its products, 2^-9 relative each,
+where the plain version runs in fp32 on the same bf16 inputs)."""
 
 import pytest
 import torch
@@ -16,6 +28,8 @@ import torch
 from mmnas_tpu_torch.ops import fused_attention as FA
 
 pytestmark = pytest.mark.cuda
+
+RATE = 0.1
 
 
 @pytest.fixture
@@ -42,6 +56,18 @@ def make(B, H, Lq, Lk, D, kind, Rr=4, R=16, seed=0):
     return q, k, v, (mask if "mask" in kind else None), bias, rel
 
 
+def on(dev, dt, q, k, v, mask, bias, rel):
+    args = [t.to(dev, dt) for t in (q, k, v)]
+    m = None if mask is None else mask.to(dev)
+    b = None if bias is None else bias.to(dev, dt)
+    r = None if rel is None else tuple(t.to(dev, dt) for t in rel)
+    return args, m, b, r
+
+
+def f32(t):
+    return None if t is None else t.float()
+
+
 CASES = [  # B, H, Lq, Lk, D, operands, Rr, dtype
     (1, 1, 1, 1, 64, "plain", 4, torch.float32),
     (3, 3, 17, 33, 32, "mask", 4, torch.float32),
@@ -55,21 +81,102 @@ CASES = [  # B, H, Lq, Lk, D, operands, Rr, dtype
 
 @pytest.mark.parametrize("B,H,Lq,Lk,D,kind,Rr,dt", CASES)
 def test_kernel_matches_plain_version(dev, B, H, Lq, Lk, D, kind, Rr, dt):
-    q, k, v, mask, bias, rel = make(B, H, Lq, Lk, D, kind, Rr)
-    args = [t.to(dev, dt) for t in (q, k, v)]
-    m = None if mask is None else mask.to(dev)
-    b = None if bias is None else bias.to(dev, dt)
-    r = None if rel is None else tuple(t.to(dev, dt) for t in rel)
-    before = FA.LAUNCHES
+    (args, m, b, r) = on(dev, dt, *make(B, H, Lq, Lk, D, kind, Rr))
+    before = dict(FA.LAUNCHES)
     got = FA.fused_attention(*args, m, b, rel=r)
     torch.cuda.synchronize()
-    assert FA.LAUNCHES == before + 1
+    assert FA.LAUNCHES["fused_attention_fwd"] == before["fused_attention_fwd"] + 1
     assert got.dtype == dt and got.shape == (B, H, Lq, D)
-    want = FA.fused_attention_reference(
-        *[t.float() for t in args], m, None if b is None else b.float(),
-        rel=None if r is None else tuple(t.float() for t in r))
-    tol = 5e-2 if dt == torch.bfloat16 else (1e-3 if rel is not None else 1e-4)
+    want = FA.fused_attention_reference(*[t.float() for t in args], m, f32(b),
+                                        rel=None if r is None else tuple(map(f32, r)))
+    tol = 5e-2 if dt == torch.bfloat16 else (1e-3 if r is not None else 1e-4)
     torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D,kind,Rr,dt", CASES)
+def test_dropout_forward_draws_philox_mask_and_matches_plain(dev, B, H, Lq, Lk, D, kind, Rr, dt):
+    (args, m, b, r) = on(dev, dt, *make(B, H, Lq, Lk, D, kind, Rr, seed=1))
+    seed = 0x1234_5678_9ABC_DEF0 + B
+    before = dict(FA.LAUNCHES)
+    out, keep = FA.attention_fwd(*args, m, b, r, dropout_r=RATE, seed=seed)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["fused_attention_fwd_dropout"] == before["fused_attention_fwd_dropout"] + 1
+    assert keep.dtype == torch.uint8 and keep.shape == (B, H, Lq, Lk)
+    want_keep = FA.keep_mask_reference(seed, B, H, Lq, Lk, RATE)
+    assert torch.equal(keep.cpu().bool(), want_keep)
+    want = FA.fused_attention_reference(*[t.float() for t in args], m, f32(b),
+                                        rel=None if r is None else tuple(map(f32, r)),
+                                        keep=keep, dropout_r=RATE)
+    tol = 5e-2 if dt == torch.bfloat16 else (1e-3 if r is not None else 1e-4)
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=tol)
+
+
+BWD_CASES = [  # B, H, Lq, Lk, D, operands, Rr, dtype, dropout
+    (1, 1, 1, 1, 64, "plain", 4, torch.float32, False),
+    (3, 3, 17, 33, 32, "mask", 4, torch.float32, True),
+    (2, 8, 5, 128, 64, "mask+bias", 4, torch.float32, True),
+    (2, 2, 33, 33, 128, "mask+rel", 3, torch.float32, True),
+    (2, 8, 16, 16, 64, "rel", 8, torch.float32, False),
+    (3, 8, 100, 14, 64, "mask", 4, torch.bfloat16, True),
+    (2, 8, 100, 100, 64, "mask+rel", 4, torch.bfloat16, True),
+    (2, 8, 100, 100, 64, "mask+bias", 4, torch.bfloat16, False),
+]
+
+
+def plain_grads(args, m, b, r, keep, rate, do):
+    """Autograd through the plain version, in fp32, on the same inputs."""
+    leaves = [t.float().requires_grad_() for t in args]
+    bl = None if b is None else b.float().requires_grad_()
+    rl = None if r is None else [t.float().requires_grad_() for t in r]
+    out = FA.fused_attention_reference(*leaves, m, bl, rel=rl, keep=keep, dropout_r=rate)
+    wrt = leaves + ([bl] if bl is not None else []) + (rl if rl is not None else [])
+    return torch.autograd.grad(out, wrt, do.float())
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D,kind,Rr,dt,drop", BWD_CASES)
+def test_backward_matches_plain_autograd(dev, B, H, Lq, Lk, D, kind, Rr, dt, drop):
+    (args, m, b, r) = on(dev, dt, *make(B, H, Lq, Lk, D, kind, Rr, seed=2))
+    do = torch.randn(B, H, Lq, D, generator=torch.Generator().manual_seed(3)).to(dev, dt)
+    rate = RATE if drop else 0.0
+    _, keep = FA.attention_fwd(*args, m, b, r, dropout_r=rate, seed=99)
+    before = dict(FA.LAUNCHES)
+    dq, dk, dv, dbias, drel = FA.attention_bwd(*args, m, b, r, keep, rate, do,
+                                               need_draw=r is not None)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["fused_attention_bwd"] == before["fused_attention_bwd"] + 1
+    assert (FA.LAUNCHES["fused_attention_bwd_rel"]
+            == before["fused_attention_bwd_rel"] + (r is not None))
+    got = [dq, dk, dv] + ([dbias] if b is not None else []) + (list(drel) if r is not None else [])
+    want = plain_grads(args, m, b, r, keep, rate, do)
+    tol = 2e-2 if dt == torch.bfloat16 else (1e-3 if r is not None else 1e-4)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape, i
+        err = (g.float() - w).abs().max().item() / max(w.abs().max().item(), 1e-6)
+        assert err <= tol, (i, err)
+
+    again = FA.attention_bwd(*args, m, b, r, keep, rate, do, need_draw=r is not None)
+    flat = [t for t in again[:4] if t is not None] + ([t for t in again[4]] if r is not None else [])
+    for x, y in zip([t for t in got if t is not None], flat):
+        assert torch.equal(x, y)                 # no atomics: the same bits every run
+
+
+def test_autograd_function_runs_the_kernels(dev):
+    (args, m, _, r) = on(dev, torch.float32, *make(2, 8, 100, 100, 64, "mask+rel", 4, R=64))
+    leaves = [t.clone().requires_grad_() for t in args]
+    rl = [r[0]] + [t.clone().requires_grad_() for t in r[1:]]       # raw is input data
+    before = dict(FA.LAUNCHES)
+    out = FA.FusedAttentionFn.apply(*leaves, m, None, *rl, RATE, 7)
+    do = torch.randn_like(out)
+    grads = torch.autograd.grad(out, leaves + rl[1:], do)
+    torch.cuda.synchronize()
+    delta = {n: FA.LAUNCHES[n] - before[n] for n in before}
+    assert delta == {"fused_attention_fwd": 0, "fused_attention_fwd_dropout": 1,
+                     "fused_attention_bwd": 1, "fused_attention_bwd_rel": 1}
+    keep = FA.keep_mask_reference(7, 2, 8, 100, 100, RATE).to(dev)
+    want = plain_grads(args, m, None, r, keep, RATE, do)
+    want = want[:3] + want[4:]                   # no raw gradient on the kernel side
+    for g, w in zip(grads, want):
+        assert (g - w).abs().max().item() <= 1e-3 * w.abs().max().item()
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -88,3 +195,98 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         FA.fused_attention(q, k, v, mask.to(dev).float())
     with pytest.raises(ValueError, match="mask"):
         FA.fused_attention(q, k, v, mask)                  # on the CPU, q on the card
+    with pytest.raises(ValueError, match="generator"):
+        FA.fused_attention(q, k, v, dropout_r=RATE)
+    with pytest.raises(ValueError, match="keep mask"):
+        FA.attention_bwd(q, k, v, None, None, None, None, RATE, torch.randn_like(q))
+    # K, V, dK, dV of 200 keys at D 128 exceed a block's shared memory: refused, not run
+    big = [torch.randn(1, 1, 4, 128, device=dev)] + [torch.randn(1, 1, 200, 128, device=dev)] * 2
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        FA.attention_bwd(*big, None, None, None, None, 0.0, torch.randn_like(big[0]))
+
+
+def test_cuda_generator_seeds_differ_per_call_and_repeat_per_seed(dev):
+    g = torch.Generator(dev).manual_seed(5)
+    s1, s2 = FA.draw_seed(g), FA.draw_seed(g)
+    g.manual_seed(5)
+    assert s1 != s2 and FA.draw_seed(g) == s1
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_relation_pass_matches_plain_autograd(dev, dt):
+    _, _, _, _, _, rel = make(3, 8, 37, 37, 64, "rel", Rr=4, R=64, seed=4)
+    rel = tuple(t.to(dev, dt) for t in rel)
+    dpre = (torch.randn(3, 8, 37, 37, generator=torch.Generator().manual_seed(5)) * 0.1).to(dev)
+    got = FA.relation_bwd(*rel, dpre, need_draw=True)
+    want = FA.relation_bwd_reference(*rel, dpre, need_draw=True)
+    # fp32 sums in both: 1e-4 of the largest; bf16 results are rounded to bf16 (2^-9)
+    tol = 1e-4 if dt == torch.float32 else 4e-3
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dt
+        assert (g.float() - w).abs().max().item() <= tol * w.abs().max().item()
+
+
+def test_train_step_gradient_against_fp64(dev, monkeypatch, capsys):
+    """One train step's gradient of the searched net at full width (16
+    examples, DROPOUT_R 0): the card with the port's kernels, the card with
+    the plain versions in their place, and the CPU, each against an fp64
+    CPU run. The kernels must not be what separates the card from the
+    truth: kernels vs plain on the card within 2e-5 in relative norm, and
+    the two equally far from fp64 (within 20%)."""
+    import math
+
+    import mmnas_tpu_torch.models.net as NET
+    import mmnas_tpu_torch.ops.attention as ATT
+    from mmnas_tpu_torch.config import Cfg
+    from mmnas_tpu_torch.engine.vqa import Execution, batch_to_device, bce_with_logits_sum
+    from mmnas_tpu_torch.ops.primitives import mask_scores
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Cfg(RUN_MODE="train", SYNTH=True, ARCH_PATH="arch/mmnas_vqa.json", SEED=0,
+              DROPOUT_R=0.0, NUM_WORKERS=2)
+    exe = Execution(cfg, torch.device("cpu"))
+    ds = exe.build_dataset("train")
+    host = {k: v[:16] for k, v in list(exe.make_loader(ds, 16))[0].items()}
+
+    def attention_fp64(q, k, v, mask=None, log_bias=None, *, rel=None, **_):
+        if rel is not None:
+            raw, w1, b1, wr, br = rel
+            r = torch.relu(torch.matmul(torch.relu(torch.matmul(raw, w1.t()) + b1), wr.t()) + br)
+            log_bias = torch.log(torch.clamp(r, min=1e-6)).permute(0, 3, 1, 2)
+        s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+        s = s if log_bias is None else s + log_bias
+        return torch.matmul(torch.softmax(mask_scores(s, mask), dim=-1), v)
+
+    def plain(q, k, v, mask=None, log_bias=None, *, rel=None, **_):
+        return FA.fused_attention_reference(q, k, v, mask, log_bias, rel=rel)
+
+    def grads(device, attention=None, dtype=torch.float32):
+        with monkeypatch.context() as m:
+            if attention is not None:
+                m.setattr(ATT, "fused_attention", attention)
+            m.setattr(NET, "compute_dtype", lambda cfg: dtype)
+            net = exe.build_net(ds).to(device, dtype)
+            b = batch_to_device(host, torch.device(device), NET.INPUT_KEYS + ("ans",))
+            b["ans"] = b["ans"].to(dtype)
+            loss = bce_with_logits_sum(net(b, train=True, generator=torch.Generator(device)),
+                                       b["ans"])
+            ps = list(net.parameters())
+            gs = torch.autograd.grad(loss, ps, allow_unused=True)
+        return [torch.zeros(p.shape, dtype=torch.float64) if g is None else g.cpu().double()
+                for p, g in zip(ps, gs)]
+
+    truth = grads("cpu", attention_fp64, torch.float64)
+    norm = math.sqrt(sum(float((g ** 2).sum()) for g in truth))
+
+    def dist(a, b):
+        return math.sqrt(sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b))) / norm
+
+    kernels, card_plain, cpu = grads("cuda"), grads("cuda", plain), grads("cpu", plain)
+    d = {"card kernels vs fp64": dist(kernels, truth), "card plain vs fp64": dist(card_plain, truth),
+         "cpu plain vs fp64": dist(cpu, truth), "card kernels vs card plain": dist(kernels, card_plain),
+         "card kernels vs cpu plain": dist(kernels, cpu)}
+    with capsys.disabled():
+        print("\ngradient relative norm differences, one train step:",
+              {k: f"{v:.3e}" for k, v in d.items()})
+    assert d["card kernels vs card plain"] <= 2e-5
+    assert d["card kernels vs fp64"] <= 1.2 * d["card plain vs fp64"]

@@ -78,3 +78,24 @@ def test_attflat_matches_jax():
 def test_unported_op_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_op("sep_conv_3", TCFG, True, True)
+
+
+@pytest.mark.parametrize("name", ["self_att_64", "rel_self_att_64", "guided_att_64"])
+def test_attention_ops_draw_attention_dropout_from_the_generator(name):
+    """In train mode each attention core drops attention weights with a mask
+    drawn from the caller's generator (MHAtt.attend passes it on): the same
+    seed gives the same output, another seed another, eval mode none."""
+    x, y, xm, ym, raw, w1, b1 = make_inputs(seed=2)
+    cfg = TM.OpCfg(hsize=HS, dropout_r=0.1, rel_size=REL, attflat_out_size=2 * HS,
+                   attflat_mlp_size=32)
+    op = make_op(name, cfg, True, True)
+    t = torch.from_numpy
+    args = (t(x), t(y), t(xm), t(ym), {"raw": t(raw), "w1": t(w1.T.copy()), "b1": t(b1)})
+
+    def core(seed, train=True):
+        with torch.no_grad():
+            return op.core(*args, train, torch.Generator().manual_seed(seed))
+
+    torch.testing.assert_close(core(1), core(1), rtol=0, atol=0)
+    assert not torch.equal(core(1), core(2))
+    assert not torch.equal(core(1), core(1, train=False))

@@ -68,3 +68,55 @@ def test_conversion_rejects_extra_and_missing_leaves(setup):
     del short["proj_norm"]
     with pytest.raises(RuntimeError, match="Missing key"):
         net.load_state_dict(from_jax_params(short), strict=True)
+
+
+def test_optimizer_state_converts_to_the_jax_pytree_and_back(setup):
+    """net_optim moves between the packages with the params' per-leaf rules:
+    moments transposed like their parameters, step counts as ints."""
+    from mmnas_tpu.train.optimizer import WarmupAdam as JaxWarmupAdam
+    from mmnas_tpu_torch.models.convert import optim_state_from_jax, optim_state_to_jax
+    from mmnas_tpu_torch.train.optimizer import WarmupAdam
+
+    _, params, _, init_dict = setup
+    r = np.random.RandomState(0)
+    tree_map = jax.tree_util.tree_map
+    jstate = tree_map(np.asarray, JaxWarmupAdam(1e-3).init(params))
+    jstate.update(m=tree_map(lambda p: r.randn(*p.shape).astype(np.float32), params),
+                  t=tree_map(lambda p: np.asarray(r.randint(1, 9), np.int32), params),
+                  step=np.asarray(5, np.int32))
+    net = NetFull(CFG, GENE, init_dict, "vqa")
+    port = optim_state_from_jax(jstate)
+    for name, p in net.named_parameters():
+        assert port["m"][name].shape == p.shape and port["v"][name].shape == p.shape
+        assert isinstance(port["t"][name], int)
+    assert port["step"] == 5 and port["lr_base"] == np.float32(1e-3)
+    back = optim_state_to_jax(port, net)
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(jstate)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(jstate)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    fresh = optim_state_to_jax(WarmupAdam(1e-3).init(dict(net.named_parameters())), net)
+    assert jax.tree_util.tree_structure(fresh) == jax.tree_util.tree_structure(jstate)
+
+
+def test_train_mode_forward_matches_jax_without_dropout(setup):
+    """The train-mode forward (generator passed down to every dropout site)
+    at DROPOUT_R 0 is the JAX train-mode apply; with DROPOUT_R 0.1 it
+    follows the generator's seed."""
+    jnet, params, batch, init_dict = setup
+    want = np.asarray(jax.jit(lambda p, b, k: jnet.apply(p, b, train=True, rng=k))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(1)))
+    net = NetFull(CFG, GENE, init_dict, "vqa")
+    net.load_state_dict(from_jax_params(params), strict=True)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        got = net(tb, train=True, generator=torch.Generator().manual_seed(0)).numpy()
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+        drop = NetFull(CFG.replace(DROPOUT_R=0.1), GENE, init_dict, "vqa")
+        drop.load_state_dict(net.state_dict(), strict=True)
+
+        def run(seed):
+            return drop(tb, train=True, generator=torch.Generator().manual_seed(seed))
+
+        torch.testing.assert_close(run(3), run(3), rtol=0, atol=0)
+        assert not torch.equal(run(3), run(4))

@@ -82,3 +82,11 @@ def test_dropout_is_inverted_and_seeded():
     kept = a[a != 0]
     torch.testing.assert_close(kept, torch.full_like(kept, 1 / 0.75))
     assert abs((a == 0).float().mean().item() - 0.25) < 0.01
+
+
+def test_dropout_needs_a_generator_on_the_tensors_device():
+    """A generator draws only on its own device: a CPU generator cannot
+    feed the mask of a tensor elsewhere, so dropout refuses the pair."""
+    x = torch.ones(4, 4, device="meta")
+    with pytest.raises(ValueError, match="generator on that device"):
+        TP.dropout(x, 0.1, True, torch.Generator().manual_seed(0))
