@@ -365,22 +365,12 @@ def attention_bwd(q, k, v, mask, log_bias, rel, keep, dropout_r: float, do,
 
 
 def relation_bwd(raw, w1, b1, wr, br, dpre, need_draw: bool = False):
-    """Launch the relation pass for the cotangent dpre [B,H,Lq,Lk] (fp32) of
-    pre = relu(raw W1^T + b1) Wr^T + br. Returns (draw or None, dW1, db1,
+    """Launch the relation pass for the cotangent dpre [B,H,Lq,Lk] (fp32,
+    contiguous) of pre = relu(raw W1^T + b1) Wr^T + br, on the rel tensors
+    that `attention_bwd` has validated. Returns (draw or None, dW1, db1,
     dWr, dbr) in the layouts and dtypes of raw, w1, b1, wr, br."""
     B, Lq, Lk, Rr = raw.shape
     R, H = w1.shape[0], wr.shape[0]
-    if raw.device.type != "cuda" or raw.dtype not in _DTYPE_CODES:
-        raise ValueError(f"the relation pass takes float32/bfloat16 CUDA tensors, got "
-                         f"{raw.dtype} on {raw.device}")
-    if not 1 <= Rr <= MAX_REL_CHANNELS or H > MAX_REL_HEADS:
-        raise ValueError(f"the relation pass takes 1..{MAX_REL_CHANNELS} channels and at most "
-                         f"{MAX_REL_HEADS} heads, got {Rr} and {H}")
-    _check(w1, "W1", (R, Rr), raw)
-    _check(b1, "b1", (R,), raw)
-    _check(wr, "Wr", (H, R), raw)
-    _check(br, "br", (H,), raw)
-    _check(dpre, "dpre", (B, H, Lq, Lk), raw, dtype=torch.float32)
     chunks = -(-Lq // _REL_ROWS)
     f32 = dict(dtype=torch.float32, device=raw.device)
     dw1_p = torch.empty((B, chunks, R, Rr), **f32)

@@ -115,7 +115,9 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
 
 
 def test_attention_dropout_is_not_ported():
-    """Attention dropout on the CPU path: the keep rate is 1 - r, the mask
+    """Attention dropout is ported; this checks it on the CPU path (the name
+    is the one the test had before the port's dropout existed, kept so the
+    test keeps its history): the keep rate is 1 - r, the mask
     follows the generator's seed, eval mode and rate 0 drop nothing, and a
     generator is required."""
     r = np.random.RandomState(3)

@@ -19,7 +19,8 @@ Tolerances as in chip_smoke.py: forward fp32 1e-4 (1e-3 with the relation
 chain, whose log amplifies fp32 rounding near the 1e-6 clamp), bf16 5e-2;
 gradients as a share of the largest reference gradient: fp32 1e-4 (1e-3
 with the relation chain), bf16 2e-2 (the kernel rounds ds and the
-dropped-out probabilities to bf16 before its products, 2^-9 relative each,
+dropped-out probabilities to bf16 before its products, bf16's unit roundoff
+2^-8 relative each,
 where the plain version runs in fp32 on the same bf16 inputs)."""
 
 import pytest
@@ -219,7 +220,8 @@ def test_relation_pass_matches_plain_autograd(dev, dt):
     dpre = (torch.randn(3, 8, 37, 37, generator=torch.Generator().manual_seed(5)) * 0.1).to(dev)
     got = FA.relation_bwd(*rel, dpre, need_draw=True)
     want = FA.relation_bwd_reference(*rel, dpre, need_draw=True)
-    # fp32 sums in both: 1e-4 of the largest; bf16 results are rounded to bf16 (2^-9)
+    # fp32 sums in both: 1e-4 of the largest; bf16 results are rounded to bf16, whose
+    # unit roundoff 2^-8 (3.9e-3) of the largest bounds it, plus the fp32 noise
     tol = 1e-4 if dt == torch.float32 else 4e-3
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == dt
