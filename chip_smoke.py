@@ -7,12 +7,17 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
 1. prints the card's name and power limit, builds the CUDA kernels from
    mmnas_tpu_torch/csrc (one nvcc per source, all started together) and
    turns TF32 off for matmuls and cuDNN;
-2. holds the forward kernel (no dropout) against its plain PyTorch version
+2. drives the probe path, `python -m mmnas_tpu_torch.tools.probes` (the
+   five Pallas debug probes of tools/debug/ as CUDA kernels) with exact
+   launch counts, holds the bias probes' output against the fp64 numpy
+   chain, holds each probe kernel against its plain version (the two bias
+   kernels also against each other, bit for bit) and times them;
+3. holds the forward kernel (no dropout) against its plain PyTorch version
    at the shapes of the searched VQA net (B 64, 8 heads of 64: 14x14,
    100x100, 100x14 with the pad mask, 100x100 with mask + RSA geometry
    chain, 100x100 with an additive bias), in fp32 and bf16, and times both
    and `scaled_dot_product_attention` where one call computes the function;
-3. does the same for the training kernels at r = 0.1: the dropout forward
+4. does the same for the training kernels at r = 0.1: the dropout forward
    (keep fraction 0.9 +- 0.005, the mask bits follow the seed and equal the
    numpy Philox, the output equals the plain version on the emitted mask),
    the backward and the relation pass (every gradient equals autograd
@@ -20,23 +25,39 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    forward + backward and, with the RSA chain, the relation pass alone,
    each beside its bound (the function's least bytes and operations, see
    `attention_bytes_ops`);
-4. drives the eval path, `Execution(cfg, cuda).run()` for `--RUN val
+5. repeats 3 and 4 at the search's shapes (B 128, 4 heads of 64: 14x14,
+   100x14, 100x100 with the pad mask and with the RSA chain), and in bf16
+   at B 32, the rows per path of the KPATH 8 leg; with the RSA chain the
+   arch step's backward (no relation input needs a gradient: no dpre, no
+   relation pass) gives the full backward's dq, dk, dv bit for bit;
+6. drives the eval path, `Execution(cfg, cuda).run()` for `--RUN val
    --SYNTH --ARCH_PATH ./arch/mmnas_vqa.json --BS 64 --SYNTH_SIZE 256` at
    full width (HSIZE 512, 100 regions of 2048), in fp32 and bf16, from a
    checkpoint written in the JAX package's pickle format from a seeded port
    init: 16 forward launches per batch (5 encoder SA, 6 GA, 4 RSA, 1 decoder
    SA), finite logits that match the same net and batch on the CPU;
-5. drives the training path, `Execution(cfg, cuda).run()` for `--RUN train
+7. drives the training path, `Execution(cfg, cuda).run()` for `--RUN train
    --SYNTH --ARCH_PATH ./arch/mmnas_vqa.json --BS 64 --MAX_EPOCH 1
-   --SYNTH_SIZE 640` (10 steps, fp32, DROPOUT_R 0.1, the per-epoch eval on):
-   per step exactly 16 dropout-forward, 16 backward and 4 relation-pass
-   launches, 16 forward launches per eval batch; finite losses, the mean of
-   the last 3 below the first; the epoch checkpoint exists and the eval path
-   reloads it. The train step is timed and profiled. Then one step at
-   DROPOUT_R 0 from one seeded init: its loss on the card equals the CPU's
-   (plain versions), and its gradient with the kernels equals, leaf by leaf,
-   the gradient with the plain versions in their place on the card;
-6. prints one JSON line with every kernel's numbers and, last, the device
+   --SYNTH_SIZE 640` (10 steps, DROPOUT_R 0.1, the per-epoch eval on), in
+   fp32 and in bf16 on fp32 master weights: per step exactly 16
+   dropout-forward, 16 backward and 4 relation-pass launches, 16 forward
+   launches per eval batch; finite losses, the mean of the last 3 below the
+   first. In fp32 the epoch checkpoint exists and the eval path reloads it,
+   the train step is timed and profiled, and one step at DROPOUT_R 0 from
+   one seeded init gives the CPU's loss (plain versions) and, leaf by leaf,
+   the gradient of the plain versions in the kernels' place on the card;
+8. drives the search path, `SearchExecution(cfg, cuda).run()` for `--SYNTH
+   --ALPHA_MODE full` with ALPHA_START 0, ALPHA_EVERY 5, DROPOUT_R 0.1: 10
+   weight steps and 2 arch steps at HSIZE 256, in fp32 at BS 128, KPATH 1
+   (the reference's parity point) and in bf16 at BS 256, KPATH 8 (the
+   bench's configuration), with exact launch counts from the sampled paths,
+   finite losses, alpha moved, the genotype archive in the reference schema,
+   the epoch checkpoint reloaded and resumed from (fp32), fp32 masters and
+   optimizer states (bf16), the bf16 weight-step loss near the fp32 one; a
+   fixed NetFull at HSIZE 512 built from the dumped genotype evaluates one
+   batch; weight and arch steps are timed and profiled on one resident
+   batch, and search examples/s counted as bench.py counts them;
+9. prints one JSON line with every kernel's numbers and, last, the device
    line `{"ok": true, "device": {...}}`.
 Any failed check raises, so the script exits non-zero and prints no result
 line. It exits 2 when no CUDA device is present.
@@ -52,12 +73,13 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "build", "mmnas_tpu_torch", "smoke")
 ARCH = os.path.join(HERE, "arch", "mmnas_vqa.json")
-SOURCES = ("fused_attention_fwd", "fused_attention_bwd")
+SOURCES = ("fused_attention_fwd", "fused_attention_bwd", "probes")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "fused_attention_fwd": ("mmnas_tpu_torch/csrc/fused_attention_fwd.cu",
                             "mmnas_tpu/ops/pallas_attention.py:173"),
@@ -67,6 +89,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                             "mmnas_tpu/ops/pallas_attention.py:325"),
     "fused_attention_bwd_rel": ("mmnas_tpu_torch/csrc/fused_attention_bwd.cu",
                                 "mmnas_tpu/ops/pallas_attention.py:390"),
+    "probe_bias": ("mmnas_tpu_torch/csrc/probes.cu", "tools/debug/_probe_bias.py:13"),
+    "probe_bias2": ("mmnas_tpu_torch/csrc/probes.cu", "tools/debug/_probe_bias2.py:13"),
+    "probe_slice": ("mmnas_tpu_torch/csrc/probes.cu", "tools/debug/_probe_slice.py:7"),
+    "probe_outer": ("mmnas_tpu_torch/csrc/probes.cu", "tools/debug/_probe_outer.py:9"),
+    "probe_wrblock_a": ("mmnas_tpu_torch/csrc/probes.cu", "tools/debug/_probe_wrblock.py:9"),
+    "probe_wrblock_b": ("mmnas_tpu_torch/csrc/probes.cu", "tools/debug/_probe_wrblock.py:21"),
 }
 
 B, H, D, RR, R = 64, 8, 64, 4, 64
@@ -77,6 +105,22 @@ LAUNCHES_PER_BATCH = 16           # arch/mmnas_vqa.json at LAYERS 1
 REL_LAUNCHES_PER_BATCH = 4        # its 4 rel_self_att_64 nodes
 CASES = [(14, 14, "mask"), (100, 100, "mask"), (100, 14, "mask"),
          (100, 100, "mask+rel"), (100, 100, "bias")]
+# the search's attention: HSIZE 256 is 4 heads of 64, batch 128 at KPATH 1;
+# the bf16 BS 256 KPATH 8 leg hands each kernel 32 rows per path
+SEARCH_B, SEARCH_H, SEARCH_K8_B = 128, 4, 32
+SEARCH_CASES = [(14, 14, "mask"), (100, 14, "mask"), (100, 100, "mask"), (100, 100, "mask+rel")]
+# the search runs: 10 weight steps, an arch step after every 5th
+SEARCH_STEPS, ALPHA_EVERY = 10, 5
+SEARCH_LEGS = (("float32", 128, 1), ("bfloat16", 256, 8))   # dtype, batch, KPATH
+# the probe CLI's launches: two bias kernels, slice and outer in f32 and
+# bf16, the two wrblock layouts
+PROBE_LAUNCHES = {"probe_bias": 1, "probe_bias2": 1, "probe_slice": 2, "probe_outer": 2,
+                  "probe_wrblock_a": 1, "probe_wrblock_b": 1}
+# the bias probes against the plain version and the fp64 chain: on
+# exp(bias) = max(pre, 1e-6), absolute, and on the bias itself where
+# pre > 0.1 (the log turns pre's fp32 rounding, sums of 64 terms of size
+# ~1, into large errors near the 1e-6 clamp): 1e-5
+PROBE_BIAS_TOL = 1e-5
 # kernel vs plain version on the same inputs. fp32: both sum in fp32 in
 # other orders; 1e-4, except with the RSA chain, where log(pre) turns the
 # fp32 rounding of pre (~4e-7 absolute) into up to ~1e-3 in the scores.
@@ -113,6 +157,10 @@ LOGIT_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 # held to 1e-3 of their own norm with no second term. A wrong gradient from
 # a kernel moves its leaf by the size of the gradient itself.
 STEP_LOSS_TOL, STEP_LEAF_TOL, STEP_LEAF_FLOOR = 1e-5, 1e-3, 1e-6
+# the bf16 weight step's loss against the fp32 one, same net, batch and
+# paths, DROPOUT_R 0: bf16 rounds every activation (unit roundoff 2^-8)
+# through the 30-node chain: 2e-2 relative
+SEARCH_BF16_LOSS_TOL = 2e-2
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -138,7 +186,7 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def make_case(g, Lq, Lk, kind):
+def make_case(g, Lq, Lk, kind, B=B, H=H):
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g) * scale
 
@@ -186,7 +234,7 @@ def live_share(rel):
     return (torch.matmul(raw, w1.t()) + b1 > 0).float().mean().item()
 
 
-def attention_bytes_ops(Lq, Lk, kind, dt, part, live=1.0):
+def attention_bytes_ops(Lq, Lk, kind, dt, part, live=1.0, B=B, H=H):
     """The least work of one call at B, H, D: (bytes, {dtype: operations}).
     Bytes: each of the function's inputs read once and each of its outputs
     written once. part "fwd": q, k, v (mask, bias, raw) -> o; "bwd": q, k, v,
@@ -219,13 +267,16 @@ def attention_bytes_ops(Lq, Lk, kind, dt, part, live=1.0):
     return nbytes, ops
 
 
-def kernel_cases(FA, dev):
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
     """Forward kernel (no dropout) against its plain version."""
     g = torch.Generator().manual_seed(0)
     rows = []
-    for dt in (torch.float32, torch.bfloat16):
-        for Lq, Lk, kind in CASES:
-            args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind))
+    for dt in dtypes:
+        for Lq, Lk, kind in cases:
+            args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind, B, H))
             got = FA.fused_attention(*args, m, b_, rel=r_)
             torch.cuda.synchronize()
             ref = FA.fused_attention_reference(
@@ -239,11 +290,11 @@ def kernel_cases(FA, dev):
             library_ms = None if r_ is not None else cuda_time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(*args, attn_mask=am))
             live = 1.0 if r_ is None else live_share(r_)
-            bound_ms, bound_by = bound(*attention_bytes_ops(Lq, Lk, kind, dt, "fwd", live))
-            row = {"dtype": str(dt).replace("torch.", ""), "Lq": Lq, "Lk": Lk, "operands": kind,
-                   "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            bound_ms, bound_by = bound(*attention_bytes_ops(Lq, Lk, kind, dt, "fwd", live, B, H))
+            row = {"dtype": str(dt).replace("torch.", ""), "B": B, "H": H, "Lq": Lq, "Lk": Lk,
+                   "operands": kind, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-            print(f"fwd     {row['dtype']:8s} ({Lq:3d},{Lk:3d}) {kind:8s} max_abs_err {err:.3e} "
+            print(f"fwd     B{B} H{H} {row['dtype']:8s} ({Lq:3d},{Lk:3d}) {kind:8s} max_abs_err {err:.3e} "
                   f"(tol {tol:g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
                   f"{library_ms if library_ms is None else round(library_ms, 4)} ms  bound "
                   f"{bound_ms:.4f} ms ({bound_by})", flush=True)
@@ -257,15 +308,17 @@ def rel_err(got, want):
     return (got.float() - want.float()).abs().max().item() / max(want.abs().max().item(), 1e-6)
 
 
-def train_kernel_cases(FA, dev):
+def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
     """Dropout forward, backward and relation pass against their plain
-    versions, and their times."""
+    versions, and their times. With the RSA chain also the arch step's
+    backward, where no relation input needs a gradient: no dpre, no
+    relation pass, and dq, dk, dv equal to the full backward's bits."""
     g = torch.Generator().manual_seed(1)
     rows = []
-    for dt in (torch.float32, torch.bfloat16):
-        for Lq, Lk, kind in CASES:
-            args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind))
-            name = f"{str(dt).replace('torch.', ''):8s} ({Lq:3d},{Lk:3d}) {kind:8s}"
+    for dt in dtypes:
+        for Lq, Lk, kind in cases:
+            args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind, B, H))
+            name = f"B{B} H{H} {str(dt).replace('torch.', ''):8s} ({Lq:3d},{Lk:3d}) {kind:8s}"
             # the mask: keep rate, reproducible by seed, the numpy Philox bits
             out, keep = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=1234)
             _, keep2 = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=1234)
@@ -348,8 +401,8 @@ def train_kernel_cases(FA, dev):
                     sdpa_out, sdpa_leaves, do, retain_graph=True))
                 sdpa_ms = cuda_time_ms(sdpa_step)
             live = 1.0 if r_ is None else live_share(r_)
-            row = {"dtype": str(dt).replace("torch.", ""), "Lq": Lq, "Lk": Lk, "operands": kind,
-                   "keep_fraction": frac, "fwd_err": fwd_err, "fwd_tol": fwd_tol,
+            row = {"dtype": str(dt).replace("torch.", ""), "B": B, "H": H, "Lq": Lq, "Lk": Lk,
+                   "operands": kind, "keep_fraction": frac, "fwd_err": fwd_err, "fwd_tol": fwd_tol,
                    "grad_rel_err": errs, "grad_abs_err": abs_err, "grad_tol": tol,
                    "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_bwd_ms": step_ms,
                    "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
@@ -357,12 +410,20 @@ def train_kernel_cases(FA, dev):
                    "sdpa_bwd_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_ms}
             for part, key in (("fwd", "fwd"), ("bwd", "bwd"), ("fwd+bwd", "fwd_bwd")):
                 row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound(
-                    *attention_bytes_ops(Lq, Lk, kind, dt, part, live))
+                    *attention_bytes_ops(Lq, Lk, kind, dt, part, live, B, H))
             if r_ is not None:
                 row.update(relation_pass(FA, args, m, r_, keep, do, live))
                 row["rel_abs_err"] = max((x.float() - w).abs().max().item()
                                          for lab, x, w in zip(labels, got, want)
                                          if lab in ("dW1", "db1", "dWr", "dbr"))
+                lean = FA.attention_bwd(*args, m, b_, r_, keep, RATE, do, need_rel=False)
+                torch.cuda.synchronize()
+                if lean[4] is not None or not all(
+                        torch.equal(x, y) for x, y in zip(lean[:3], (dq, dk, dv))):
+                    raise AssertionError(f"{name}: the backward without dpre differs from the "
+                                         "full backward in dq, dk, dv")
+                row["bwd_no_rel_ms"] = cuda_time_ms(
+                    lambda: FA.attention_bwd(*args, m, b_, r_, keep, RATE, do, need_rel=False))
             print(f"train   {name} keep {frac:.4f}  fwd err {fwd_err:.2e} (tol {fwd_tol:g})  "
                   f"grad rel err max {max(errs.values()):.2e} (tol {tol:g})  kernel fwd "
                   f"{fwd_ms:.4f} + bwd {bwd_ms:.4f} ms, fwd+bwd {step_ms:.4f} ms  plain "
@@ -371,7 +432,8 @@ def train_kernel_cases(FA, dev):
                   f"fwd+bwd {row['fwd_bwd_bound_ms']:.4f} ms" + (
                       "" if r_ is None else
                       f"  relation pass {row['rel_ms']:.4f} ms, plain {row['rel_plain_ms']:.4f} ms,"
-                      f" bound {row['rel_bound_ms']:.4f} ms (live share {live:.3f})"),
+                      f" bound {row['rel_bound_ms']:.4f} ms (live share {live:.3f}); bwd without "
+                      f"dpre {row['bwd_no_rel_ms']:.4f} ms, dq dk dv equal"),
                   flush=True)
             if not (math.isfinite(fwd_err) and fwd_err <= fwd_tol):
                 raise AssertionError(f"dropout forward disagrees with its plain version: {row}")
@@ -393,7 +455,7 @@ def relation_pass(FA, args, m, rel, keep, do, live):
                                        torch.log(torch.clamp(torch.relu(pre), min=1e-6)),
                                        keep=keep, dropout_r=RATE)
     dpre = torch.autograd.grad(out, pre, do.float())[0]
-    Lq, Lk = dpre.shape[2:]
+    B, H, Lq, Lk = dpre.shape
     n = B * Lq * Lk
     nbytes = n * RR * (torch.finfo(rel[0].dtype).bits // 8) + n * H * 4
     ops = n * 2 * R * RR + n * R * live * (4 * H + 2 * RR + 1)
@@ -524,6 +586,7 @@ def train_path(FA, dev, card):
         raise AssertionError(f"eval of the epoch checkpoint: {reloaded.preds.shape}, "
                              f"{FA.LAUNCHES}")
     print(f"eval of {os.path.relpath(ckpt, HERE)}: accuracy {reloaded.accuracy}", flush=True)
+    bf16 = train_bf16_leg(FA, dev, steps, want)
 
     # the train step alone, one resident batch, dropout on
     net = result.net
@@ -592,12 +655,444 @@ def train_path(FA, dev, card):
                              f"among the leaves, found {relation}")
     if over:
         raise AssertionError(f"kernel gradients differ from the plain versions' in {over}")
-    return {"launches": launches, "losses": losses, "seconds": seconds, "step_ms": step_ms,
+    return {"launches": launches, "bf16": bf16, "losses": losses, "seconds": seconds,
+            "step_ms": step_ms,
             "examples_per_s": BATCH / step_ms * 1000, "device_split": split,
             "step_loss_card_vs_cpu": loss_err,
             "step_grad_kernels_vs_plain": {"worst_leaf": worst, "diff": leaf[worst][0],
                                            "norm": leaf[worst][1], "whole_norm": whole,
                                            "relation_leaves": rel_leaves}}
+
+
+def train_bf16_leg(FA, dev, steps, want):
+    """The same 10 steps under --DTYPE bfloat16: bf16 casts of the fp32
+    master parameters per step, the same launches, finite falling losses,
+    fp32 masters and Adam moments after."""
+    from mmnas_tpu_torch.engine.vqa import Execution
+
+    cfg = cfg_for("train", "bfloat16", SYNTH_SIZE=TRAIN_SIZE, MAX_EPOCH=1,
+                  VERSION="smoke_train_bf16")
+    for n in FA.LAUNCHES:
+        FA.LAUNCHES[n] = 0
+    t0 = time.perf_counter()
+    result = Execution(cfg, dev).run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, losses = dict(FA.LAUNCHES), result.step_losses
+    print(f"train bf16: {steps} steps, losses per batch of {BATCH} "
+          f"{[round(x, 3) for x in losses]}; {launches}; {seconds:.1f} s with the loader and "
+          "the eval", flush=True)
+    if launches != want:
+        raise AssertionError(f"train bf16: kernel launches {launches}, expected {want}")
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train bf16: losses {losses}")
+    if not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError(f"train bf16: loss did not fall: {losses}")
+    kinds = {p.dtype for p in result.net.parameters()} | {
+        t.dtype for key in ("m", "v") for t in result.opt_state[key].values()}
+    if kinds != {torch.float32}:
+        raise AssertionError(f"train bf16: masters or Adam moments in {kinds}")
+    return {"launches": launches, "losses": losses, "seconds": seconds}
+
+
+def bias_errs(got, want):
+    """(max |exp(got) - exp(want)|, max |got - want| where exp(want) > 0.1):
+    the bias probes' two measures (PROBE_BIAS_TOL)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    away = want.exp() > 0.1
+    return ((got.exp() - want.exp()).abs().max().item(),
+            (got - want)[away].abs().max().item())
+
+
+def probe_path(PR, dev):
+    """The probe CLI on the card with its launch counts, then every probe
+    kernel against its plain version on the probes' inputs, and its times."""
+    for n in PR.LAUNCHES:
+        PR.LAUNCHES[n] = 0
+    results = PR.main([])                    # python -m mmnas_tpu_torch.tools.probes
+    torch.cuda.synchronize()
+    launches = dict(PR.LAUNCHES)
+    print(f"probe path: launches {launches}", flush=True)
+    if launches != PROBE_LAUNCHES:
+        raise AssertionError(f"probes: kernel launches {launches}, expected {PROBE_LAUNCHES}")
+    raw, w1, b1, wr, br = PR.bias_inputs()
+    fp64 = torch.from_numpy(PR.bias_fp64(raw, w1, b1, wr, br))
+    vs_fp64 = {}
+    for name in ("bias", "bias2"):
+        vs_fp64[name] = bias_errs(torch.from_numpy(results[name]["out"]), fp64)
+        if not max(vs_fp64[name]) <= PROBE_BIAS_TOL:
+            raise AssertionError(f"probe {name} against the fp64 chain: {vs_fp64[name]}")
+    for name in ("slice", "outer", "wrblock"):
+        if any(d != 0.0 for d in results[name].values()):
+            raise AssertionError(f"probe {name} is not exact: {results[name]}")
+
+    rows = {}
+
+    def record(name, err, ms, plain_ms, nbytes, ops, library_ms=None, **extra):
+        bound_ms, bound_by = bound(nbytes, ops)
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms, **extra}
+        print(f"probe   {name:16s} max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  library {library_ms if library_ms is None else round(library_ms, 4)}"
+              f" ms  bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+
+    # rows 5-6: the RSA log-bias, features once for all heads / per head
+    args = [torch.from_numpy(a).to(dev) for a in (raw, w1, b1, wr, br)]
+    once, fresh = PR.probe_bias(*args), PR.probe_bias(*args, fresh=True)
+    plain = PR.bias_reference(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(once, fresh):
+        raise AssertionError("probe_bias and probe_bias2 differ in their bits")
+    Bn, L, Rr = raw.shape[0], raw.shape[1], raw.shape[3]
+    Rn, Hn = w1.shape[0], wr.shape[0]
+    live = live_share(args[:3])
+    # the function's least work: raw in, [B, H, L, L] out; raw W1^T once per
+    # (b, i, j) and the H head projections of the live features, in fp32
+    nbytes = Bn * L * L * (Rr + Hn) * 4
+    ops = {torch.float32: Bn * L * L * (2 * Rn * Rr + 2 * Hn * Rn * live)}
+    for name, got, fresh_ in (("probe_bias", once, False), ("probe_bias2", fresh, True)):
+        exp_err, log_err = bias_errs(got, plain)
+        if not max(exp_err, log_err) <= PROBE_BIAS_TOL:
+            raise AssertionError(f"{name} against its plain version: {exp_err}, {log_err}")
+        record(name, exp_err, cuda_time_ms(lambda: PR.probe_bias(*args, fresh=fresh_)),
+               cuda_time_ms(lambda: PR.bias_reference(*args)), nbytes, ops,
+               log_err_where_pre_over_0_1=log_err, vs_fp64=vs_fp64["bias2" if fresh_ else "bias"],
+               live_share=live, shape=f"B{Bn} H{Hn} L{L} Rr{Rr} R{Rn} fp32")
+
+    # row 7: 2 plane in fp32, four row chunks, from f32 and bf16 planes
+    cases = {}
+    for dt, plane in PR.slice_inputs().items():
+        plane = plane.to(dev)
+        got, want = PR.probe_slice(plane), PR.slice_reference(plane)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"probe_slice {dt} differs from its plain version")
+        cases[str(dt)] = {"ms": cuda_time_ms(lambda: PR.probe_slice(plane)),
+                          "plain_ms": cuda_time_ms(lambda: PR.slice_reference(plane))}
+    plane = PR.slice_inputs()[torch.float32].to(dev)
+    n = plane.numel()
+    record("probe_slice", 0.0, cases["torch.float32"]["ms"], cases["torch.float32"]["plain_ms"],
+           n * 8, {torch.float32: n}, cuda_time_ms(lambda: torch.mul(plane, 2)),
+           cases=cases, shape="[1,100,100] f32 -> f32")
+
+    # row 8: plane (x) w + b1 in fp32
+    cases = {}
+    for dt, ops_ in PR.outer_inputs().items():
+        ops_ = [t.to(dev) for t in ops_]
+        got, want = PR.probe_outer(*ops_), PR.outer_reference(*ops_)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"probe_outer {dt} differs from its plain version")
+        cases[str(dt)] = {"ms": cuda_time_ms(lambda: PR.probe_outer(*ops_)),
+                          "plain_ms": cuda_time_ms(lambda: PR.outer_reference(*ops_))}
+    pl, w, b1_ = (t.to(dev) for t in PR.outer_inputs()[torch.float32])
+    n, Rn = pl.numel(), w.numel()
+    record("probe_outer", 0.0, cases["torch.float32"]["ms"], cases["torch.float32"]["plain_ms"],
+           (n + 2 * Rn + n * Rn) * 4, {torch.float32: 2 * n * Rn},
+           cuda_time_ms(lambda: torch.addcmul(b1_, pl[..., None], w)),
+           cases=cases, shape="[100,100] (x) [64] f32 -> f32")
+
+    # row 9: Wr through a per-head slice (A) and a dynamic index (B)
+    wr_ = PR.wrblock_inputs().to(dev)
+    want = PR.wrblock_reference(wr_)
+    for variant in ("a", "b"):
+        got = PR.probe_wrblock(wr_, variant)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"probe_wrblock_{variant} differs from its plain version")
+        record(f"probe_wrblock_{variant}", 0.0,
+               cuda_time_ms(lambda: PR.probe_wrblock(wr_, variant)),
+               cuda_time_ms(lambda: PR.wrblock_reference(wr_)), wr_.numel() * 4 * 3, {},
+               cuda_time_ms(lambda: wr_.repeat(2, 1, 1, 1)),
+               shape="Wr [8,64,1] -> [2,8,64,1] f32")
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+    return {"launches": launches, "vs_fp64": vs_fp64, "rows": rows}
+
+
+def search_cfg(dtype, batch, kpath, **extra):
+    """`--SYNTH --ALPHA_MODE full` at BS `batch`, KPATH `kpath`, one epoch of
+    SEARCH_STEPS weight steps (the 80/20 split: SYNTH_SIZE = steps * batch /
+    0.8), arch steps from epoch 0 every ALPHA_EVERY."""
+    from mmnas_tpu_torch.config import cfg_from_args, make_arg_parser
+
+    size = SEARCH_STEPS * batch * 5 // 4
+    args = ["--SYNTH", "--SYNTH_SIZE", str(size), "--BS", str(batch), "--KPATH", str(kpath),
+            "--DTYPE", dtype, "--SEED", "0", "--NW", "8", "--MAX_EPOCH", "1",
+            "--ALPHA_MODE", "full", "--VERSION", f"smoke_search_{dtype}"]
+    cfg = cfg_from_args("vqa", make_arg_parser("vqa", search=True).parse_args(args), search=True)
+    return cfg.replace(ALPHA_START=0, ALPHA_EVERY=ALPHA_EVERY, LOG_ROOT=os.path.join(WORK, "log"),
+                       CKPT_ROOT=os.path.join(WORK, "ckpts"),
+                       ARCH_ROOT=os.path.join(WORK, "arch"), **extra)
+
+
+def attention_ops(idx):
+    """(attention ops, rel_self_att_64 ops) on the path idx."""
+    from mmnas_tpu_torch.models.supernet import SPACES
+
+    att = sum(int(sum(SPACES[c][int(i)] != "feed_forward" for i in idx[c])) for c in SPACES)
+    rel = int(sum(SPACES["dec"][int(i)] == "rel_self_att_64" for i in idx["dec"]))
+    return att, rel
+
+
+def arch_backwards(idx):
+    """The backward launches of a 'full' arch step on the path idx: one per
+    sampled attention op whose inputs depend on alpha. The net's weights
+    enter detached, so the first node of each cell has none, unless it is a
+    guided attention reading the encoder's output."""
+    from mmnas_tpu_torch.models.supernet import SPACES
+
+    first = sum(SPACES[c][int(idx[c][0])] in ("self_att_64", "rel_self_att_64") for c in SPACES)
+    return attention_ops(idx)[0] - first
+
+
+def search_launches(result, eval_batches, alpha_host):
+    """The launches the recorded paths call for: per weight step, for each
+    of its paths, one dropout forward and one backward per attention op and
+    one relation pass per rel_self_att_64 op; per 'full' arch step a dropout
+    forward for every attention op of every node and the backwards of
+    `arch_backwards`; per eval batch a forward per attention op of the
+    argmax path."""
+    from mmnas_tpu_torch.models.supernet import SPACES, NetSearch
+
+    every = sum(result.net.n_nodes[c] * sum(op != "feed_forward" for op in SPACES[c])
+                for c in SPACES)
+    want = {"fused_attention_fwd": 0, "fused_attention_fwd_dropout": 0,
+            "fused_attention_bwd": 0, "fused_attention_bwd_rel": 0}
+    for kind, _, p in result.paths:
+        if kind == "arch":
+            want["fused_attention_fwd_dropout"] += every
+            want["fused_attention_bwd"] += arch_backwards(p)
+            continue
+        for idx in p:
+            att, rel = attention_ops(idx)
+            want["fused_attention_fwd_dropout"] += att
+            want["fused_attention_bwd"] += att
+            want["fused_attention_bwd_rel"] += rel
+    want["fused_attention_fwd"] = eval_batches * attention_ops(
+        NetSearch.chosen_indices(alpha_host))[0]
+    return want, every
+
+
+def search_path(FA, dev, card):
+    """Both search legs (SEARCH_LEGS) through SearchExecution.run(), each
+    with its checks, step times and device split; the fp32 leg also
+    resumes from its checkpoint and hands its genotype to a fixed net."""
+    from mmnas_tpu_torch.engine.search import SearchExecution
+    from mmnas_tpu_torch.models.convert import from_jax_params
+    from mmnas_tpu_torch.models.supernet import SPACES
+    from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint
+
+    out = {}
+    for dtype, batch, kpath in SEARCH_LEGS:
+        cfg = search_cfg(dtype, batch, kpath)
+        if not (cfg.DROPOUT_R == RATE and cfg.EVAL_EVERY_EPOCH and cfg.HSIZE == 256
+                and cfg.NET_GRAD_CLIP > 0 and cfg.ALPHA_BINARY_MODE == "full"):
+            raise AssertionError(f"unexpected search config {cfg}")
+        arch_json = os.path.join(cfg.ARCH_ROOT, cfg.VERSION + ".json")
+        name = f"search {dtype} BS {batch} KPATH {kpath}"
+        for n in FA.LAUNCHES:
+            FA.LAUNCHES[n] = 0
+        t0 = time.perf_counter()
+        result = SearchExecution(cfg, dev).run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(FA.LAUNCHES)
+        split = int(cfg.SYNTH_SIZE * cfg.SPLIT_PORTION)
+        alpha_host = result.alpha_host
+        want, every = search_launches(result, math.ceil((cfg.SYNTH_SIZE - split) / batch),
+                                      alpha_host)
+        kinds = [(k, step) for k, step, _ in result.paths]
+        want_kinds = []
+        for step in range(SEARCH_STEPS):
+            want_kinds += [("weight", step)] + ([("arch", step)] * ((step + 1) % ALPHA_EVERY == 0))
+        losses = result.step_losses
+        print(f"{name}: {len(losses)} weight steps, losses per batch "
+              f"{[round(x, 3) for x in losses]}; {launches} (expected {want}, {every} attention "
+              f"ops per arch step); {seconds:.1f} s with the loader and the eval on {card}",
+              flush=True)
+        if kinds != want_kinds or every != 66:
+            raise AssertionError(f"{name}: steps {kinds}, {every} attention ops per node set")
+        if launches != want or not all(launches.values()):
+            raise AssertionError(f"{name}: kernel launches {launches}, expected {want}")
+        if len(losses) != SEARCH_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{name}: losses {losses}")
+        init = result.net.init_alpha()
+        moved = {c: (result.alpha[c].cpu() - init[c]).abs().max().item() for c in init}
+        if not all(v > 0 for v in moved.values()):
+            raise AssertionError(f"{name}: alpha did not move: {moved}")
+        with open(arch_json) as f:
+            archive = json.load(f)
+        genotype = archive.get("epoch1")
+        if list(archive) != ["epoch1"] or genotype != result.net.genotype(alpha_host) or any(
+                len(genotype[c]) != result.net.n_nodes[c]
+                or any(len(node) != 1 or node[0] not in SPACES[c] for node in genotype[c])
+                for c in SPACES):
+            raise AssertionError(f"{name}: genotype archive {archive}")
+        ckpt = load_checkpoint(ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, 1))
+        state = from_jax_params(ckpt["state_dict"])
+        own = result.net.state_dict()
+        if (set(ckpt) != {"state_dict", "net_optim", "alpha", "alpha_optim", "epoch"}
+                or ckpt["epoch"] != 1 or set(state) != set(own)
+                or not all(torch.equal(state[k], own[k].cpu()) for k in own)
+                or not all(np.array_equal(ckpt["alpha"][c], alpha_host[c]) for c in SPACES)):
+            raise AssertionError(f"{name}: the epoch checkpoint does not reload")
+        leg = {"launches": launches, "expected": want, "losses": losses, "seconds": seconds,
+               "alpha_moved": moved, "genotype": genotype}
+        if dtype == "float32":
+            leg["resume"] = search_resume(cfg, dev, arch_json)
+            leg["fixed_net"] = fixed_net_from_genotype(FA, dev, arch_json)
+        else:
+            leg["precision"] = search_precision(cfg, result, dev)
+        leg.update(search_step_times(cfg, result, dev, card))
+        out[f"{dtype}_bs{batch}_k{kpath}"] = leg
+        del result, state, own, ckpt
+        torch.cuda.empty_cache()
+    return out
+
+
+def search_resume(cfg, dev, arch_json):
+    """RESUME from the epoch-1 checkpoint for a second epoch: the global
+    steps, the archive and both optimizers' step counts continue."""
+    from mmnas_tpu_torch.engine.search import SearchExecution
+    from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint
+
+    cfg = cfg.replace(RESUME=True, CKPT_FILE_PATH=ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, 1),
+                      MAX_EPOCH=2, EVAL_EVERY_EPOCH=False)
+    result = SearchExecution(cfg, dev).run()
+    torch.cuda.synchronize()
+    with open(arch_json) as f:
+        archive = json.load(f)
+    ckpt = load_checkpoint(ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, 2))
+    steps = (int(ckpt["net_optim"]["step"]), int(ckpt["alpha_optim"]["step"]))
+    print(f"search resume: from global step {result.paths[0][1]}, losses "
+          f"{[round(x, 3) for x in result.step_losses]}; archive {list(archive)}; optimizer "
+          f"steps (net, alpha) {steps}", flush=True)
+    if (result.paths[0][1] != SEARCH_STEPS or list(archive) != ["epoch1", "epoch2"]
+            or ckpt["epoch"] != 2 or steps != (2 * SEARCH_STEPS, 2 * SEARCH_STEPS // ALPHA_EVERY)
+            or not all(map(math.isfinite, result.step_losses))):
+        raise AssertionError(f"search resume: {result.paths[0][1]}, {list(archive)}, {steps}")
+    return {"first_step": result.paths[0][1], "losses": result.step_losses,
+            "optimizer_steps": steps}
+
+
+def fixed_net_from_genotype(FA, dev, arch_json):
+    """The chain search -> genotype -> fixed net: NetFull of the fixed-net
+    Cfg (HSIZE 512) on the archive's last genotype, one eval batch."""
+    from mmnas_tpu_torch.engine.vqa import Execution, batch_to_device
+    from mmnas_tpu_torch.genotype import load_genotype
+
+    cfg = cfg_for("val", "float32", SYNTH_SIZE=BATCH, ARCH_PATH=arch_json, GENO_EPOCH=2)
+    exe = Execution(cfg, dev)
+    dataset = exe.build_dataset("val")
+    net = exe.build_net(dataset).to(dev).eval()
+    batch = batch_to_device(list(exe.make_loader(dataset, BATCH))[0], dev)
+    genotype = load_genotype(arch_json, 2)
+    att = sum(op != "feed_forward" for c in ("enc", "dec") for node in genotype[c] for op in node)
+    for n in FA.LAUNCHES:
+        FA.LAUNCHES[n] = 0
+    with torch.inference_mode():
+        logits = net(batch)
+    torch.cuda.synchronize()
+    print(f"fixed net from the searched genotype: HSIZE {cfg.HSIZE}, {att} attention ops, "
+          f"logits {tuple(logits.shape)}, {FA.LAUNCHES['fused_attention_fwd']} forward launches",
+          flush=True)
+    if (cfg.HSIZE != 512 or logits.shape != (BATCH, dataset.ans_size)
+            or not torch.isfinite(logits).all() or FA.LAUNCHES["fused_attention_fwd"] != att):
+        raise AssertionError(f"fixed net from the genotype: {logits.shape}, {FA.LAUNCHES}")
+    return {"hsize": cfg.HSIZE, "attention_ops": att, "launches": FA.LAUNCHES["fused_attention_fwd"]}
+
+
+def search_precision(cfg, result, dev):
+    """bf16 on fp32 masters: the masters, alpha and both optimizers' states
+    stay fp32; on one batch at DROPOUT_R 0, the first weight step's paths,
+    the bf16 step's loss is within SEARCH_BF16_LOSS_TOL of the fp32 one
+    (both from the same seeded init)."""
+    from mmnas_tpu_torch.engine.search import SearchExecution
+    from mmnas_tpu_torch.engine.vqa import batch_to_device
+    from mmnas_tpu_torch.models.net import INPUT_KEYS
+    from mmnas_tpu_torch.train.optimizer import build_net_optimizer
+
+    kinds = ({p.dtype for p in result.net.parameters()} | {a.dtype for a in result.alpha.values()}
+             | {t.dtype for st in (result.opt_state, result.alpha_state) for key in ("m", "v")
+                for t in st[key].values()})
+    if kinds != {torch.float32}:
+        raise AssertionError(f"search bf16: masters, alpha or optimizer states in {kinds}")
+    idxs = result.paths[0][2]
+    losses = {}
+    for dtype in ("float32", "bfloat16"):
+        c0 = search_cfg(dtype, cfg.BATCH_SIZE, cfg.KPATH, DROPOUT_R=0.0)
+        exe = SearchExecution(c0, dev)
+        dataset = exe.build_dataset()
+        host = list(exe.make_loader(dataset, list(range(c0.BATCH_SIZE))))[0]
+        net = exe.build_net(dataset)
+        masters = dict(net.named_parameters())
+        optim = build_net_optimizer(c0, SEARCH_STEPS)
+        loss, _ = exe.weight_step(net, optim, optim.init(masters), masters,
+                                  batch_to_device(host, dev, INPUT_KEYS + ("ans",)), idxs,
+                                  torch.Generator(dev))
+        losses[dtype] = float(loss)
+        del net, masters
+    rel = abs(losses["bfloat16"] - losses["float32"]) / abs(losses["float32"])
+    print(f"search bf16 vs fp32, one weight step at DROPOUT_R 0 on the same paths and batch: "
+          f"loss {losses['bfloat16']:.4f} vs {losses['float32']:.4f} (rel {rel:.2e}, tol "
+          f"{SEARCH_BF16_LOSS_TOL:g}); masters, alpha and optimizer states {sorted(map(str, kinds))}",
+          flush=True)
+    if not rel <= SEARCH_BF16_LOSS_TOL:
+        raise AssertionError(f"search bf16 loss {losses['bfloat16']} vs fp32 {losses['float32']}")
+    return {"loss_bf16": losses["bfloat16"], "loss_fp32": losses["float32"], "rel": rel}
+
+
+def search_step_times(cfg, result, dev, card):
+    """Weight step and arch step ms on one resident batch each (CUDA
+    events; the host's sampling included), search examples/s over
+    SEARCH_STEPS weight steps of the engine's own loop
+    (`SearchExecution.steps`: an arch step after every ALPHA_EVERY-th, the
+    alpha host copy renewed after it) on resident batches, what
+    bench.py:462-494 counts, and each step's device split."""
+    from mmnas_tpu_torch.engine.search import SearchExecution, SearchResult, host_copy
+    from mmnas_tpu_torch.engine.vqa import batch_to_device
+    from mmnas_tpu_torch.models.net import INPUT_KEYS
+    from mmnas_tpu_torch.train.optimizer import build_net_optimizer
+
+    exe = SearchExecution(cfg, dev)
+    dataset = exe.build_dataset()
+    split, bs, keys = int(cfg.SYNTH_SIZE * cfg.SPLIT_PORTION), cfg.BATCH_SIZE, INPUT_KEYS + ("ans",)
+    wb = batch_to_device(list(exe.make_loader(dataset, list(range(bs))))[0], dev, keys)
+    ab = batch_to_device(list(exe.make_loader(dataset, list(range(split, split + bs))))[0], dev,
+                         keys)
+    net = result.net
+    masters = dict(net.named_parameters())
+    optim, aoptim = build_net_optimizer(cfg, SEARCH_STEPS), exe.alpha_optimizer()
+    alpha = {c: a.clone() for c, a in result.alpha.items()}
+    run = SearchResult(net, alpha, optim.init(masters), aoptim.init(alpha),
+                       alpha_host=host_copy(alpha))
+    sampler, gen = torch.Generator().manual_seed(11), torch.Generator(dev).manual_seed(12)
+
+    def weight():
+        idxs = [net.sample_indices(run.alpha_host, sampler) for _ in range(cfg.KPATH)]
+        exe.weight_step(net, optim, run.opt_state, masters, wb, idxs, gen)
+
+    def arch():
+        exe.arch_step(net, aoptim, run.alpha_state, run.alpha, ab,
+                      net.sample_indices(run.alpha_host, sampler), gen)
+        run.alpha_host = host_copy(run.alpha)
+
+    def loop():
+        exe.steps(run, optim, aoptim, [wb] * SEARCH_STEPS, lambda: ab, 0, True, gen)
+
+    weight_ms = cuda_time_ms(weight, iters=10, warmup=2)
+    arch_ms = cuda_time_ms(arch, iters=4, warmup=1)
+    loop_ms = cuda_time_ms(loop, iters=2, warmup=1)
+    ex_s = SEARCH_STEPS * bs / loop_ms * 1000
+    split_w, split_a = profile_step(weight), profile_step(arch)
+    print(f"search {cfg.DTYPE} BS {bs} KPATH {cfg.KPATH} on {card}: weight step {weight_ms:.2f} ms,"
+          f" arch step {arch_ms:.2f} ms, {SEARCH_STEPS} weight + {SEARCH_STEPS // ALPHA_EVERY} arch "
+          f"steps {loop_ms:.2f} ms = {ex_s:.1f} examples/s; device split weight step {split_w}, "
+          f"arch step {split_a}",
+          flush=True)
+    return {"weight_step_ms": weight_ms, "arch_step_ms": arch_ms, "loop_ms": loop_ms,
+            "examples_per_s": ex_s, "device_split_weight": split_w, "device_split_arch": split_a}
 
 
 def plain_attention(q, k, v, mask=None, log_bias=None, *, rel=None, dropout_r=0.0,
@@ -628,7 +1123,8 @@ def profile_step(step):
             continue
         name = ev.key.lower()
         kind = ("port_kernels" if "fused_attention" in name else
-                "gemm" if any(s in name for s in ("gemm", "cublas", "cutlass", "xmma", "sm90"))
+                "gemm" if any(s in name for s in ("gemm", "cublas", "cutlass", "xmma", "sm90",
+                                                  "nvjet"))
                 else "other")
         split[kind] += us / 1e3 / 3
     if not any(split.values()):
@@ -642,6 +1138,7 @@ def main() -> int:
         return 2
     from mmnas_tpu_torch.csrc import build
     from mmnas_tpu_torch.ops import fused_attention as FA
+    from mmnas_tpu_torch.tools import probes as PR
 
     os.makedirs(WORK, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -664,43 +1161,99 @@ def main() -> int:
                 print("  " + line.strip())
 
     dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+
+    def phase(label):
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"-- {label} done in {now - t_phase:.1f} s", flush=True)
+        t_phase = now
+
+    probes = probe_path(PR, dev)
+    phase("probes")
     fwd_cases = kernel_cases(FA, dev)
     train_cases = train_kernel_cases(FA, dev)
+    phase("kernels at the fixed net's shapes")
+    search_fwd = kernel_cases(FA, dev, SEARCH_B, SEARCH_H, SEARCH_CASES)
+    search_train = train_kernel_cases(FA, dev, SEARCH_B, SEARCH_H, SEARCH_CASES)
+    search_fwd += kernel_cases(FA, dev, SEARCH_K8_B, SEARCH_H, SEARCH_CASES, (torch.bfloat16,))
+    search_train += train_kernel_cases(FA, dev, SEARCH_K8_B, SEARCH_H, SEARCH_CASES,
+                                       (torch.bfloat16,))
+    phase("kernels at the search's shapes")
     evals = eval_path(FA, dev, card)
+    phase("eval")
     train = train_path(FA, dev, card)
+    phase("train")
+    search = search_path(FA, dev, card)
+    phase("search")
 
     def pick(rows, Lq, Lk, kind):
         return next(r for r in rows if r["dtype"] == "float32" and (r["Lq"], r["Lk"],
                                                                    r["operands"]) == (Lq, Lk, kind))
 
+    def at_search_shape(rows, kind, keys):
+        r = pick(rows, 100, 100, kind)
+        return {"shape": f"B{SEARCH_B} H{SEARCH_H} (100,100) {kind} fp32",
+                **{k: r[v] for k, v in keys.items()}}
+
     fwd, drop = pick(fwd_cases, 100, 100, "mask"), pick(train_cases, 100, 100, "mask")
     rel = pick(train_cases, 100, 100, "mask+rel")
     fp32_train = [r for r in train_cases if r["dtype"] == "float32"]
+    fwd_keys = {"ms": "ms", "plain_ms": "plain_ms", "bound_ms": "bound_ms",
+                "bound_by": "bound_by", "library_ms": "library_ms"}
+    drop_keys = {"ms": "fwd_ms", "plain_ms": "plain_fwd_ms", "bound_ms": "fwd_bound_ms",
+                 "bound_by": "fwd_bound_by", "library_ms": "sdpa_fwd_ms"}
+    bwd_keys = {"ms": "bwd_ms", "plain_ms": "plain_bwd_ms", "bound_ms": "bwd_bound_ms",
+                "bound_by": "bwd_bound_by", "library_ms": "sdpa_bwd_ms"}
+    rel_keys = {"ms": "rel_ms", "plain_ms": "rel_plain_ms", "bound_ms": "rel_bound_ms",
+                "bound_by": "rel_bound_by"}
     rows = [
         {"name": "fused_attention_fwd", "max_abs_err": max(
             c["max_abs_err"] for c in fwd_cases if c["dtype"] == "float32"),
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
-         "shape": "B64 H8 (100,100) mask fp32", "cases": fwd_cases},
+         "shape": "B64 H8 (100,100) mask fp32",
+         "search_shape": at_search_shape(search_fwd, "mask", fwd_keys)},
         {"name": "fused_attention_fwd_dropout",
          "max_abs_err": max(c["fwd_err"] for c in fp32_train),
          "ms": drop["fwd_ms"], "plain_ms": drop["plain_fwd_ms"], "bound_ms": drop["fwd_bound_ms"],
          "bound_by": drop["fwd_bound_by"], "library_ms": drop["sdpa_fwd_ms"],
-         "shape": "B64 H8 (100,100) mask fp32 r 0.1"},
+         "shape": "B64 H8 (100,100) mask fp32 r 0.1",
+         "search_shape": at_search_shape(search_train, "mask", drop_keys)},
         {"name": "fused_attention_bwd", "max_abs_err": max(c["grad_abs_err"] for c in fp32_train),
          "ms": drop["bwd_ms"], "plain_ms": drop["plain_bwd_ms"], "bound_ms": drop["bwd_bound_ms"],
          "bound_by": drop["bwd_bound_by"], "library_ms": drop["sdpa_bwd_ms"],
-         "shape": "B64 H8 (100,100) mask fp32 r 0.1", "cases": train_cases},
+         "shape": "B64 H8 (100,100) mask fp32 r 0.1",
+         "search_shape": at_search_shape(search_train, "mask", bwd_keys)},
         {"name": "fused_attention_bwd_rel", "max_abs_err": rel["rel_abs_err"],
          "ms": rel["rel_ms"], "plain_ms": rel["rel_plain_ms"], "bound_ms": rel["rel_bound_ms"],
          "bound_by": rel["rel_bound_by"], "library_ms": None,
-         "shape": "B64 H8 (100,100) Rr4 R64 fp32"},
+         "shape": "B64 H8 (100,100) Rr4 R64 fp32",
+         "search_shape": at_search_shape(search_train, "mask+rel", rel_keys)},
     ]
+    # the attention kernels' launches on this slice's main path, the fp32
+    # search; each path's own counts beside them
+    main_path = search["float32_bs128_k1"]["launches"]
+    for row in rows:
+        row["launches"] = main_path[row["name"]]
+        row["launches_by_path"] = {
+            "eval_fp32": evals["float32"]["launches"] if row["name"] == "fused_attention_fwd"
+            else 0,
+            "train_fp32": train["launches"][row["name"]],
+            "train_bf16": train["bf16"]["launches"][row["name"]],
+            **{f"search_{leg}": v["launches"][row["name"]] for leg, v in search.items()}}
+    rows += [{"name": name, **row} for name, row in probes["rows"].items()]
     for row in rows:
         source, replaces = KERNELS[row["name"]]
-        row.update(route="cuda", source=source, replaces=replaces,
-                   launches=train["launches"][row["name"]])
-    print(json.dumps({"kernels": rows, "eval": evals, "train": train}))
+        row.update(route="cuda", source=source, replaces=replaces)
+    # every case's numbers, too long for the result line, go to a file
+    details = os.path.join(WORK, "kernel_cases.json")
+    with open(details, "w") as f:
+        json.dump({"fwd": fwd_cases, "train": train_cases, "search_fwd": search_fwd,
+                   "search_train": search_train}, f)
+    print(f"kernel cases: {os.path.relpath(details, HERE)}")
+    print(json.dumps({"kernels": rows, "probes": {k: v for k, v in probes.items() if k != "rows"},
+                      "eval": evals, "train": train, "search": search}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -36,24 +36,39 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// pre = sum_r relu(b1[r] + sum_c raw[c] W1[r, c]) Wr[h, r] + br[h] in fp32 for
-// the Rr raw channels at `rp`; w1s [R][Rr], b1s [R] and wrs [R] (row h of Wr)
-// in shared memory.
+// The relation chain of one (b, i, j), in fp32:
+//   t[r] = relu(b1[r] + sum_c raw[c] W1[r, c])          (relation_feature)
+//   pre  = sum_r t[r] Wr[h, r] + br[h]                   (relation_pre)
+// The attention kernels and the bias probes (probes.cu) all compute it
+// through these functions, so they round alike.
+
+// the Rr raw channels at `rp`, widened to fp32 (zeros past Rr)
+template <typename T>
+__device__ __forceinline__ void load_raw(const T* rp, int Rr, float (&x)[kMaxRr]) {
+#pragma unroll
+  for (int c = 0; c < kMaxRr; ++c) x[c] = c < Rr ? load_f32(rp, c) : 0.f;
+}
+
+// t[r] for the raw channels x; w1r is row r of W1 ([Rr]), b1r = b1[r]
+__device__ __forceinline__ float relation_feature(const float (&x)[kMaxRr], int Rr,
+                                                  const float* w1r, float b1r) {
+  float u = b1r;
+#pragma unroll
+  for (int c = 0; c < kMaxRr; ++c)
+    if (c < Rr) u = fmaf(x[c], w1r[c], u);
+  return fmaxf(u, 0.f);
+}
+
+// pre of head h for the Rr raw channels at `rp`; w1s [R][Rr], b1s [R] and
+// wrs [R] (row h of Wr) in shared memory
 template <typename T>
 __device__ __forceinline__ float relation_pre(const T* rp, int Rr, int R, const float* w1s,
                                               const float* b1s, const float* wrs, float br) {
   float x[kMaxRr];
-#pragma unroll
-  for (int c = 0; c < kMaxRr; ++c) x[c] = c < Rr ? load_f32(rp, c) : 0.f;
+  load_raw(rp, Rr, x);
   float pre = 0.f;
-  for (int rr = 0; rr < R; ++rr) {
-    const float* w1r = w1s + rr * Rr;
-    float u = b1s[rr];
-#pragma unroll
-    for (int c = 0; c < kMaxRr; ++c)
-      if (c < Rr) u = fmaf(x[c], w1r[c], u);
-    pre = fmaf(fmaxf(u, 0.f), wrs[rr], pre);
-  }
+  for (int rr = 0; rr < R; ++rr)
+    pre = fmaf(relation_feature(x, Rr, w1s + rr * Rr, b1s[rr]), wrs[rr], pre);
   return pre + br;
 }
 

@@ -8,11 +8,14 @@ plain C interface, loaded with ctypes by its wrapper:
 
 The library lands in `build/mmnas_tpu_torch/` at the root of the checkout,
 named by a hash of its sources and flags, so an edited source never loads a
-stale build. A failed compile raises with nvcc's output.
+stale build. A failed compile raises with nvcc's output. `load` builds and
+opens a library once per process.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -60,3 +63,10 @@ def build(name: str) -> Tuple[Path, str]:
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib, proc.stdout + proc.stderr
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The library of `csrc/<name>.cu`, built at first use, opened with ctypes."""
+    path, _ = build(name)
+    return ctypes.CDLL(str(path))

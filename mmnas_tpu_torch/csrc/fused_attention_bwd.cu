@@ -14,7 +14,9 @@
 //      dk  += ds^T q * scale
 //      dq   = ds k * scale
 //      dbias = ds                              (with an additive bias)
-//      dpre = ds * [pre > 1e-6] / pre          (with the RSA chain)
+//      dpre = ds * [pre > 1e-6] / pre          (with the RSA chain, when the
+//                                               caller passes dpre: it needs
+//                                               the relation gradients)
 //
 //    Under bf16 operands the dropped-out a and ds are rounded to bf16 before
 //    the products, as the TPU kernel casts them (:376-382). dk and dv stay
@@ -87,7 +89,7 @@ struct BwdArgs {
   T* dk;                      // [B, H, Lk, D]
   T* dv;                      // [B, H, Lk, D]
   T* dbias;                   // [B, H, Lq, Lk], null without bias
-  float* dpre;                // [B, H, Lq, Lk] fp32, null without raw
+  float* dpre;                // [B, H, Lq, Lk] fp32, or null (no relation gradients)
   int H, Lq, Lk, D, Rr, R;
   float scale, keep_p;
 };
@@ -222,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) fused_attention_bwd_kernel(const Bwd
       for (int j = lane; j < Lk; j += 32) {
         const float ds = ar[j] * (dr[j] - dot);
         if (a.dbias != nullptr) store_f32(a.dbias, g0 + j, ds);
-        if (has_rel) {
+        if (a.dpre != nullptr) {
           const float pre = pres[r * Lk + j];
           a.dpre[g0 + j] = pre > kClamp ? ds / pre : 0.f;
         }
@@ -418,8 +420,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        int Lq, int Lk, int D, int Rr, int R, float scale, float keep_p,
                        cudaStream_t stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1) return cudaErrorInvalidValue;
-  if (raw != nullptr && (Rr < 1 || Rr > kMaxRr || R < 1 || dpre == nullptr))
-    return cudaErrorInvalidValue;
+  if (raw != nullptr && (Rr < 1 || Rr > kMaxRr || R < 1)) return cudaErrorInvalidValue;
+  if (raw == nullptr && dpre != nullptr) return cudaErrorInvalidValue;
   if ((bias == nullptr) != (dbias == nullptr)) return cudaErrorInvalidValue;
   if (keep != nullptr && !(keep_p > 0.f && keep_p <= 1.f)) return cudaErrorInvalidValue;
   BwdArgs<T> a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -461,8 +463,9 @@ cudaError_t launch_rel(const void* raw, const void* w1, const void* b1, const vo
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Null pointers mark absent operands:
-// bias with dbias, mask, raw with w1/b1/wr/br/dpre, keep (no dropout; else
-// keep_p = 1 - r). Returns the CUDA error code of the launch (0 = launched);
+// bias with dbias, mask, raw with w1/b1/wr/br, keep (no dropout; else
+// keep_p = 1 - r), and dpre (with raw: null when no relation gradient is
+// needed, and the store is skipped). Returns the CUDA error code of the launch (0 = launched);
 // the kernel runs on `stream`.
 extern "C" int mmnas_fused_attention_bwd(int dtype, const void* q, const void* k,
                                          const void* v, const void* bias, const void* mask,

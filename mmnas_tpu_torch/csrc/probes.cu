@@ -1,0 +1,259 @@
+// The five Pallas debug probes of tools/debug/ as kernels for Hopper (sm_90a).
+//
+// Each computes what its TPU probe computes; the layouts follow the port
+// (torch Linear layout: W1 [R, Rr], Wr [H, R]), not the TPU blocks.
+//
+// 1. probe_bias (replaces `kernel`, tools/debug/_probe_bias.py:13): the RSA
+//    log-bias alone,
+//      bias[b, h, i, j] = log(max(sum_r relu(raw[b,i,j] W1[r]^T + b1[r]) Wr[h, r] + br[h], 1e-6))
+//    The TPU kernel computed the relation features once per batch row
+//    (`h == 0` guard) and carried them across the head programs in VMEM.
+//    Here one block per (b, chunk of query rows) computes each element's
+//    features once and all H heads from them, in registers.
+// 2. probe_bias2 (`kernel`, _probe_bias2.py:13): the same chain with the
+//    features recomputed per head. One block per (b, h, chunk of rows)
+//    calls `relation_pre`, the function the attention kernels call.
+//    Both kernels build the chain from attention_common.cuh's
+//    `relation_feature`, with the same operations in the same order per
+//    head, so they give equal bits, and the attention kernels' scores carry
+//    the same bias bits. That is what the probes check.
+// 3. probe_slice (`k`, _probe_slice.py:7): out[i, j] = 2 plane[0, i, j] in
+//    fp32 from an fp32 or bf16 plane, written by one block per chunk of rows
+//    (the TPU probe wrote four row chunks of 25).
+// 4. probe_outer (`k`, _probe_outer.py:9): out[i, j, r] = plane[i, j] w[r] +
+//    b1[r] in fp32, from fp32 or bf16 operands. The product and the sum are
+//    rounded one at a time (__fmul_rn, __fadd_rn: no FMA contraction), as
+//    numpy rounds them.
+// 5. probe_wrblock_a / probe_wrblock_b (`kA`, `kB`, _probe_wrblock.py:9,21):
+//    Wr [H, R, 1] copied to out[b, h] for b < 2 on a (2, H) grid, through
+//    two layouts: A reads through a pointer to its head's slice, B gets
+//    the whole array and indexes it by blockIdx.y.
+//
+// What bounds them on this card: at their shapes (at most 8 x 8 x 100 x 100
+// outputs) they are a few microseconds of work, so the launch itself does.
+// Of the work, the bias probes are bound by their fp32 FMAs (2 R Rr + 2 H R
+// per element for probe_bias, H times the features for probe_bias2), the
+// slice, outer and wrblock probes by their bytes.
+
+#include "attention_common.cuh"
+
+namespace {
+
+using namespace mmnas;
+
+constexpr int kThreads = 256;
+constexpr int kMaxH = 16;   // heads probe_bias holds in registers
+constexpr int kRows = 4;    // query rows per block of the bias probes
+
+// pre[h] for every head h < H, the features computed once: per head the
+// operations and their order of relation_pre. wrs [H][R], brs [H].
+__device__ __forceinline__ void relation_pre_heads(const float (&x)[kMaxRr], int Rr, int R,
+                                                   int H, const float* w1s, const float* b1s,
+                                                   const float* wrs, const float* brs,
+                                                   float (&pre)[kMaxH]) {
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) pre[h] = 0.f;
+  for (int rr = 0; rr < R; ++rr) {
+    const float t = relation_feature(x, Rr, w1s + rr * Rr, b1s[rr]);
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h)
+      if (h < H) pre[h] = fmaf(t, wrs[h * R + rr], pre[h]);
+  }
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h)
+    if (h < H) pre[h] = pre[h] + brs[h];
+}
+
+struct BiasArgs {
+  const float* raw;  // [B, L, L, Rr]
+  const float* w1;   // [R, Rr]
+  const float* b1;   // [R]
+  const float* wr;   // [H, R]
+  const float* br;   // [H]
+  float* out;        // [B, H, L, L]
+  int H, L, Rr, R;
+};
+
+// shared memory: W1, b1, Wr (all heads), br
+size_t bias_smem_bytes(int H, int Rr, int R) {
+  return ((size_t)R * Rr + R + (size_t)H * R + H) * sizeof(float);
+}
+
+__device__ __forceinline__ void load_weights(const BiasArgs& a, float* w1s, float* b1s,
+                                             float* wrs, float* brs) {
+  for (int i = threadIdx.x; i < a.R * a.Rr; i += kThreads) w1s[i] = a.w1[i];
+  for (int i = threadIdx.x; i < a.R; i += kThreads) b1s[i] = a.b1[i];
+  for (int i = threadIdx.x; i < a.H * a.R; i += kThreads) wrs[i] = a.wr[i];
+  for (int i = threadIdx.x; i < a.H; i += kThreads) brs[i] = a.br[i];
+  __syncthreads();
+}
+
+// grid (row chunks, B): features once per element, all heads
+__global__ void __launch_bounds__(kThreads) probe_bias_kernel(const BiasArgs a) {
+  extern __shared__ float smem[];
+  float* w1s = smem;
+  float* b1s = w1s + a.R * a.Rr;
+  float* wrs = b1s + a.R;
+  float* brs = wrs + a.H * a.R;
+  load_weights(a, w1s, b1s, wrs, brs);
+  const int b = blockIdx.y, L = a.L, row0 = blockIdx.x * kRows;
+  const int E = min(kRows, L - row0) * L;
+  const long plane = (long)L * L;
+  for (int e = threadIdx.x; e < E; e += kThreads) {
+    const long ij = (long)row0 * L + e;
+    float x[kMaxRr], pre[kMaxH];
+    load_raw(a.raw + ((long)b * plane + ij) * a.Rr, a.Rr, x);
+    relation_pre_heads(x, a.Rr, a.R, a.H, w1s, b1s, wrs, brs, pre);
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h)
+      if (h < a.H) a.out[((long)b * a.H + h) * plane + ij] = logf(fmaxf(pre[h], kClamp));
+  }
+}
+
+// grid (row chunks, H, B): features recomputed per head, as the attention kernels do
+__global__ void __launch_bounds__(kThreads) probe_bias2_kernel(const BiasArgs a) {
+  extern __shared__ float smem[];
+  float* w1s = smem;
+  float* b1s = w1s + a.R * a.Rr;
+  float* wrs = b1s + a.R;
+  float* brs = wrs + a.H * a.R;
+  load_weights(a, w1s, b1s, wrs, brs);
+  const int h = blockIdx.y, b = blockIdx.z, L = a.L, row0 = blockIdx.x * kRows;
+  const int E = min(kRows, L - row0) * L;
+  const long plane = (long)L * L;
+  for (int e = threadIdx.x; e < E; e += kThreads) {
+    const long ij = (long)row0 * L + e;
+    const float pre = relation_pre(a.raw + ((long)b * plane + ij) * a.Rr, a.Rr, a.R, w1s, b1s,
+                                   wrs + h * a.R, brs[h]);
+    a.out[((long)b * a.H + h) * plane + ij] = logf(fmaxf(pre, kClamp));
+  }
+}
+
+// grid (chunks): rows [chunk * rows, +rows) of out = 2 plane
+template <typename T>
+__global__ void __launch_bounds__(kThreads) probe_slice_kernel(const T* plane, float* out, int L,
+                                                                int rows) {
+  const int row0 = blockIdx.x * rows;
+  const int n = min(rows, L - row0) * L;
+  const long base = (long)row0 * L;
+  for (int i = threadIdx.x; i < n; i += kThreads) out[base + i] = load_f32(plane, base + i) * 2.f;
+}
+
+// out[p, r] = plane[p] w[r] + b1[r] over p < n, r < R
+template <typename T>
+__global__ void __launch_bounds__(kThreads) probe_outer_kernel(const T* plane, const T* w,
+                                                                const T* b1, float* out, long n,
+                                                                int R) {
+  const long total = n * R;
+  for (long i = (long)blockIdx.x * kThreads + threadIdx.x; i < total;
+       i += (long)gridDim.x * kThreads) {
+    const long p = i / R;
+    const int r = (int)(i - p * R);
+    out[i] = __fadd_rn(__fmul_rn(load_f32(plane, p), load_f32(w, r)), load_f32(b1, r));
+  }
+}
+
+// grid (2, H): A cuts its head's slice first (the per-head block the TPU
+// BlockSpec gave `kA`) and reads it from 0; B reads the whole array at
+// row blockIdx.y
+__global__ void probe_wrblock_a_kernel(const float* wr, float* out, int R) {
+  const int b = blockIdx.x, h = blockIdx.y;
+  const float* slice = wr + (long)h * R;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) out[((long)b * gridDim.y + h) * R + r] = slice[r];
+}
+
+__global__ void probe_wrblock_b_kernel(const float* wr, float* out, int R) {
+  const int b = blockIdx.x, H = gridDim.y;
+  for (int r = threadIdx.x; r < R; r += blockDim.x)
+    out[((long)b * H + blockIdx.y) * R + r] = wr[(long)blockIdx.y * R + r];
+}
+
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace
+
+// The bias probes, fp32. fresh = 0: probe_bias (features once per element,
+// all heads); 1: probe_bias2 (features per head). Returns the CUDA error code
+// of the launch (0 = launched); the kernel runs on `stream`.
+extern "C" int mmnas_probe_bias(int fresh, const void* raw, const void* w1, const void* b1,
+                                const void* wr, const void* br, void* out, int B, int H, int L,
+                                int Rr, int R, void* stream) {
+  if (B < 1 || H < 1 || H > kMaxH || L < 1 || Rr < 1 || Rr > kMaxRr || R < 1)
+    return cudaErrorInvalidValue;
+  const BiasArgs a{static_cast<const float*>(raw), static_cast<const float*>(w1),
+                   static_cast<const float*>(b1), static_cast<const float*>(wr),
+                   static_cast<const float*>(br), static_cast<float*>(out), H, L, Rr, R};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = bias_smem_bytes(H, Rr, R);
+  const int chunks = (L + kRows - 1) / kRows;
+  cudaError_t err;
+  if (fresh == 0) {
+    if ((err = opt_in(probe_bias_kernel, bytes)) != cudaSuccess) return err;
+    probe_bias_kernel<<<dim3(chunks, B), kThreads, bytes, s>>>(a);
+  } else {
+    if ((err = opt_in(probe_bias2_kernel, bytes)) != cudaSuccess) return err;
+    probe_bias2_kernel<<<dim3(chunks, H, B), kThreads, bytes, s>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = bfloat16 plane; out fp32 [L, L] in `chunks` row chunks.
+extern "C" int mmnas_probe_slice(int dtype, const void* plane, void* out, int L, int chunks,
+                                 void* stream) {
+  if (L < 1 || chunks < 1 || chunks > L) return cudaErrorInvalidValue;
+  const int rows = (L + chunks - 1) / chunks;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    probe_slice_kernel<float><<<chunks, kThreads, 0, s>>>(static_cast<const float*>(plane),
+                                                           static_cast<float*>(out), L, rows);
+  else if (dtype == 1)
+    probe_slice_kernel<__nv_bfloat16><<<chunks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(plane), static_cast<float*>(out), L, rows);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// dtype as above for plane [n], w [R], b1 [R]; out fp32 [n, R].
+extern "C" int mmnas_probe_outer(int dtype, const void* plane, const void* w, const void* b1,
+                                 void* out, long n, int R, void* stream) {
+  if (n < 1 || R < 1) return cudaErrorInvalidValue;
+  const long total = n * R;
+  long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 132L * 16) blocks = 132L * 16;  // 16 blocks per SM; the rest by striding
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    probe_outer_kernel<float><<<(int)blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(plane), static_cast<const float*>(w),
+        static_cast<const float*>(b1), static_cast<float*>(out), n, R);
+  else if (dtype == 1)
+    probe_outer_kernel<__nv_bfloat16><<<(int)blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(plane), static_cast<const __nv_bfloat16*>(w),
+        static_cast<const __nv_bfloat16*>(b1), static_cast<float*>(out), n, R);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// Wr [H, R] fp32 -> out [2, H, R]; variant 0 = A (per-head slice), 1 = B
+// (whole array, dynamic index).
+extern "C" int mmnas_probe_wrblock(int variant, const void* wr, void* out, int H, int R,
+                                   void* stream) {
+  if (H < 1 || H > 65535 || R < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(2, H);
+  const int threads = R < 1024 ? ((R + 31) / 32) * 32 : 1024;
+  if (variant == 0)
+    probe_wrblock_a_kernel<<<grid, threads, 0, s>>>(static_cast<const float*>(wr),
+                                                     static_cast<float*>(out), R);
+  else if (variant == 1)
+    probe_wrblock_b_kernel<<<grid, threads, 0, s>>>(static_cast<const float*>(wr),
+                                                     static_cast<float*>(out), R);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}

@@ -6,8 +6,10 @@ genotype's `NetFull`, then
 
 - with RUN_MODE train, trains it (train_vqa.py:226-341): per step the
   train-mode forward (every dropout site at DROPOUT_R, attention weights
-  included), the summed BCE-with-logits loss, the backward, the global-norm
-  clip at NET_GRAD_CLIP and a WarmupAdam step; per epoch the optimizer's
+  included; under --DTYPE bfloat16 on bf16 casts of the fp32 master
+  parameters), the summed BCE-with-logits loss, the backward, the
+  global-norm clip at NET_GRAD_CLIP and a WarmupAdam step, both fp32; per
+  epoch the optimizer's
   epoch hook, a checkpoint in the JAX package's pickle format (so either
   package resumes from or evaluates it) and, with EVAL_EVERY_EPOCH, an
   eval. RESUME starts from either package's checkpoint;
@@ -36,7 +38,9 @@ from mmnas_tpu_torch.genotype import load_genotype
 from mmnas_tpu_torch.models.convert import (
     from_jax_params, optim_state_from_jax, optim_state_to_jax, to_jax_params,
 )
-from mmnas_tpu_torch.models.net import INPUT_KEYS, NetFull, compute_dtype
+from mmnas_tpu_torch.models.net import (
+    INPUT_KEYS, NetFull, compute_call, compute_dtype, compute_params,
+)
 from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint, save_checkpoint
 from mmnas_tpu_torch.train.optimizer import WarmupAdam, build_net_optimizer, clip_by_global_norm
 from mmnas_tpu_torch.utils.logger import TextLogger, dump_result_json
@@ -128,10 +132,12 @@ class Execution:
     def train_step(self, net: NetFull, optim, opt_state: Dict,
                    params: Dict[str, torch.nn.Parameter], batch: Dict[str, torch.Tensor],
                    generator: torch.Generator):
-        """One optimizer step on one device batch (mmnas_tpu/engine/vqa.py:115-126).
-        Returns (loss, lr); the loss stays on the device."""
+        """One optimizer step on one device batch (mmnas_tpu/engine/vqa.py:115-126):
+        the forward computes with `compute_params` (bf16 casts of the fp32
+        masters under --DTYPE bfloat16), so the gradients, the clip and Adam
+        are fp32. Returns (loss, lr); the loss stays on the device."""
         cfg = self.cfg
-        logits = net(batch, train=True, generator=generator)
+        logits = compute_call(net, cfg, (batch,), {"train": True, "generator": generator})
         loss = bce_with_logits_sum(logits, batch["ans"])
         names = list(params)
         grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
@@ -144,10 +150,6 @@ class Execution:
 
     def train(self, train_loader: Loader, eval_loader: Optional[Loader] = None) -> TrainResult:
         cfg = self.cfg
-        if compute_dtype(cfg) != torch.float32:
-            raise NotImplementedError(
-                "training runs in float32; bf16 training with fp32 master weights is not "
-                "ported yet (ROADMAP.md, queue 1 item 10)")
         if cfg.CKPT_BACKEND != "pickle":
             raise NotImplementedError("the port writes pickle checkpoints only")
         net = self.build_net(train_loader.dataset).to(self.device)
@@ -212,8 +214,11 @@ class Execution:
         preds, ans_scores = [], []
         t0 = time.perf_counter()
         with torch.inference_mode():
+            # a net in training keeps fp32 masters: cast them once for the eval
+            params = compute_params(net, cfg)
             for batch in eval_loader:
-                logits = net(batch_to_device(batch, self.device))
+                logits = compute_call(net, cfg, (batch_to_device(batch, self.device),),
+                                      params=params)
                 preds.append(logits.argmax(dim=-1).cpu().numpy())
                 if "ans" in batch:
                     ans_scores.append(batch["ans"])

@@ -13,6 +13,11 @@ trees (Adam's moments "m", "v" and per-leaf step counts "t", SGD's "v")
 become dicts keyed by parameter name, the moments transposed like their
 parameters, the 0-d step counts as ints; its scalars ("step", "lr_base",
 "epoch") stay scalars.
+
+The search's architecture weights are a bare {"enc": [n, C], "dec": [n, C]}
+pair of arrays in both packages; `alpha_from_jax`/`alpha_to_jax` move them
+and their Adam state (the same "m", "v", "t", "step", "lr_base" over those
+two leaves).
 """
 
 from __future__ import annotations
@@ -140,3 +145,30 @@ def optim_state_to_jax(state: Mapping[str, Any], module: nn.Module) -> Dict:
         else:
             out[key] = np.asarray(val, np.float32)
     return out
+
+
+def alpha_from_jax(alpha: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """{"enc": [n, C], "dec": [n, C]} numpy -> fp32 tensors on `device`."""
+    return {c: torch.tensor(np.asarray(a, np.float32), device=device) for c, a in alpha.items()}
+
+
+def alpha_to_jax(alpha: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of `alpha_from_jax`: fp32 numpy arrays."""
+    return {c: a.detach().to("cpu", torch.float32).numpy() for c, a in alpha.items()}
+
+
+def alpha_optim_state_from_jax(state: Mapping[str, Any], device=None) -> Dict:
+    """The JAX package's alpha Adam state -> the port's WarmupAdam state over
+    the alpha dict."""
+    return {"m": alpha_from_jax(state["m"], device), "v": alpha_from_jax(state["v"], device),
+            "t": {c: int(t) for c, t in state["t"].items()}, "step": int(state["step"]),
+            "lr_base": np.float32(state["lr_base"])}
+
+
+def alpha_optim_state_to_jax(state: Mapping[str, Any]) -> Dict:
+    """The inverse of `alpha_optim_state_from_jax` (int32 step counts, fp32
+    lr, as the JAX package's state holds them)."""
+    return {"m": alpha_to_jax(state["m"]), "v": alpha_to_jax(state["v"]),
+            "t": {c: np.asarray(t, np.int32) for c, t in state["t"].items()},
+            "step": np.asarray(state["step"], np.int32),
+            "lr_base": np.asarray(state["lr_base"], np.float32)}

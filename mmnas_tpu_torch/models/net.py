@@ -4,7 +4,19 @@ GloVe embedding -> LSTM text encoder, image-feature projection, the
 geometry-relation stem, genotype-defined encoder/decoder cells, and the VQA
 head: AttFlat(x) + AttFlat(y) -> LN -> proj[ans_size] logits
 (full_vqa.py:85-111). Module and parameter names mirror the JAX pytree, so
-models/convert.py moves weights between the two packages by name.
+models/convert.py moves weights between the two packages by name. The stem
+and the head are shared with the search supernet (models/supernet.py):
+`init_stem`/`apply_stem` and `init_heads`/`apply_heads` register and run
+them on the net itself, so their parameters sit at the root of the net, as
+in the JAX pytree.
+
+Precision: under --DTYPE bfloat16 the eval path casts the whole net once
+(`net.to(bfloat16)`); training keeps fp32 master parameters and runs each
+step on `compute_params(net, cfg)`, their bf16 casts, through
+`torch.func.functional_call` (`compute_call`), so the gradients arrive in
+fp32 on the masters (the JAX package's `cast_for_compute`, net.py:44-63). LN
+statistics and the attention softmax stay fp32 either way, and the logits
+leave in fp32.
 
 Batch dict keys (fixed shapes, as the JAX package's loaders give them):
   frcn_feat [B, FRCNFEAT_LEN, FRCNFEAT_SIZE]  region features
@@ -15,10 +27,11 @@ Batch dict keys (fixed shapes, as the JAX package's loaders give them):
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from mmnas_tpu_torch.genotype import Genotype
 from mmnas_tpu_torch.ops import primitives as P
@@ -36,11 +49,45 @@ def compute_dtype(cfg) -> torch.dtype:
 def cast_for_compute(cfg, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Cast the float model inputs to the compute dtype (bf16 under
     --DTYPE bfloat16; fp16 region features are lifted to fp32 otherwise).
-    Parameters are cast once, with `net.to(compute_dtype(cfg))`; LN stats
-    and the attention softmax stay fp32 either way."""
+    The parameters are cast by the caller: `net.to(...)` or
+    `compute_params`."""
     dt = compute_dtype(cfg)
     return {k: (v.to(dt) if k in _FLOAT_INPUTS and v.is_floating_point() else v)
             for k, v in batch.items()}
+
+
+def compute_params(module: nn.Module, cfg, names: Optional[Iterable[str]] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Parameter name -> the tensor a step computes with, for
+    `torch.func.functional_call(module, ...)`: the fp32 master parameter
+    itself under float32, its differentiable bf16 cast under bfloat16, so
+    gradients reach the masters in fp32 (mmnas_tpu/models/net.py:44-63).
+    `names` limits the dict to those parameters (a sampled step casts only
+    the branches it runs; the others keep their masters and are not run).
+    Callers pass `tie_weights=False`: the nets tie no weights, and the
+    search for tied ones walks every submodule on each call."""
+    params = dict(module.named_parameters())
+    if names is not None:
+        params = {n: params[n] for n in names}
+    dt = compute_dtype(cfg)
+    if dt == torch.float32:
+        return params
+    return {n: p.to(dt) if p.is_floating_point() else p for n, p in params.items()}
+
+
+def compute_call(module: nn.Module, cfg, args, kwargs=None,
+                 params: Optional[Dict[str, torch.Tensor]] = None):
+    """`module(*args, **kwargs)` computing with `compute_params(module, cfg)`,
+    or with `params`, taken from it once by a caller that calls more than
+    once. Under float32 those are the module's own parameters, so this is
+    the plain call; under bfloat16 it runs `functional_call` on the casts,
+    so the gradients reach the fp32 masters."""
+    kwargs = kwargs or {}
+    if compute_dtype(cfg) == torch.float32:
+        return module(*args, **kwargs)
+    if params is None:
+        params = compute_params(module, cfg)
+    return functional_call(module, params, args, kwargs, tie_weights=False)
 
 
 def cast_output(cfg, out):
@@ -63,6 +110,61 @@ def rel_pack(linear: nn.Linear, raw) -> Dict:
     """Relation bundle for RSA ops: the raw tensor plus the stem weights;
     each RSA op runs the bias chain inside its attention kernel."""
     return {"raw": raw, "w1": linear.weight, "b1": linear.bias}
+
+
+# ---------------------------------------------------------------------------
+# shared stem / heads (net.py:90-185), registered on and run by the net
+# ---------------------------------------------------------------------------
+
+def init_stem(net: nn.Module, cfg, token_size: int, with_x_rel: bool) -> None:
+    """GloVe embedding, LSTM, the image linear (after the box embedding with
+    BBOX_FEATURE), the 4 -> REL_SIZE geometry stem and, for search nets, the
+    3 -> REL_SIZE text-relation stem (hygr_vqa.py:83). No op of the ported
+    search spaces reads the text relation, but the parameter is in the JAX
+    pytree, so checkpoints carry it."""
+    net.embedding = nn.Embedding(token_size, cfg.WORD_EMBED_SIZE)
+    net.lstm = P.LSTM(cfg.WORD_EMBED_SIZE, cfg.HSIZE)
+    imgfeat_in = cfg.FRCNFEAT_SIZE
+    if cfg.BBOX_FEATURE:
+        net.bboxfeat_linear = nn.Linear(5, cfg.BBOXFEAT_EMB_SIZE)
+        imgfeat_in += cfg.BBOXFEAT_EMB_SIZE
+    net.imgfeat_linear = nn.Linear(imgfeat_in, cfg.HSIZE)
+    net.linear_y_rel = nn.Linear(4, cfg.REL_SIZE)
+    if with_x_rel:
+        net.linear_x_rel = nn.Linear(3, cfg.REL_SIZE)
+
+
+def apply_stem(net: nn.Module, cfg, batch):
+    """Masks + text/image/relation stems (full_vqa.py:88-103).
+    Returns (x, y, x_mask, y_mask, y_rel); the encoders take no relation."""
+    ques_ix = batch["ques_ix"]
+    frcn_feat = batch["frcn_feat"]
+    x_mask = P.make_mask(ques_ix.unsqueeze(2).float())
+    y_mask = P.make_mask(frcn_feat)
+    x = net.lstm(net.embedding(ques_ix))
+    if cfg.BBOX_FEATURE:
+        bb = net.bboxfeat_linear(batch["bbox_feat"])
+        frcn_feat = torch.cat((frcn_feat, bb), dim=-1)
+    y = net.imgfeat_linear(frcn_feat)
+    y_rel = rel_pack(net.linear_y_rel, batch["rel_img"])
+    return x, y, x_mask, y_mask, y_rel
+
+
+def init_heads(net: nn.Module, cfg, ocfg: OpCfg, ans_size: int) -> None:
+    """The VQA head (net.py:162-176)."""
+    net.attflat_x = AttFlat(ocfg)
+    net.attflat_y = AttFlat(ocfg)
+    net.proj_norm = P.LayerNorm(cfg.ATTFLAT_OUT_SIZE)
+    net.proj = nn.Linear(cfg.ATTFLAT_OUT_SIZE, ans_size)
+
+
+def apply_heads(net: nn.Module, x, y, x_mask, y_mask, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+    """AttFlat(x) + AttFlat(y) -> LN -> proj: the logits [B, ans_size]
+    (net.py:179-185)."""
+    xf = net.attflat_x(x, x_mask, train, generator)
+    yf = net.attflat_y(y, y_mask, train, generator)
+    return net.proj(net.proj_norm(xf + yf))
 
 
 class NetFull(nn.Module):
@@ -93,25 +195,11 @@ class NetFull(nn.Module):
         self.ocfg = op_cfg_from(cfg)
         self.pretrained_emb = init_dict.get("pretrained_emb", None)
 
-        # stem (net.py:90-106)
-        self.embedding = nn.Embedding(init_dict["token_size"], cfg.WORD_EMBED_SIZE)
-        self.lstm = P.LSTM(cfg.WORD_EMBED_SIZE, cfg.HSIZE)
-        imgfeat_in = cfg.FRCNFEAT_SIZE
-        if cfg.BBOX_FEATURE:
-            self.bboxfeat_linear = nn.Linear(5, cfg.BBOXFEAT_EMB_SIZE)
-            imgfeat_in += cfg.BBOXFEAT_EMB_SIZE
-        self.imgfeat_linear = nn.Linear(imgfeat_in, cfg.HSIZE)
-        self.linear_y_rel = nn.Linear(4, cfg.REL_SIZE)
-
+        init_stem(self, cfg, init_dict["token_size"], with_x_rel=False)
         # LAYERS identical cells per side (full_vqa.py:31-44)
         self.enc = nn.ModuleList(self.build_cell("enc") for _ in range(cfg.LAYERS))
         self.dec = nn.ModuleList(self.build_cell("dec") for _ in range(cfg.LAYERS))
-
-        # VQA head (net.py:162-185)
-        self.attflat_x = AttFlat(self.ocfg)
-        self.attflat_y = AttFlat(self.ocfg)
-        self.proj_norm = P.LayerNorm(cfg.ATTFLAT_OUT_SIZE)
-        self.proj = nn.Linear(cfg.ATTFLAT_OUT_SIZE, init_dict.get("ans_size", 1))
+        init_heads(self, cfg, self.ocfg, init_dict.get("ans_size", 1))
         self.reset_parameters(generator or torch.Generator().manual_seed(cfg.SEED))
 
     def build_cell(self, cell_type: str) -> nn.ModuleList:
@@ -128,25 +216,10 @@ class NetFull(nn.Module):
 
     # -- forward ------------------------------------------------------------
 
-    def apply_stem(self, batch):
-        """Masks + text/image/relation stems (full_vqa.py:88-103).
-        Returns (x, y, x_mask, y_mask, y_rel)."""
-        ques_ix = batch["ques_ix"]
-        frcn_feat = batch["frcn_feat"]
-        x_mask = P.make_mask(ques_ix.unsqueeze(2).float())
-        y_mask = P.make_mask(frcn_feat)
-        x = self.lstm(self.embedding(ques_ix))
-        if self.cfg.BBOX_FEATURE:
-            bb = self.bboxfeat_linear(batch["bbox_feat"])
-            frcn_feat = torch.cat((frcn_feat, bb), dim=-1)
-        y = self.imgfeat_linear(frcn_feat)
-        y_rel = rel_pack(self.linear_y_rel, batch["rel_img"])
-        return x, y, x_mask, y_mask, y_rel
-
     def trunk(self, batch, train: bool = False, generator: Optional[torch.Generator] = None):
         """Stem + cells; returns (x_out, y_out, x_mask, y_mask). The ops of
         a node are summed (full_vqa.py:24-28)."""
-        x, y, x_mask, y_mask, y_rel = self.apply_stem(batch)
+        x, y, x_mask, y_mask, y_rel = apply_stem(self, self.cfg, batch)
 
         def run_cell(cell, s, pre, s_mask, pre_mask, rel):
             for node in cell:
@@ -163,7 +236,4 @@ class NetFull(nn.Module):
     def forward(self, batch, train: bool = False, generator: Optional[torch.Generator] = None):
         batch = cast_for_compute(self.cfg, batch)
         x, y, x_mask, y_mask = self.trunk(batch, train, generator)
-        xf = self.attflat_x(x, x_mask, train, generator)
-        yf = self.attflat_y(y, y_mask, train, generator)
-        logits = self.proj(self.proj_norm(xf + yf))          # [B, ans_size]
-        return cast_output(self.cfg, logits)
+        return cast_output(self.cfg, apply_heads(self, x, y, x_mask, y_mask, train, generator))

@@ -1,0 +1,265 @@
+"""Weight-sharing search supernet for VQA (counterpart of
+mmnas_tpu/models/supernet.py).
+
+Every node of the 12-node encoder and the 18-node decoder holds one op of
+each candidate in its search space (enc_safe, dec_safe), so `enc[node][op]`
+and `dec[node][op]` mirror the JAX pytree, and the stem and the VQA head
+are those of the fixed net (models/net.py). The architecture weights alpha
+are one [n_nodes, n_choices] fp32 tensor per cell type, held by the caller
+(the search engine), not by this module.
+
+The JAX package samples the path on the device and branches with
+`lax.switch`. Here the branch is Python control flow, so the indices live
+on the host: `sample_indices`, `sample_indices_two` and `chosen_indices`
+take a host copy of alpha and return numpy arrays, and `forward` takes
+them. Forward modes:
+
+- "sampled": only the indexed op of each node runs (weight step, eval);
+- "full": every op runs, combined with straight-through gates
+  g = onehot(idx) + softmax(alpha) - stop_grad(softmax(alpha)), the
+  inactive branches detached (mixed.py:60-68), so the forward equals the
+  sampled path and d(loss)/d(alpha) is the ProxylessNAS softmax-Jacobian
+  sum_j b_j p_j (delta_ij - p_i) (mixed.py:171-198);
+- "two": the two indexed ops ([n, 2]: active, inactive) under gates built
+  from the softmax over the pair's logits (mixed.py:136-148).
+
+The JAX package's `unified`/`hybrid` modes, its dense weight step and
+REMAT are not ported (ROADMAP.md, "Not ported"); `encode_text` and
+`apply_decoder` wait for ITM (queue 1 item 14).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from mmnas_tpu_torch.models.net import (
+    apply_heads, apply_stem, cast_for_compute, cast_output, init_heads, init_stem, op_cfg_from,
+)
+from mmnas_tpu_torch.ops import primitives as P
+from mmnas_tpu_torch.ops.registry import make_op
+
+# the safe search spaces (mmnas_tpu/ops/registry.py:48-51)
+SPACES = {"enc": ["self_att_64", "feed_forward"],
+          "dec": ["self_att_64", "rel_self_att_64", "guided_att_64", "feed_forward"]}
+# MCAN-like biased alpha init (hygr_vqa.py:139-156): +1 on the hand-picked
+# op, -1 elsewhere. The reference's dec pattern has 21 entries for 18 nodes;
+# zip truncates, reproduced by cycling then slicing (supernet.py:45-50).
+_INIT_ENC = ["self_att_64", "feed_forward"]
+_INIT_DEC = ["rel_self_att_64", "guided_att_64", "feed_forward"]
+CELLS = ("enc", "dec")
+
+
+def _softmax(a) -> np.ndarray:
+    """Row softmax of a host array, in float64."""
+    a = np.asarray(a, np.float64)
+    e = np.exp(a - a.max(axis=-1, keepdims=True))
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def _uniform(generator: torch.Generator, shape) -> np.ndarray:
+    """Uniforms in [0, 1), float64, from the CPU generator."""
+    return torch.rand(tuple(shape), generator=generator, dtype=torch.float64).numpy()
+
+
+class NetSearch(nn.Module):
+    def __init__(self, cfg, init_dict: Dict, task: str = "vqa",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if task != "vqa":
+            raise NotImplementedError(
+                f"task '{task}': the VGD and ITM search nets are not ported yet "
+                "(ROADMAP.md, queue 1 items 13-14)")
+        if cfg.LAYERS != 1:
+            raise ValueError("the search supernet has one cell per side: LAYERS must be 1 "
+                             "(reference parity)")
+        if cfg.REMAT:
+            raise NotImplementedError("REMAT is not ported (ROADMAP.md, 'Not ported')")
+        for flag in ("SHIP_INT8", "DEVICE_REL"):
+            if getattr(cfg, flag):
+                raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, queue 1 item 5)")
+        self.cfg = cfg
+        self.ocfg = op_cfg_from(cfg)
+        self.spaces = SPACES
+        self.n_nodes = dict(cfg.NODES)
+        self.pretrained_emb = init_dict.get("pretrained_emb", None)
+
+        init_stem(self, cfg, init_dict["token_size"], with_x_rel=True)
+        self.enc = self.build_nodes("enc")
+        self.dec = self.build_nodes("dec")
+        init_heads(self, cfg, self.ocfg, init_dict.get("ans_size", 1))
+        self.reset_parameters(generator or torch.Generator().manual_seed(cfg.SEED))
+        # every parameter's name -> (cell type, node, op) for the candidate
+        # ops' parameters, None for the others (update_mask runs per path)
+        self._op_of = {}
+        for n, _ in self.named_parameters():
+            head, *rest = n.split(".")
+            self._op_of[n] = (head, int(rest[0]), int(rest[1])) if head in CELLS else None
+
+    def build_nodes(self, cell_type: str) -> nn.ModuleList:
+        return nn.ModuleList(
+            nn.ModuleList(make_op(name, self.ocfg, self.cfg.OPS_NORM, self.cfg.OPS_RESIDUAL)
+                          for name in self.spaces[cell_type])
+            for _ in range(self.n_nodes[cell_type]))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        P.init_parameters(self, generator)
+        if self.pretrained_emb is not None:
+            self.embedding.weight.copy_(torch.as_tensor(self.pretrained_emb))
+
+    # -- architecture weights -------------------------------------------------
+
+    def init_alpha(self) -> Dict[str, torch.Tensor]:
+        """The biased init toward the MCAN-like genotype (hygr_vqa.py:139-156),
+        fp32 on the CPU."""
+        alpha = {}
+        for cell_type, pattern in (("enc", _INIT_ENC), ("dec", _INIT_DEC)):
+            space, n = self.spaces[cell_type], self.n_nodes[cell_type]
+            flat = (pattern * ((n + len(pattern) - 1) // len(pattern)))[:n]
+            a = np.full((n, len(space)), -1.0, np.float32)
+            for i, name in enumerate(flat):
+                a[i, space.index(name)] = 1.0
+            alpha[cell_type] = torch.from_numpy(a)
+        return alpha
+
+    # -- sampling, on the host --------------------------------------------------
+
+    # Alpha's host copy is a few dozen floats: the draws are numpy arithmetic
+    # on uniforms from the CPU generator, with no torch op per node.
+
+    @staticmethod
+    def sample_indices(alpha: Mapping, generator: torch.Generator) -> Dict[str, np.ndarray]:
+        """One op per node drawn from softmax(alpha) (mixed.py:150-158), from
+        a host copy of alpha and a CPU generator, by the inverse of the
+        softmax's CDF: [n] per cell type."""
+        out = {}
+        for c in CELLS:
+            cdf = np.cumsum(_softmax(alpha[c]), axis=-1)
+            u = _uniform(generator, cdf.shape[:1]) * cdf[:, -1]
+            out[c] = np.minimum((cdf <= u[:, None]).sum(axis=-1), cdf.shape[-1] - 1)
+        return out
+
+    @staticmethod
+    def chosen_indices(alpha: Mapping) -> Dict[str, np.ndarray]:
+        """The argmax path, for search-time eval (mixed.py:121-129)."""
+        return {c: np.asarray(alpha[c]).argmax(axis=-1) for c in CELLS}
+
+    @staticmethod
+    def sample_indices_two(alpha: Mapping, generator: torch.Generator) -> Dict[str, np.ndarray]:
+        """Two-path sampling (mixed.py:136-148): per node two distinct ops
+        from softmax(alpha) (Gumbel top-2, i.e. without replacement), then
+        the active one from softmax(alpha[pair]). [n, 2] per cell type:
+        column 0 active, column 1 inactive."""
+        out = {}
+        for c in CELLS:
+            a = np.asarray(alpha[c], np.float64)
+            u = np.maximum(_uniform(generator, a.shape), np.finfo(np.float64).tiny)
+            pair = np.argsort(np.log(-np.log(u)) - a, axis=-1, kind="stable")[:, :2]
+            p_first = _softmax(np.take_along_axis(a, pair, axis=1))[:, 0]
+            second = (_uniform(generator, p_first.shape) >= p_first).astype(np.int64)
+            rows = np.arange(len(a))
+            out[c] = np.stack([pair[rows, second], pair[rows, 1 - second]], axis=1)
+        return out
+
+    @staticmethod
+    @torch.no_grad()
+    def rescale_alpha(alpha_old: Mapping[str, torch.Tensor], alpha: Dict[str, torch.Tensor],
+                      idx: Mapping[str, np.ndarray]) -> None:
+        """rescale_updated_arch_param (mixed.py:200-208), in place on
+        `alpha`: after the 'two'-mode update, shift each pair's two logits
+        so their logsumexp is what it was before the update."""
+        for c in CELLS:
+            pair = torch.as_tensor(idx[c], device=alpha[c].device)
+            old = torch.gather(alpha_old[c], 1, pair)
+            new = torch.gather(alpha[c], 1, pair)
+            offset = torch.logsumexp(new, dim=1) - torch.logsumexp(old, dim=1)
+            n_choices = alpha[c].shape[-1]
+            involved = (nn.functional.one_hot(pair[:, 0], n_choices)
+                        + nn.functional.one_hot(pair[:, 1], n_choices)).to(alpha[c].dtype)
+            alpha[c].sub_(offset[:, None] * involved)
+
+    # -- forward ------------------------------------------------------------------
+
+    def forward(self, batch, alpha: Optional[Mapping[str, torch.Tensor]],
+                idx: Mapping[str, np.ndarray], mode: str = "sampled", train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Logits [B, ans_size] in fp32. idx: host indices, [n] per cell type
+        ('sampled', 'full') or [n, 2] ('two'); alpha: fp32 device tensors,
+        read by 'full' and 'two'."""
+        if mode in ("unified", "hybrid"):
+            raise NotImplementedError(f"mode {mode!r} is not ported (ROADMAP.md, 'Not ported')")
+        run = {"sampled": self._run_sampled, "full": self._run_full,
+               "two": self._run_two}.get(mode)
+        if run is None:
+            raise ValueError(f"unknown mode {mode!r}")
+        batch = cast_for_compute(self.cfg, batch)
+        x, y, x_mask, y_mask, y_rel = apply_stem(self, self.cfg, batch)
+        a = alpha or {c: None for c in CELLS}
+        x = run(self.enc, idx["enc"], a["enc"], x, None, x_mask, None, None, train, generator)
+        y = run(self.dec, idx["dec"], a["dec"], y, x, y_mask, x_mask, y_rel, train, generator)
+        return cast_output(self.cfg, apply_heads(self, x, y, x_mask, y_mask, train, generator))
+
+    @staticmethod
+    def _run_sampled(nodes, idx, alpha, s, pre, s_mask, pre_mask, rel, train, generator):
+        """One op per node (MODE=None, mixed.py:104)."""
+        for node, i in zip(nodes, idx):
+            s = node[int(i)](s, pre, s_mask, pre_mask, rel, train, generator)
+        return s
+
+    @staticmethod
+    def _run_full(nodes, idx, alpha, s, pre, s_mask, pre_mask, rel, train, generator):
+        """Every op, straight-through one-hot gates (MODE='full')."""
+        p_soft = torch.softmax(alpha, dim=-1)
+        onehot = nn.functional.one_hot(torch.as_tensor(idx, device=alpha.device),
+                                       alpha.shape[-1]).to(p_soft.dtype)
+        gates = onehot + p_soft - p_soft.detach()
+        for ni, node in enumerate(nodes):
+            outs = [op(s, pre, s_mask, pre_mask, rel, train, generator) for op in node]
+            # inactive-branch detach (mixed.py:66-68): net-weight gradients flow
+            # through the sampled branch only; alpha's see every branch
+            outs = [o if j == idx[ni] else o.detach() for j, o in enumerate(outs)]
+            g = gates[ni].to(outs[0].dtype)
+            s = sum(g[j] * outs[j] for j in range(len(outs)))
+        return s
+
+    @staticmethod
+    def _run_two(nodes, idx, alpha, s, pre, s_mask, pre_mask, rel, train, generator):
+        """The active and the inactive op of each node's pair, under gates
+        (1, 0) + p_pair - stop_grad(p_pair) (mixed.py:60-68, MODE='two')."""
+        base = torch.tensor([1.0, 0.0], device=alpha.device)
+        for ni, node in enumerate(nodes):
+            ia, ib = int(idx[ni][0]), int(idx[ni][1])
+            p_pair = torch.softmax(torch.stack([alpha[ni, ia], alpha[ni, ib]]), dim=0)
+            gates = base + p_pair - p_pair.detach()
+            out_a = node[ia](s, pre, s_mask, pre_mask, rel, train, generator)
+            out_b = node[ib](s, pre, s_mask, pre_mask, rel, train, generator)
+            gates = gates.to(out_a.dtype)
+            s = gates[0] * out_a + gates[1] * out_b.detach()
+        return s
+
+    # -- optimizer mask -------------------------------------------------------------
+
+    def update_mask(self, idx: Mapping[str, np.ndarray]) -> Dict[str, float]:
+        """Parameter name -> 1.0 or 0.0 for the net optimizer: a candidate op's
+        parameters get their node's sampled indicator, every other parameter
+        1 (the reference's torch Adam skips the cleared grads of unsampled
+        ops, mixed.py:160-163)."""
+        return {n: 1.0 if op is None else float(int(idx[op[0]][op[1]]) == op[2])
+                for n, op in self._op_of.items()}
+
+    # -- genotype -----------------------------------------------------------------------
+
+    def genotype(self, alpha: Mapping) -> Dict[str, List[List[str]]]:
+        """argmax per node -> the reference JSON schema (hygr_vqa.py:242-273)."""
+        return {c: [[self.spaces[c][int(i)]] for i in idx]
+                for c, idx in self.chosen_indices(alpha).items()}
+
+    @staticmethod
+    def genotype_weights(alpha: Mapping) -> Dict[str, List]:
+        """softmax(alpha) per node, for the log."""
+        return {"w_enc": _softmax(alpha["enc"]).tolist(), "w_dec": _softmax(alpha["dec"]).tolist()}
+

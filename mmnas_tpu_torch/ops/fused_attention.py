@@ -19,7 +19,8 @@ called through ctypes:
   variant, :201-210);
 - `fused_attention_bwd` (csrc/fused_attention_bwd.cu): dq, dk, dv, dbias
   and, with the RSA chain, dpre = d s / d pre (replaces `_bwd_kernel`,
-  :325-467, without its relation reductions);
+  :325-467, without its relation reductions); when no relation input needs
+  a gradient (the search's arch step) it writes no dpre;
 - `fused_attention_bwd_rel`: the relation pass, per (batch, row chunk) the
   gradients of W1, b1, Wr, br as partials, and the raw geometry's gradient
   when asked for (the relation half of `_bwd_kernel`).
@@ -205,10 +206,13 @@ class FusedAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, mask, log_bias, raw, w1, b1, wr, br, keep = ctx.saved_tensors
         rel = None if raw is None else (raw, w1, b1, wr, br)
-        # the production path never differentiates the geometry (input data)
+        # the production path never differentiates the geometry (input data);
+        # the search's arch step differentiates none of the relation inputs
         need_draw = raw is not None and ctx.needs_input_grad[5]
+        need_rel = raw is not None and any(ctx.needs_input_grad[5:10])
         dq, dk, dv, dbias, drel = attention_bwd(q, k, v, mask, log_bias, rel, keep,
-                                                ctx.dropout_r, do.contiguous(), need_draw)
+                                                ctx.dropout_r, do.contiguous(), need_draw,
+                                                need_rel)
         drel = drel if drel is not None else (None,) * 5
         return (dq, dk, dv, None, dbias, *drel, None, None)
 
@@ -218,16 +222,10 @@ class FusedAttentionFn(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 @functools.cache
-def _library(name):
+def _fwd_kernel():
     from mmnas_tpu_torch.csrc import build
 
-    path, _ = build.build(name)
-    return ctypes.CDLL(str(path))
-
-
-@functools.cache
-def _fwd_kernel():
-    fn = _library("fused_attention_fwd").mmnas_fused_attention_fwd
+    fn = build.load("fused_attention_fwd").mmnas_fused_attention_fwd
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float,
                       ctypes.c_void_p])
@@ -237,7 +235,9 @@ def _fwd_kernel():
 
 @functools.cache
 def _bwd_kernels():
-    lib = _library("fused_attention_bwd")
+    from mmnas_tpu_torch.csrc import build
+
+    lib = build.load("fused_attention_bwd")
     bwd = lib.mmnas_fused_attention_bwd
     bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
                     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
@@ -333,11 +333,13 @@ def attention_fwd(q, k, v, mask=None, log_bias=None, rel=None, dropout_r: float 
 
 
 def attention_bwd(q, k, v, mask, log_bias, rel, keep, dropout_r: float, do,
-                  need_draw: bool = False):
-    """Launch the backward kernel (and, with rel, the relation pass) for the
-    forward on the same inputs and keep mask. Returns (dq, dk, dv, dbias,
-    drel): dbias is None without log_bias; drel is None without rel, else
-    (draw or None, dW1, db1, dWr, dbr) in the layouts and dtypes of rel."""
+                  need_draw: bool = False, need_rel: bool = True):
+    """Launch the backward kernel (and, with rel and need_rel, the relation
+    pass) for the forward on the same inputs and keep mask. Returns (dq, dk,
+    dv, dbias, drel): dbias is None without log_bias; drel is None without
+    rel or need_rel, else (draw or None, dW1, db1, dWr, dbr) in the layouts
+    and dtypes of rel. Without need_rel the kernel writes no dpre and no
+    relation pass runs."""
     B, H, Lq, Lk, D, Rr, R = _validate(q, k, v, mask, log_bias, rel)
     _check(do, "do", (B, H, Lq, D), q)
     if (keep is None) != (dropout_r <= 0.0):
@@ -349,8 +351,9 @@ def attention_bwd(q, k, v, mask, log_bias, rel, keep, dropout_r: float, do,
     raw, w1, b1, wr, br = rel if rel is not None else (None,) * 5
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(log_bias) if log_bias is not None else None
+    need_rel = rel is not None and need_rel
     dpre = (torch.empty((B, H, Lq, Lk), dtype=torch.float32, device=q.device)
-            if rel is not None else None)
+            if need_rel else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_kernels()[0](
@@ -360,7 +363,7 @@ def attention_bwd(q, k, v, mask, log_bias, rel, keep, dropout_r: float, do,
             B, H, Lq, Lk, D, Rr, R, 1.0 / math.sqrt(D), 1.0 - dropout_r, stream)
     _raise_on(err, "fused_attention_bwd")
     LAUNCHES["fused_attention_bwd"] += 1
-    drel = None if rel is None else relation_bwd(raw, w1, b1, wr, br, dpre, need_draw)
+    drel = relation_bwd(raw, w1, b1, wr, br, dpre, need_draw) if need_rel else None
     return dq, dk, dv, dbias, drel
 
 

@@ -8,8 +8,9 @@ The same flags as the JAX package's train_vqa.py (reference train_vqa.py:23-79):
         --ARCH_PATH ./arch/mmnas_vqa.json --CKPT_PATH logs/ckpts/train_vqa-full_epoch13.pkl
 
 Checkpoints are the pickled numpy pytrees either package writes; --RESUME
---CKPT_PATH continues from either package's. Training runs in float32;
---MULTIHOST is not ported yet.
+--CKPT_PATH continues from either package's. Training under --DTYPE
+bfloat16 computes in bf16 on fp32 master weights; --MULTIHOST is not
+ported yet.
 """
 
 from __future__ import annotations

@@ -4,6 +4,7 @@ mmnas_tpu/utils/logger.py for one process): text logs at
 
 from __future__ import annotations
 
+import datetime
 import json
 import os
 
@@ -16,6 +17,9 @@ class TextLogger:
     def write(self, msg: str) -> None:
         with open(self.path, "a+") as f:
             f.write(msg.rstrip("\n") + "\n")
+
+    def stamp(self) -> None:
+        self.write("nowTime: " + datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S"))
 
 
 def dump_result_json(path: str, result) -> None:

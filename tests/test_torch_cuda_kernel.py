@@ -292,3 +292,101 @@ def test_train_step_gradient_against_fp64(dev, monkeypatch, capsys):
               {k: f"{v:.3e}" for k, v in d.items()})
     assert d["card kernels vs card plain"] <= 2e-5
     assert d["card kernels vs fp64"] <= 1.2 * d["card plain vs fp64"]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_backward_without_relation_gradients_skips_the_relation_pass(dev, dt):
+    """When no relation input needs a gradient (the search's arch step), the
+    backward writes no dpre and no relation pass runs; dq, dk, dv are the
+    bits of the full backward."""
+    (args, m, _, r) = on(dev, dt, *make(2, 4, 100, 100, 64, "mask+rel", 4, R=64, seed=6))
+    do = torch.randn(2, 4, 100, 64, generator=torch.Generator().manual_seed(7)).to(dev, dt)
+    _, keep = FA.attention_fwd(*args, m, None, r, dropout_r=RATE, seed=11)
+    full = FA.attention_bwd(*args, m, None, r, keep, RATE, do)
+    before = dict(FA.LAUNCHES)
+    lean = FA.attention_bwd(*args, m, None, r, keep, RATE, do, need_rel=False)
+    torch.cuda.synchronize()
+    assert lean[4] is None and full[4] is not None
+    assert {n: FA.LAUNCHES[n] - before[n] for n in before}["fused_attention_bwd_rel"] == 0
+    for a, b in zip(full[:3], lean[:3]):
+        assert torch.equal(a, b)
+    # through autograd: weights that need no gradient launch no relation pass
+    leaves = [t.detach().requires_grad_() for t in args]
+    before = dict(FA.LAUNCHES)
+    out = FA.FusedAttentionFn.apply(*leaves, m, None, *r, RATE, 11)
+    torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    delta = {n: FA.LAUNCHES[n] - before[n] for n in before}
+    assert delta == {"fused_attention_fwd": 0, "fused_attention_fwd_dropout": 1,
+                     "fused_attention_bwd": 1, "fused_attention_bwd_rel": 0}
+
+
+def test_probe_kernels_match_their_plain_versions(dev):
+    """The five probe kernels (csrc/probes.cu) on the probes' own inputs:
+    the two bias kernels give equal bits and match the plain version (1e-5
+    where pre > 0.1, and in exp(bias) = max(pre, 1e-6)); slice, outer and
+    wrblock are exact."""
+    from mmnas_tpu_torch.tools import probes as PR
+
+    before = dict(PR.LAUNCHES)
+    args = [torch.from_numpy(a) for a in PR.bias_inputs()]
+    once = PR.probe_bias(*(a.to(dev) for a in args))
+    fresh = PR.probe_bias(*(a.to(dev) for a in args), fresh=True)
+    torch.cuda.synchronize()
+    assert torch.equal(once, fresh)
+    want = PR.bias_reference(*args)
+    torch.testing.assert_close(once.exp().cpu(), want.exp(), rtol=0, atol=1e-5)
+    away = want.exp() > 0.1
+    torch.testing.assert_close(once.cpu()[away], want[away], rtol=0, atol=1e-5)
+    for dt, plane in PR.slice_inputs().items():
+        assert torch.equal(PR.probe_slice(plane.to(dev)).cpu(), PR.slice_reference(plane))
+    for dt, (plane, w, b1) in PR.outer_inputs().items():
+        got = PR.probe_outer(plane.to(dev), w.to(dev), b1.to(dev)).cpu()
+        assert torch.equal(got, PR.outer_reference(plane, w, b1))
+    wr = PR.wrblock_inputs()
+    for variant in ("a", "b"):
+        assert torch.equal(PR.probe_wrblock(wr.to(dev), variant).cpu(), PR.wrblock_reference(wr))
+    assert {n: PR.LAUNCHES[n] - before[n] for n in before} == {
+        "probe_bias": 1, "probe_bias2": 1, "probe_slice": 2, "probe_outer": 2,
+        "probe_wrblock_a": 1, "probe_wrblock_b": 1}
+    with pytest.raises(ValueError, match="heads"):
+        PR.probe_bias(*(a.to(dev) for a in args[:3]), torch.zeros(17, 64, device=dev),
+                      torch.zeros(17, device=dev))
+
+
+def test_kpath_weight_step_on_the_card_matches_the_cpu(dev, tmp_path):
+    """A KPATH 2 weight step in fp32: each path's stride slice of the batch
+    reaches the kernels as a contiguous tensor, every sampled attention op
+    launches its dropout-free forward and its backward, and the step's loss
+    equals the CPU's (plain versions), 1e-5 relative."""
+    import numpy as np
+
+    from mmnas_tpu_torch.config import SearchCfg
+    from mmnas_tpu_torch.engine.search import SearchExecution
+    from mmnas_tpu_torch.engine.vqa import batch_to_device
+    from mmnas_tpu_torch.models.net import INPUT_KEYS
+    from mmnas_tpu_torch.train.optimizer import build_net_optimizer
+
+    cfg = SearchCfg(TASK="vqa", SYNTH=True, SYNTH_SIZE=8, BATCH_SIZE=8, KPATH=2, HSIZE=128,
+                    ATTFLAT_OUT_SIZE=256, NODES=(("enc", 2), ("dec", 4)), DROPOUT_R=0.0,
+                    SEED=3, NUM_WORKERS=1, LOG_ROOT=str(tmp_path))
+    idxs = [{"enc": np.array([0, 1]), "dec": np.array([1, 2, 0, 3])},
+            {"enc": np.array([1, 0]), "dec": np.array([0, 1, 2, 1])}]
+    losses = {}
+    for d in (torch.device("cpu"), dev):
+        exe = SearchExecution(cfg, d)
+        dataset = exe.build_dataset()
+        net = exe.build_net(dataset)
+        masters = dict(net.named_parameters())
+        optim = build_net_optimizer(cfg, 1)
+        host = list(exe.make_loader(dataset, list(range(8))))[0]
+        before = dict(FA.LAUNCHES)
+        loss, _ = exe.weight_step(net, optim, optim.init(masters), masters,
+                                  batch_to_device(host, d, INPUT_KEYS + ("ans",)), idxs,
+                                  torch.Generator(d))
+        losses[d.type] = float(loss)
+    torch.cuda.synchronize()
+    assert {n: FA.LAUNCHES[n] - before[n] for n in before} == {
+        "fused_attention_fwd": 9, "fused_attention_fwd_dropout": 0, "fused_attention_bwd": 9,
+        "fused_attention_bwd_rel": 3}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])

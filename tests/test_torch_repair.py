@@ -85,3 +85,26 @@ def test_cfg_and_synthetic_data_match_the_jax_package():
         assert a.keys() == b.keys()
         for key in a:
             np.testing.assert_array_equal(a[key], b[key])
+
+
+@pytest.mark.parametrize("rel", ["models/supernet.py", "engine/search.py", "search_vqa.py",
+                                 "tools/probes.py"])
+def test_search_and_probe_modules_are_scanned(rel):
+    """The search slice's modules are among the scanned files and import
+    neither package of JAX."""
+    path = ROOT / "mmnas_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not [m for m in imported_modules(path) if m.split(".")[0] in ("mmnas_tpu", "jax")]
+
+
+def test_search_space_constants_match_the_jax_package():
+    """The supernet's search spaces and alpha init patterns are the JAX
+    package's (registry.py:48-51, supernet.py:48-49)."""
+    import mmnas_tpu.models.supernet as jax_supernet
+    from mmnas_tpu.ops.registry import OPS_ADAPTER
+    import mmnas_tpu_torch.models.supernet as port_supernet
+
+    assert port_supernet.SPACES == {"enc": OPS_ADAPTER.Used_OPS["enc_safe"],
+                                    "dec": OPS_ADAPTER.Used_OPS["dec_safe"]}
+    assert port_supernet._INIT_ENC == jax_supernet._INIT_ENC
+    assert port_supernet._INIT_DEC == jax_supernet._INIT_DEC
