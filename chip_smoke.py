@@ -5,8 +5,10 @@
 
 From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
 1. prints the card's name and power limit, builds the CUDA kernels from
-   mmnas_tpu_torch/csrc (one nvcc per source, all started together) and
-   turns TF32 off for matmuls and cuDNN;
+   mmnas_tpu_torch/csrc (one nvcc per source, all started together),
+   prints each attention kernel's registers, spills and HMMA (tensor-core)
+   instructions from ptxas and `cuobjdump -sass` (every bf16 attention
+   kernel must have some) and turns TF32 off for matmuls and cuDNN;
 2. drives the probe path, `python -m mmnas_tpu_torch.tools.probes` (the
    five Pallas debug probes of tools/debug/ as CUDA kernels) with exact
    launch counts, holds the bias probes' output against the fp64 numpy
@@ -19,7 +21,8 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    and `scaled_dot_product_attention` where one call computes the function;
 4. does the same for the training kernels at r = 0.1: the dropout forward
    (keep fraction 0.9 +- 0.005, the mask bits follow the seed and equal the
-   numpy Philox, the output equals the plain version on the emitted mask),
+   numpy Philox, the output equals the plain version on the emitted mask,
+   with the RSA chain the pre residual equals the plain chain),
    the backward and the relation pass (every gradient equals autograd
    through the plain version on that mask), and times forward, backward,
    forward + backward and, with the RSA chain, the relation pass alone,
@@ -57,8 +60,9 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    fixed NetFull at HSIZE 512 built from the dumped genotype evaluates one
    batch; weight and arch steps are timed and profiled on one resident
    batch, and search examples/s counted as bench.py counts them;
-9. prints one JSON line with every kernel's numbers and, last, the device
-   line `{"ok": true, "device": {...}}`.
+9. prints one JSON line with every kernel's numbers (with x_library and
+   x_bound, its time over the library call's and over its bound) and,
+   last, the device line `{"ok": true, "device": {...}}`.
 Any failed check raises, so the script exits non-zero and prints no result
 line. It exits 2 when no CUDA device is present.
 """
@@ -140,6 +144,9 @@ KERNEL_TOL = {(torch.float32, False): 1e-4, (torch.float32, True): 1e-3,
 GRAD_TOL = {(torch.float32, False): 1e-4, (torch.float32, True): 1e-3,
             (torch.bfloat16, False): 2e-2, (torch.bfloat16, True): 2e-2}
 KEEP_TOL = 0.005                  # keep fraction, >= 5 sd at 100352 draws
+# the forward's pre residual against the plain chain, both fp32 from the same
+# operands: sums of R = 64 terms of size ~1 in other orders, 1e-5 absolute
+PRE_TOL = 1e-5
 # logits, card against CPU, same net, batch and dtype: fp32 1e-3; bf16
 # 5e-2 (bf16 rounds every layer's activations, 30 layers deep, in other
 # places on the two devices)
@@ -166,6 +173,44 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
+def sass_report(built):
+    """Per attention kernel instantiation: (registers, spill store bytes)
+    from ptxas's report and the count of HMMA (mma.sync) and HGMMA (wgmma)
+    instructions in its SASS from `cuobjdump -sass` on the built library."""
+    import re
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    rows = {}
+    for lib, report in built:
+        if "fused_attention" not in os.path.basename(lib):
+            continue
+        fn = None
+        for line in report.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+            if m:
+                fn = m.group(1)
+                rows.setdefault(fn, {"registers": None, "spill_bytes": 0, "hmma": 0})
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and fn:
+                rows[fn]["spill_bytes"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                rows[fn]["registers"] = int(m.group(1))
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : ([\w$]+)", line)
+            if m:
+                fn = m.group(1)
+                rows.setdefault(fn, {"registers": None, "spill_bytes": 0, "hmma": 0})
+            elif fn and ("HMMA" in line or "HGMMA" in line):
+                rows[fn]["hmma"] += 1
+    return {fn: r for fn, r in rows.items() if "fused_attention" in fn}
+
+
 def cuda_time_ms(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -176,6 +221,31 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, iters=10):
+    """Device time of one call: the CUDA kernels that `iters` calls launch,
+    summed by torch.profiler, over iters. Unlike cuda_time_ms it leaves
+    out the host's time between launches, which bounds calls of a few
+    microseconds of device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # the profiler at times records nothing; then once more
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+                 for ev in prof.key_averages() if ev.device_type.name == "CUDA")
+        if us:
+            return us / 1e3 / iters
+    return None  # not measured
+
+
+def fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def bound(nbytes, ops):
@@ -286,17 +356,22 @@ def kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
             tol = KERNEL_TOL[(dt, r_ is not None)]
             ms = cuda_time_ms(lambda: FA.fused_attention(*args, m, b_, rel=r_))
             plain_ms = cuda_time_ms(lambda: FA.fused_attention_reference(*args, m, b_, rel=r_))
+            dev_ms = device_time_ms(lambda: FA.fused_attention(*args, m, b_, rel=r_))
             am = sdpa_inputs(args, m, b_)
-            library_ms = None if r_ is not None else cuda_time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(*args, attn_mask=am))
+            library_ms = library_dev_ms = None
+            if r_ is None:
+                def sdpa():
+                    return torch.nn.functional.scaled_dot_product_attention(*args, attn_mask=am)
+                library_ms, library_dev_ms = cuda_time_ms(sdpa), device_time_ms(sdpa)
             live = 1.0 if r_ is None else live_share(r_)
             bound_ms, bound_by = bound(*attention_bytes_ops(Lq, Lk, kind, dt, "fwd", live, B, H))
             row = {"dtype": str(dt).replace("torch.", ""), "B": B, "H": H, "Lq": Lq, "Lk": Lk,
                    "operands": kind, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                   "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "device_ms": dev_ms, "library_device_ms": library_dev_ms}
             print(f"fwd     B{B} H{H} {row['dtype']:8s} ({Lq:3d},{Lk:3d}) {kind:8s} max_abs_err {err:.3e} "
-                  f"(tol {tol:g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
-                  f"{library_ms if library_ms is None else round(library_ms, 4)} ms  bound "
+                  f"(tol {tol:g})  kernel {ms:.4f} ms (device {fmt(dev_ms)})  plain {plain_ms:.4f} ms  "
+                  f"sdpa {fmt(library_ms)} ms (device {fmt(library_dev_ms)})  bound "
                   f"{bound_ms:.4f} ms ({bound_by})", flush=True)
             if not (math.isfinite(err) and err <= tol):
                 raise AssertionError(f"kernel disagrees with its plain version: {row}")
@@ -320,9 +395,12 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
             args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind, B, H))
             name = f"B{B} H{H} {str(dt).replace('torch.', ''):8s} ({Lq:3d},{Lk:3d}) {kind:8s}"
             # the mask: keep rate, reproducible by seed, the numpy Philox bits
-            out, keep = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=1234)
-            _, keep2 = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=1234)
-            _, keep3 = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=1235)
+            # with the RSA chain the training forward also writes pre for the backward
+            want_pre = r_ is not None
+            out, keep, pre = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=1234,
+                                              want_pre=want_pre)
+            _, keep2, _ = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=1234)
+            _, keep3, _ = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=1235)
             torch.cuda.synchronize()
             frac = keep.float().mean().item()
             if not abs(frac - (1 - RATE)) <= KEEP_TOL:
@@ -338,10 +416,18 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                                                keep=keep, dropout_r=RATE)
             fwd_err = (out.float() - ref).abs().max().item()
             fwd_tol = KERNEL_TOL[(dt, r_ is not None)]
+            pre_err = None
+            if want_pre:      # the residual against the plain chain, both fp32
+                raw, w1, b1, wr, br = (t.float() for t in r_)
+                want_pre_t = (torch.matmul(torch.relu(torch.matmul(raw, w1.t()) + b1), wr.t())
+                              + br).permute(0, 3, 1, 2)
+                pre_err = (pre - want_pre_t).abs().max().item()
+                if not pre_err <= PRE_TOL:
+                    raise AssertionError(f"{name}: the pre residual is {pre_err} off the chain")
 
             # the backward on that mask against autograd through the plain version
             do = torch.randn(B, H, Lq, D, generator=g).to(dev, dt)
-            dq, dk, dv, dbias, drel = FA.attention_bwd(*args, m, b_, r_, keep, RATE, do)
+            dq, dk, dv, dbias, drel = FA.attention_bwd(*args, m, b_, r_, keep, RATE, do, pre=pre)
             leaves = [a.float().requires_grad_() for a in args]
             bl = None if b_ is None else b_.float().requires_grad_()
             rl = None if r_ is None else [t.float().requires_grad_() for t in r_]
@@ -381,8 +467,14 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                 leaves_s = [a.detach().requires_grad_() for a in args]
                 torch.autograd.grad(sdpa_fwd(leaves_s), leaves_s, do)
 
-            fwd_ms = cuda_time_ms(lambda: FA.attention_fwd(*args, m, b_, r_, RATE, 7))
-            bwd_ms = cuda_time_ms(lambda: FA.attention_bwd(*args, m, b_, r_, keep, RATE, do))
+            def fwd_call():
+                return FA.attention_fwd(*args, m, b_, r_, RATE, 7, want_pre=want_pre)
+
+            def bwd_call():
+                return FA.attention_bwd(*args, m, b_, r_, keep, RATE, do, pre=pre)
+
+            fwd_ms, bwd_ms = cuda_time_ms(fwd_call), cuda_time_ms(bwd_call)
+            fwd_dev_ms, bwd_dev_ms = device_time_ms(fwd_call), device_time_ms(bwd_call)
             step_ms = cuda_time_ms(kernel_step)
             plain_fwd_ms = cuda_time_ms(lambda: FA.fused_attention_reference(
                 *args, m, b_, rel=r_, keep=keep, dropout_r=RATE))
@@ -392,22 +484,30 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
             plain_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
                 plain_out, plain_leaves, do, retain_graph=True))
             plain_ms = cuda_time_ms(plain_step)
-            sdpa_ms = sdpa_fwd_ms = sdpa_bwd_ms = None
+            sdpa_ms = sdpa_fwd_ms = sdpa_bwd_ms = sdpa_fwd_dev_ms = sdpa_bwd_dev_ms = None
             if r_ is None:
                 sdpa_leaves = [a.detach().requires_grad_() for a in args]
                 sdpa_out = sdpa_fwd(sdpa_leaves)
+
+                def sdpa_bwd():
+                    return torch.autograd.grad(sdpa_out, sdpa_leaves, do, retain_graph=True)
+
                 sdpa_fwd_ms = cuda_time_ms(lambda: sdpa_fwd(args))
-                sdpa_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
-                    sdpa_out, sdpa_leaves, do, retain_graph=True))
+                sdpa_bwd_ms = cuda_time_ms(sdpa_bwd)
+                sdpa_fwd_dev_ms = device_time_ms(lambda: sdpa_fwd(args))
+                sdpa_bwd_dev_ms = device_time_ms(sdpa_bwd)
                 sdpa_ms = cuda_time_ms(sdpa_step)
             live = 1.0 if r_ is None else live_share(r_)
             row = {"dtype": str(dt).replace("torch.", ""), "B": B, "H": H, "Lq": Lq, "Lk": Lk,
                    "operands": kind, "keep_fraction": frac, "fwd_err": fwd_err, "fwd_tol": fwd_tol,
+                   "pre_err": pre_err,
                    "grad_rel_err": errs, "grad_abs_err": abs_err, "grad_tol": tol,
                    "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_bwd_ms": step_ms,
                    "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
                    "plain_fwd_bwd_ms": plain_ms, "sdpa_fwd_ms": sdpa_fwd_ms,
-                   "sdpa_bwd_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_ms}
+                   "sdpa_bwd_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_ms,
+                   "fwd_device_ms": fwd_dev_ms, "bwd_device_ms": bwd_dev_ms,
+                   "sdpa_fwd_device_ms": sdpa_fwd_dev_ms, "sdpa_bwd_device_ms": sdpa_bwd_dev_ms}
             for part, key in (("fwd", "fwd"), ("bwd", "bwd"), ("fwd+bwd", "fwd_bwd")):
                 row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound(
                     *attention_bytes_ops(Lq, Lk, kind, dt, part, live, B, H))
@@ -416,19 +516,22 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                 row["rel_abs_err"] = max((x.float() - w).abs().max().item()
                                          for lab, x, w in zip(labels, got, want)
                                          if lab in ("dW1", "db1", "dWr", "dbr"))
-                lean = FA.attention_bwd(*args, m, b_, r_, keep, RATE, do, need_rel=False)
+                lean = FA.attention_bwd(*args, m, b_, r_, keep, RATE, do, need_rel=False,
+                                        pre=pre)
                 torch.cuda.synchronize()
                 if lean[4] is not None or not all(
                         torch.equal(x, y) for x, y in zip(lean[:3], (dq, dk, dv))):
                     raise AssertionError(f"{name}: the backward without dpre differs from the "
                                          "full backward in dq, dk, dv")
                 row["bwd_no_rel_ms"] = cuda_time_ms(
-                    lambda: FA.attention_bwd(*args, m, b_, r_, keep, RATE, do, need_rel=False))
+                    lambda: FA.attention_bwd(*args, m, b_, r_, keep, RATE, do, need_rel=False,
+                                             pre=pre))
             print(f"train   {name} keep {frac:.4f}  fwd err {fwd_err:.2e} (tol {fwd_tol:g})  "
                   f"grad rel err max {max(errs.values()):.2e} (tol {tol:g})  kernel fwd "
-                  f"{fwd_ms:.4f} + bwd {bwd_ms:.4f} ms, fwd+bwd {step_ms:.4f} ms  plain "
-                  f"{plain_ms:.4f} ms  sdpa {sdpa_ms if sdpa_ms is None else round(sdpa_ms, 4)}"
-                  f" ms  bound fwd {row['fwd_bound_ms']:.4f} bwd {row['bwd_bound_ms']:.4f} "
+                  f"{fwd_ms:.4f} + bwd {bwd_ms:.4f} ms (device {fmt(fwd_dev_ms)} + {fmt(bwd_dev_ms)}),"
+                  f" fwd+bwd {step_ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
+                  f"{fmt(sdpa_ms)} ms (device fwd {fmt(sdpa_fwd_dev_ms)} bwd {fmt(sdpa_bwd_dev_ms)})"
+                  f"  bound fwd {row['fwd_bound_ms']:.4f} bwd {row['bwd_bound_ms']:.4f} "
                   f"fwd+bwd {row['fwd_bwd_bound_ms']:.4f} ms" + (
                       "" if r_ is None else
                       f"  relation pass {row['rel_ms']:.4f} ms, plain {row['rel_plain_ms']:.4f} ms,"
@@ -1155,10 +1258,15 @@ def main() -> int:
         built = list(pool.map(build.build, SOURCES))
     print(f"built {[os.path.relpath(lib, HERE) for lib, _ in built]} in "
           f"{time.perf_counter() - t0:.2f} s")
-    for _, report in built:
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  " + line.strip())
+    sass = sass_report(built)
+    for fn, r in sorted(sass.items()):
+        print(f"  {fn}: {r['registers']} registers, {r['spill_bytes']} bytes spilled, "
+              f"{r['hmma']} HMMA")
+    no_mma = [fn for fn, r in sass.items()
+              if "bfloat16" in fn and "rel_kernel" not in fn and r["hmma"] == 0]
+    if not sass or no_mma:
+        raise AssertionError(f"bf16 attention kernels without tensor-core instructions: "
+                             f"{no_mma or 'no kernel found in the SASS'}")
 
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
@@ -1200,11 +1308,14 @@ def main() -> int:
     rel = pick(train_cases, 100, 100, "mask+rel")
     fp32_train = [r for r in train_cases if r["dtype"] == "float32"]
     fwd_keys = {"ms": "ms", "plain_ms": "plain_ms", "bound_ms": "bound_ms",
-                "bound_by": "bound_by", "library_ms": "library_ms"}
+                "bound_by": "bound_by", "library_ms": "library_ms", "device_ms": "device_ms",
+                "library_device_ms": "library_device_ms"}
     drop_keys = {"ms": "fwd_ms", "plain_ms": "plain_fwd_ms", "bound_ms": "fwd_bound_ms",
-                 "bound_by": "fwd_bound_by", "library_ms": "sdpa_fwd_ms"}
+                 "bound_by": "fwd_bound_by", "library_ms": "sdpa_fwd_ms",
+                 "device_ms": "fwd_device_ms", "library_device_ms": "sdpa_fwd_device_ms"}
     bwd_keys = {"ms": "bwd_ms", "plain_ms": "plain_bwd_ms", "bound_ms": "bwd_bound_ms",
-                "bound_by": "bwd_bound_by", "library_ms": "sdpa_bwd_ms"}
+                "bound_by": "bwd_bound_by", "library_ms": "sdpa_bwd_ms",
+                "device_ms": "bwd_device_ms", "library_device_ms": "sdpa_bwd_device_ms"}
     rel_keys = {"ms": "rel_ms", "plain_ms": "rel_plain_ms", "bound_ms": "rel_bound_ms",
                 "bound_by": "rel_bound_by"}
     rows = [
@@ -1212,17 +1323,20 @@ def main() -> int:
             c["max_abs_err"] for c in fwd_cases if c["dtype"] == "float32"),
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
+         "device_ms": fwd["device_ms"], "library_device_ms": fwd["library_device_ms"],
          "shape": "B64 H8 (100,100) mask fp32",
          "search_shape": at_search_shape(search_fwd, "mask", fwd_keys)},
         {"name": "fused_attention_fwd_dropout",
          "max_abs_err": max(c["fwd_err"] for c in fp32_train),
          "ms": drop["fwd_ms"], "plain_ms": drop["plain_fwd_ms"], "bound_ms": drop["fwd_bound_ms"],
          "bound_by": drop["fwd_bound_by"], "library_ms": drop["sdpa_fwd_ms"],
+         "device_ms": drop["fwd_device_ms"], "library_device_ms": drop["sdpa_fwd_device_ms"],
          "shape": "B64 H8 (100,100) mask fp32 r 0.1",
          "search_shape": at_search_shape(search_train, "mask", drop_keys)},
         {"name": "fused_attention_bwd", "max_abs_err": max(c["grad_abs_err"] for c in fp32_train),
          "ms": drop["bwd_ms"], "plain_ms": drop["plain_bwd_ms"], "bound_ms": drop["bwd_bound_ms"],
          "bound_by": drop["bwd_bound_by"], "library_ms": drop["sdpa_bwd_ms"],
+         "device_ms": drop["bwd_device_ms"], "library_device_ms": drop["sdpa_bwd_device_ms"],
          "shape": "B64 H8 (100,100) mask fp32 r 0.1",
          "search_shape": at_search_shape(search_train, "mask", bwd_keys)},
         {"name": "fused_attention_bwd_rel", "max_abs_err": rel["rel_abs_err"],
@@ -1245,7 +1359,9 @@ def main() -> int:
     rows += [{"name": name, **row} for name, row in probes["rows"].items()]
     for row in rows:
         source, replaces = KERNELS[row["name"]]
-        row.update(route="cuda", source=source, replaces=replaces)
+        row.update(route="cuda", source=source, replaces=replaces,
+                   x_library=None if row["library_ms"] is None else row["ms"] / row["library_ms"],
+                   x_bound=row["ms"] / row["bound_ms"])
     # every case's numbers, too long for the result line, go to a file
     details = os.path.join(WORK, "kernel_cases.json")
     with open(details, "w") as f:

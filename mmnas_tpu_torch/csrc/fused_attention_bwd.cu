@@ -3,25 +3,37 @@
 // Replaces `_bwd_kernel` in mmnas_tpu/ops/pallas_attention.py (called by
 // `_bwd_call`), as two kernels:
 //
-// 1. fused_attention_bwd_kernel, one block per (batch b, head h). It walks
-//    the query rows in chunks of kRows and, per chunk, recomputes the
-//    scores s (with the bias, the RSA chain and the pad row, as the forward
-//    kernel does) and a = softmax(s) in fp32, then (pallas_attention.py:368-392)
+// 1. fused_attention_bwd_kernel, one block per (batch b, head h), 8 warps.
+//    It stages q, k, v, do of the head in shared memory (16-byte cp.async,
+//    lengths padded to multiples of 16 with zeros) and runs two phases
+//    (pallas_attention.py:368-392):
 //
-//      da   = (do v^T) * keep / (1 - r)        (keep = 1 without dropout)
-//      ds   = a * (da - rowsum(da * a))        (a before dropout)
-//      dv  += (a * keep / (1 - r))^T do
-//      dk  += ds^T q * scale
-//      dq   = ds k * scale
-//      dbias = ds                              (with an additive bias)
-//      dpre = ds * [pre > 1e-6] / pre          (with the RSA chain, when the
-//                                               caller passes dpre: it needs
-//                                               the relation gradients)
+//    A, over query tiles, a warp per 16 rows: it recomputes the scores s
+//      (with the bias, the relation chain's pre read from the forward's
+//      residual, the pad row) and a = softmax(s) in registers, exactly as
+//      the forward kernel does, then
+//        da    = (do v^T) * keep / (1 - r)      (keep = 1 without dropout)
+//        ds    = a * (da - rowsum(da * a))      (a before dropout)
+//        dq    = ds k * scale
+//        dbias = ds                              (with an additive bias)
+//        dpre  = ds * [pre > 1e-6] / pre          (with the relation chain,
+//                                                 when the caller passes
+//                                                 dpre: it needs the
+//                                                 relation gradients)
+//      dq, dbias and dpre leave from registers; the dropped-out a * keep /
+//      (1 - r) and ds, rounded to the operand type as the TPU kernel casts
+//      them (:376-382), go to shared memory.
+//    B, over key tiles, a warp per 16 keys:
+//        dv = (a * keep / (1 - r))^T do         dk = ds^T q * scale
+//      each written once. No block shares a (b, h), so nothing is
+//      accumulated across blocks: no atomics, the same bits every run.
 //
-//    Under bf16 operands the dropped-out a and ds are rounded to bf16 before
-//    the products, as the TPU kernel casts them (:376-382). dk and dv stay
-//    in shared memory across the row chunks and are written once: the block
-//    owns its (b, h), so nothing is accumulated across blocks.
+//    bf16: all five products on tensor cores (mma.m16n8k16 from ldmatrix
+//    fragments, the transposed operands of dq, dv and dk by ldmatrix.trans,
+//    ds re-packed in registers for dq); fp32: register-tiled FMAs on the
+//    CUDA cores (TF32 stays off), as in the forward kernel. The softmax's
+//    sum and rowsum(da * a) run in the order of PyTorch's softmax kernels
+//    (lane_order_sums), so ds rounds as the plain version's does.
 //
 // 2. fused_attention_bwd_rel_kernel, the relation pass, one block per
 //    (batch b, chunk of `rows` query rows, chosen by the wrapper). It
@@ -40,22 +52,23 @@
 //    memory ([B, H, Lq, Lk] fp32, written by kernel 1) and needs neither
 //    atomics nor an order between blocks. The sums are deterministic.
 //
-// The relation chain is fp32 under bf16 operands, as in the forward kernel.
+// The relation chain is fp32 under bf16 operands. Kernel 1 does not rebuild
+// it: the forward kernel computed pre once per (b, i, j) for all heads and
+// wrote it out for the backward.
 //
-// What bounds them on this card: like the forward kernel, kernel 1 runs its
-// products and the relation chain as scalar fp32 FMAs on the CUDA cores,
-// each FMA reading its operands from shared memory, so it is bound by
-// shared-memory load issue, not by device memory: per (b, h) it reads q, k,
-// v, do once and writes dq, dk, dv once. It does about 2.5x the forward's
-// product FMAs (scores, da, dv, dk, dq) and recomputes the relation chain
-// once per head. Kernel 2 moves dpre (20 MB at B 64, 8 heads, 100 x 100)
-// through device memory and does about (2 Rr + 2 H + 1) FMAs per (i, j, r);
-// it is small next to kernel 1. Tensor cores (wgmma) for the products and a
-// relation pass shared with the forward are the remedies, for later.
+// What bounds them on this card. Kernel 1 reads q, k, v, do (and the keep
+// mask, the bias, pre) once and writes dq, dk, dv (dbias, dpre) once; at
+// (100, 100), B 64, H 8 its bytes take 14 us in bf16 and its five products
+// 3.3 GFLOP (3.3 us on the tensor cores), so bf16 is bound by bytes and by
+// latency: one block per (b, h) and one block per SM (its shared memory),
+// 7 busy warps of 8 at Lq = Lk = 100, and the serial phases A and B. fp32
+// is bound by its FMAs (49 us at 67 TFLOP/s) and the same occupancy. Kernel 2 moves dpre (20 MB at B 64, 8 heads, 100 x 100)
+// through device memory and does about (2 Rr + 2 H + 1) FMAs per (i, j, r).
 //
-// Shared memory is dynamic, about 129 KB for kernel 1 at Lk 100, D 64
-// (K, V padded against bank conflicts, dK, dV, and the chunk's rows), opted
-// in per launch.
+// Shared memory is dynamic: at Lq = Lk = 100, D 64 about 118 KB in bf16
+// (q, k, v, do, and the two probability tiles) and 225 KB in fp32, opted in
+// per launch. Limits (cudaErrorInvalidValue past them): D a multiple of 16
+// up to 128, Lk up to 128, shared memory within 227 KB.
 
 #include "attention_common.cuh"
 
@@ -63,9 +76,9 @@ namespace {
 
 using namespace mmnas;
 
-constexpr int kRows = 16;      // query rows per chunk of kernel 1
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kMaxH = 16;      // heads held in registers by kernel 2
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSmemCap = 232448;  // 227 KB, a block's most dynamic shared memory
 
 // ---------------------------------------------------------------------------
 // kernel 1: dq, dk, dv, dbias, dpre
@@ -78,11 +91,7 @@ struct BwdArgs {
   const T* v;                 // [B, H, Lk, D]
   const T* bias;              // [B, H, Lq, Lk] or null
   const unsigned char* mask;  // [B, Lk] bool, true = pad; or null
-  const T* raw;               // [B, Lq, Lk, Rr] or null (no relation chain)
-  const T* w1;                // [R, Rr]
-  const T* b1;                // [R]
-  const T* wr;                // [H, R]
-  const T* br;                // [H]
+  const float* pre;           // [B, H, Lq, Lk] relation chain (forward residual), or null
   const unsigned char* keep;  // [B, H, Lq, Lk] dropout keep mask, or null
   const T* dout;              // [B, H, Lq, D]
   T* dq;                      // [B, H, Lq, D]
@@ -90,179 +99,116 @@ struct BwdArgs {
   T* dv;                      // [B, H, Lk, D]
   T* dbias;                   // [B, H, Lq, Lk], null without bias
   float* dpre;                // [B, H, Lq, Lk] fp32, or null (no relation gradients)
-  int H, Lq, Lk, D, Rr, R;
+  int H, Lq, Lk, D;
   float scale, keep_p;
 };
 
-size_t bwd_smem_floats(int Lk, int D, int Rr, int R, bool has_rel) {
-  size_t n = 2 * (size_t)Lk * (D + 1)      // K, V
-             + 2 * (size_t)Lk * D          // dK, dV accumulators
-             + 2 * (size_t)kRows * D       // q, do rows of the chunk
-             + 3 * (size_t)kRows * Lk;     // a, dropped-out a, da / ds
-  if (has_rel) n += (size_t)kRows * Lk + (size_t)R * Rr + 2 * (size_t)R;  // pre, W1, b1, Wr[h]
-  return n;
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
+}
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) fused_attention_bwd_kernel(const BwdArgs<T> a) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int Lq = a.Lq, Lk = a.Lk, D = a.D, R = a.R, Rr = a.Rr;
-  const bool has_rel = a.raw != nullptr;
-  const bool has_drop = a.keep != nullptr;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// phase A for rows [row0, row0 + 16) of (b, h)
+template <typename T, int DM, int KTM>
+__device__ __forceinline__ void grad_rows(const BwdArgs<T>& a, int b, int h, int row0,
+                                          const T* qs, const T* ks, const T* vs, const T* dos,
+                                          int ld, T* pds, T* dss, int ldp) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int Lq = a.Lq, Lk = a.Lk, KT = (Lk + 15) / 16;
+  const long bh = (long)b * a.H + h;
+  const long rows_at = (bh * Lq + row0) * Lk;  // element (row0, 0) of [Lq, Lk] planes
+  float p[2 * KTM][4], da[2 * KTM][4];
+  tile_abt<KTM>(p, qs + row0 * ld, StagedChunks<T>{ks, ld}, ld, a.D, KT);
+  ScoreTerms<T> st{a.bias == nullptr ? nullptr : a.bias + rows_at,
+                   a.pre == nullptr ? nullptr : a.pre + rows_at, Lk,
+                   a.mask == nullptr ? nullptr : a.mask + (long)b * Lk,
+                   Lq - row0, Lk, a.scale};
+  tile_scores_epilogue<T, KTM>(p, st, KT);
+  tile_softmax<KTM>(p, KT);
+  tile_abt<KTM>(da, dos + row0 * ld, StagedChunks<T>{vs, ld}, ld, a.D, KT);
 
-  const int ldk = D + 1;            // padded rows: a warp walking j hits 32 banks
-  float* ks = smem;                 // [Lk][D + 1]
-  float* vs = ks + Lk * ldk;        // [Lk][D + 1]
-  float* dks = vs + Lk * ldk;       // [Lk][D]
-  float* dvs = dks + Lk * D;        // [Lk][D]
-  float* qs = dvs + Lk * D;         // [kRows][D]
-  float* dos = qs + kRows * D;      // [kRows][D]
-  float* as = dos + kRows * D;      // [kRows][Lk] scores, then a
-  float* ads = as + kRows * Lk;     // [kRows][Lk] dropped-out a, in the operand type
-  float* dss = ads + kRows * Lk;    // [kRows][Lk] da, then ds in the operand type
-  float* pres = dss + kRows * Lk;   // [kRows][Lk] pre (relation chain)
-  float* w1s = pres + kRows * Lk;   // [R][Rr]
-  float* b1s = w1s + R * Rr;        // [R]
-  float* wrs = b1s + R;             // [R], row h of Wr
+#pragma unroll
+  for (int n = 0; n < 2 * KTM; ++n)
+    if (n < 2 * KT) {
+      float ad[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1), j = 8 * n + 2 * t + (e & 1);
+        const bool valid = row0 + r < Lq && j < Lk;
+        if (!valid) p[n][e] = 0.f;  // pad rows add nothing to phase B's sums
+        ad[e] = p[n][e];
+        if (a.keep != nullptr) {
+          const float kf = valid && a.keep[bh * Lq * Lk + (long)(row0 + r) * Lk + j] ? 1.f : 0.f;
+          da[n][e] = (da[n][e] * kf) / a.keep_p;
+          ad[e] = (ad[e] * kf) / a.keep_p;
+        }
+      }
+      store_pair(pds + (row0 + g) * ldp + 8 * n + 2 * t, ad[0], ad[1]);
+      store_pair(pds + (row0 + g + 8) * ldp + 8 * n + 2 * t, ad[2], ad[3]);
+    }
+  float dot[2];
+  lane_order_sums<KTM, true>(da, p, KT, dot[0], dot[1]);  // rowsum(da * a)
+#pragma unroll
+  for (int n = 0; n < 2 * KTM; ++n)
+    if (n < 2 * KT) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1), j = 8 * n + 2 * t + (e & 1);
+        const float ds = p[n][e] * (da[n][e] - dot[e >> 1]);
+        da[n][e] = ds;
+        if (row0 + r < Lq && j < Lk) {
+          const long ij = rows_at + (long)r * Lk + j;
+          if (a.dbias != nullptr) store_f32(a.dbias, ij, ds);
+          if (a.dpre != nullptr) {
+            const float pre = a.pre[ij];
+            a.dpre[ij] = pre > kClamp ? ds / pre : 0.f;
+          }
+        }
+      }
+      store_pair(dss + (row0 + g) * ldp + 8 * n + 2 * t, da[n][0], da[n][1]);
+      store_pair(dss + (row0 + g + 8) * ldp + 8 * n + 2 * t, da[n][2], da[n][3]);
+    }
+  float o[DM / 2];
+  tile_px<DM, KTM>(o, da, StagedChunks<T>{ks, ld}, ld, a.D, KT);
+  store_tile<DM>(o, a.dq + bh * Lq * a.D, row0, Lq, a.D, a.scale);
+}
+
+template <typename T, int DM, int KTM>
+__global__ void __launch_bounds__(kThreads) fused_attention_bwd_kernel(const BwdArgs<T> a) {
+  extern __shared__ __align__(16) float smem[];
+  const int h = blockIdx.x, b = blockIdx.y, warp = threadIdx.x / 32;
+  const int Lq = a.Lq, Lk = a.Lk, D = a.D, ld = D + Pad<T>::value;
+  const int LqP = (Lq + 15) / 16 * 16, LkP = (Lk + 15) / 16 * 16, ldp = LkP + Pad<T>::value;
+  T* ks = reinterpret_cast<T*>(smem);   // [LkP][ld]
+  T* vs = ks + LkP * ld;               // [LkP][ld]
+  T* qs = vs + LkP * ld;               // [LqP][ld]
+  T* dos = qs + LqP * ld;              // [LqP][ld]
+  T* pds = dos + LqP * ld;             // [LqP][ldp] dropped-out a, operand type
+  T* dss = pds + LqP * ldp;            // [LqP][ldp] ds, operand type
 
   const long bh = (long)b * a.H + h;
-  const T* kp = a.k + bh * Lk * D;
-  const T* vp = a.v + bh * Lk * D;
-  for (int i = tid; i < Lk * D; i += kThreads) {
-    const int j = i / D, d = i - j * D;
-    ks[j * ldk + d] = load_f32(kp, i);
-    vs[j * ldk + d] = load_f32(vp, i);
-    dks[i] = 0.f;
-    dvs[i] = 0.f;
-  }
-  if (has_rel) {
-    for (int i = tid; i < R * Rr; i += kThreads) w1s[i] = load_f32(a.w1, i);
-    for (int i = tid; i < R; i += kThreads) {
-      b1s[i] = load_f32(a.b1, i);
-      wrs[i] = load_f32(a.wr, (long)h * R + i);
-    }
-  }
-  const float br = has_rel ? load_f32(a.br, h) : 0.f;
-
-  for (int row0 = 0; row0 < Lq; row0 += kRows) {
-    const int rows = min(kRows, Lq - row0);
-    __syncthreads();  // the loads above, or the previous chunk's readers, are done
-    const T* qp = a.q + (bh * Lq + row0) * D;
-    const T* dop = a.dout + (bh * Lq + row0) * D;
-    for (int i = tid; i < rows * D; i += kThreads) {
-      qs[i] = load_f32(qp, i);
-      dos[i] = load_f32(dop, i);
-    }
-    __syncthreads();
-
-    // scores, as in the forward kernel
-    for (int i = tid; i < rows * Lk; i += kThreads) {
-      const int r = i / Lk, j = i - r * Lk;
-      const float* qr = qs + r * D;
-      const float* kj = ks + j * ldk;
-      float dot = 0.f;
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kj[d], dot);
-      float s = dot * a.scale;
-      const long ij = (long)(row0 + r) * Lk + j;
-      if (a.bias != nullptr) s += load_f32(a.bias, bh * Lq * Lk + ij);
-      if (has_rel) {
-        const T* rp = a.raw + ((long)b * Lq * Lk + ij) * Rr;
-        const float pre = relation_pre(rp, Rr, R, w1s, b1s, wrs, br);
-        pres[i] = pre;
-        s += logf(fmaxf(pre, kClamp));
-      }
-      if (a.mask != nullptr && a.mask[(long)b * Lk + j]) s += kMaskAdd;
-      as[i] = s;
-    }
-    __syncthreads();
-
-    // a = softmax(s) in fp32, one warp per row
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      float* sr = as + r * Lk;
-      float m = -INFINITY;
-      for (int j = lane; j < Lk; j += 32) m = fmaxf(m, sr[j]);
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int j = lane; j < Lk; j += 32) {
-        const float e = expf(sr[j] - m);
-        sr[j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      for (int j = lane; j < Lk; j += 32) sr[j] = sr[j] / sum;
-    }
-    __syncthreads();
-
-    // da = (do v^T) * keep / (1 - r); the dropped-out a for dv
-    for (int i = tid; i < rows * Lk; i += kThreads) {
-      const int r = i / Lk, j = i - r * Lk;
-      const float* dor = dos + r * D;
-      const float* vj = vs + j * ldk;
-      float da = 0.f;
-      for (int d = 0; d < D; ++d) da = fmaf(dor[d], vj[d], da);
-      float ad = as[i];
-      if (has_drop) {
-        const float kf = a.keep[(bh * Lq + row0 + r) * Lk + j] ? 1.f : 0.f;
-        da = (da * kf) / a.keep_p;
-        ad = (ad * kf) / a.keep_p;
-      }
-      dss[i] = da;
-      ads[i] = round_to(ad, a.q);
-    }
-    __syncthreads();
-
-    // ds = a (da - rowsum(da a)), one warp per row; dbias and dpre leave here
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      const float* ar = as + r * Lk;
-      float* dr = dss + r * Lk;
-      float dot = 0.f;
-      for (int j = lane; j < Lk; j += 32) dot = fmaf(dr[j], ar[j], dot);
-      dot = warp_sum(dot);
-      const long g0 = (bh * Lq + row0 + r) * Lk;
-      for (int j = lane; j < Lk; j += 32) {
-        const float ds = ar[j] * (dr[j] - dot);
-        if (a.dbias != nullptr) store_f32(a.dbias, g0 + j, ds);
-        if (a.dpre != nullptr) {
-          const float pre = pres[r * Lk + j];
-          a.dpre[g0 + j] = pre > kClamp ? ds / pre : 0.f;
-        }
-        dr[j] = round_to(ds, a.q);
-      }
-    }
-    __syncthreads();
-
-    // dv += ad^T do, dk += ds^T q (scaled at the end), one (j, d) per thread
-    for (int i = tid; i < Lk * D; i += kThreads) {
-      const int j = i / D, d = i - j * D;
-      float accv = dvs[i], acck = dks[i];
-      for (int r = 0; r < rows; ++r) {
-        accv = fmaf(ads[r * Lk + j], dos[r * D + d], accv);
-        acck = fmaf(dss[r * Lk + j], qs[r * D + d], acck);
-      }
-      dvs[i] = accv;
-      dks[i] = acck;
-    }
-    // dq = ds k * scale, one (row, d) per thread
-    T* dqp = a.dq + (bh * Lq + row0) * D;
-    for (int i = tid; i < rows * D; i += kThreads) {
-      const int r = i / D, d = i - r * D;
-      const float* dr = dss + r * Lk;
-      float acc = 0.f;
-      for (int j = 0; j < Lk; ++j) acc = fmaf(dr[j], ks[j * ldk + d], acc);
-      store_f32(dqp, i, acc * a.scale);
-    }
-  }
+  stage_rows(ks, ld, a.k + bh * Lk * D, Lk, LkP, D);
+  stage_rows(vs, ld, a.v + bh * Lk * D, Lk, LkP, D);
+  stage_rows(qs, ld, a.q + bh * Lq * D, Lq, LqP, D);
+  stage_rows(dos, ld, a.dout + bh * Lq * D, Lq, LqP, D);
+  cp_async_wait_all();
   __syncthreads();
 
-  T* dkp = a.dk + bh * Lk * D;
-  T* dvp = a.dv + bh * Lk * D;
-  for (int i = tid; i < Lk * D; i += kThreads) {
-    store_f32(dkp, i, dks[i] * a.scale);
-    store_f32(dvp, i, dvs[i]);
+  for (int rt = warp; rt < LqP / 16; rt += kWarps)
+    grad_rows<T, DM, KTM>(a, b, h, 16 * rt, qs, ks, vs, dos, ld, pds, dss, ldp);
+  __syncthreads();
+
+  for (int kt = warp; kt < LkP / 16; kt += kWarps) {
+    float o[DM / 2];
+    tile_ptx<DM>(o, pds, ldp, 16 * kt, dos, ld, D, LqP / 16);
+    store_tile<DM>(o, a.dv + bh * Lk * D, 16 * kt, Lk, D, 1.f);
+    tile_ptx<DM>(o, dss, ldp, 16 * kt, qs, ld, D, LqP / 16);
+    store_tile<DM>(o, a.dk + bh * Lk * D, 16 * kt, Lk, D, a.scale);
   }
 }
+
 
 // ---------------------------------------------------------------------------
 // kernel 2: the relation pass
@@ -291,7 +237,7 @@ size_t rel_smem_floats(int rows, int Lk, int H, int Rr, int R) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) fused_attention_bwd_rel_kernel(const RelArgs<T> a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int chunk = blockIdx.x, b = blockIdx.y, chunks = gridDim.x;
   const int H = a.H, Lq = a.Lq, Lk = a.Lk, Rr = a.Rr, R = a.R;
   const int row0 = chunk * a.rows;
@@ -406,37 +352,53 @@ __global__ void __launch_bounds__(kThreads) fused_attention_bwd_rel_kernel(const
   }
 }
 
+
 template <typename Kernel>
 cudaError_t opt_in(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
 
+template <typename T, int DM, int KTM>
+cudaError_t launch_bwd_shape(const BwdArgs<T>& a, int B, cudaStream_t stream) {
+  const int ld = a.D + Pad<T>::value;
+  const int LqP = (a.Lq + 15) / 16 * 16, LkP = (a.Lk + 15) / 16 * 16;
+  const size_t bytes =
+      ((size_t)(2 * LkP + 2 * LqP) * ld + 2 * (size_t)LqP * (LkP + Pad<T>::value)) * sizeof(T);
+  if (bytes > (size_t)kSmemCap) return cudaErrorInvalidValue;
+  cudaError_t err = opt_in(fused_attention_bwd_kernel<T, DM, KTM>, bytes);
+  if (err != cudaSuccess) return err;
+  fused_attention_bwd_kernel<T, DM, KTM><<<dim3(a.H, B), kThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int DM>
+cudaError_t launch_bwd_d(const BwdArgs<T>& a, int B, cudaStream_t stream) {
+  const int KT = (a.Lk + 15) / 16;
+  if (KT <= 1) return launch_bwd_shape<T, DM, 1>(a, B, stream);
+  if (KT <= 8) return launch_bwd_shape<T, DM, 8>(a, B, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* bias,
-                       const void* mask, const void* raw, const void* w1, const void* b1,
-                       const void* wr, const void* br, const void* keep, const void* dout,
+                       const void* mask, const void* pre, const void* keep, const void* dout,
                        void* dq, void* dk, void* dv, void* dbias, void* dpre, int B, int H,
-                       int Lq, int Lk, int D, int Rr, int R, float scale, float keep_p,
+                       int Lq, int Lk, int D, float scale, float keep_p,
                        cudaStream_t stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1) return cudaErrorInvalidValue;
-  if (raw != nullptr && (Rr < 1 || Rr > kMaxRr || R < 1)) return cudaErrorInvalidValue;
-  if (raw == nullptr && dpre != nullptr) return cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 16 || D > 128 || D % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (pre == nullptr && dpre != nullptr) return cudaErrorInvalidValue;
   if ((bias == nullptr) != (dbias == nullptr)) return cudaErrorInvalidValue;
   if (keep != nullptr && !(keep_p > 0.f && keep_p <= 1.f)) return cudaErrorInvalidValue;
-  BwdArgs<T> a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-               static_cast<const T*>(bias), static_cast<const unsigned char*>(mask),
-               static_cast<const T*>(raw), static_cast<const T*>(w1),
-               static_cast<const T*>(b1), static_cast<const T*>(wr),
-               static_cast<const T*>(br), static_cast<const unsigned char*>(keep),
-               static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
-               static_cast<T*>(dv), static_cast<T*>(dbias), static_cast<float*>(dpre),
-               H, Lq, Lk, D, Rr, R, scale, keep_p};
-  const size_t bytes = bwd_smem_floats(Lk, D, Rr, R, raw != nullptr) * sizeof(float);
-  cudaError_t err = opt_in(fused_attention_bwd_kernel<T>, bytes);
-  if (err != cudaSuccess) return err;
-  fused_attention_bwd_kernel<T><<<dim3(H, B), kThreads, bytes, stream>>>(a);
-  return cudaGetLastError();
+  const BwdArgs<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<const T*>(bias),
+                     static_cast<const unsigned char*>(mask), static_cast<const float*>(pre),
+                     static_cast<const unsigned char*>(keep), static_cast<const T*>(dout),
+                     static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
+                     static_cast<T*>(dbias), static_cast<float*>(dpre),
+                     H, Lq, Lk, D, scale, keep_p};
+  return D <= 64 ? launch_bwd_d<T, 64>(a, B, stream) : launch_bwd_d<T, 128>(a, B, stream);
 }
 
 template <typename T>
@@ -460,29 +422,29 @@ cudaError_t launch_rel(const void* raw, const void* w1, const void* b1, const vo
   return cudaGetLastError();
 }
 
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Null pointers mark absent operands:
-// bias with dbias, mask, raw with w1/b1/wr/br, keep (no dropout; else
-// keep_p = 1 - r), and dpre (with raw: null when no relation gradient is
-// needed, and the store is skipped). Returns the CUDA error code of the launch (0 = launched);
-// the kernel runs on `stream`.
+// bias with dbias, mask, pre (the forward's relation-chain residual; null
+// without the chain), keep (no dropout; else keep_p = 1 - r), and dpre
+// (with pre: null when no relation gradient is needed, and the store is
+// skipped). Returns the CUDA error code of the launch (0 = launched;
+// cudaErrorInvalidValue for a shape outside the limits above); the kernel
+// runs on `stream`.
 extern "C" int mmnas_fused_attention_bwd(int dtype, const void* q, const void* k,
                                          const void* v, const void* bias, const void* mask,
-                                         const void* raw, const void* w1, const void* b1,
-                                         const void* wr, const void* br, const void* keep,
-                                         const void* dout, void* dq, void* dk, void* dv,
-                                         void* dbias, void* dpre, int B, int H, int Lq,
-                                         int Lk, int D, int Rr, int R, float scale,
-                                         float keep_p, void* stream) {
+                                         const void* pre, const void* keep, const void* dout,
+                                         void* dq, void* dk, void* dv, void* dbias,
+                                         void* dpre, int B, int H, int Lq, int Lk, int D,
+                                         float scale, float keep_p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(q, k, v, bias, mask, raw, w1, b1, wr, br, keep, dout, dq, dk,
-                             dv, dbias, dpre, B, H, Lq, Lk, D, Rr, R, scale, keep_p, s);
+    return launch_bwd<float>(q, k, v, bias, mask, pre, keep, dout, dq, dk, dv, dbias, dpre, B,
+                             H, Lq, Lk, D, scale, keep_p, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(q, k, v, bias, mask, raw, w1, b1, wr, br, keep, dout,
-                                     dq, dk, dv, dbias, dpre, B, H, Lq, Lk, D, Rr, R, scale,
-                                     keep_p, s);
+    return launch_bwd<__nv_bfloat16>(q, k, v, bias, mask, pre, keep, dout, dq, dk, dv, dbias,
+                                     dpre, B, H, Lq, Lk, D, scale, keep_p, s);
   return cudaErrorInvalidValue;
 }
 

@@ -2,8 +2,7 @@
 //
 // Replaces `_fwd_kernel` (with `_scores`, `_softmax`, `_rel_t_into` and
 // `_rel_pre_into`) in mmnas_tpu/ops/pallas_attention.py, with and without
-// attention dropout. One block handles kRows query rows of one (batch b,
-// head h):
+// attention dropout. Per (batch b, head h):
 //
 //   s   = q k^T * scale  (+ bias[b,h])  (+ log(max(pre, 1e-6)))  (- 1e9 where mask[b])
 //   pre = sum_r relu(b1[r] + sum_c raw[b,i,j,c] * W1[r,c]) * Wr[h,r]  + br[h]
@@ -12,43 +11,57 @@
 //   o   = a v, with a rounded to the operand type (a.astype(v.dtype)),
 //         accumulated in fp32, stored in the operand type
 //
-// Dropout draws its keep mask counter-based: the first word of
-// Philox4x32-10 keyed by a 64-bit seed at counter (j, i, b*H + h, 0), kept
-// when below (1 - r) 2^32 as at pallas_attention.py:205-207. The mask thus
-// depends on the seed and the element only, not on the launch layout. It is
-// written out as a uint8 residual for the backward kernel (the TPU kernel
-// emits its mask as bf16 for the same reason, :36-48).
+// Design. A warp owns 16 query rows of one head (the m16 of
+// mma.m16n8k16) and keeps their scores, probabilities and output in
+// registers (attention_common.cuh): the [Lq, Lk] scores never touch
+// shared or device memory. Keys are padded to a multiple of 16 with zeros
+// (a padded key's score is -inf, its probability exactly 0) and walked in
+// chunks of 16.
+// - Without the relation chain (fused_attention_fwd_kernel) a block is one
+//   (b, h) and up to 8 row tiles (all of Lq <= 128): K, V and q are staged
+//   in shared memory once per (b, h) by 16-byte cp.async copies.
+// - With it (fused_attention_fwd_rel_kernel) a block is one batch row b and
+//   16 * (8 / H) query rows, for all heads: it first computes pre for every
+//   head into shared memory (relation_pre_heads, the features once per
+//   (b, i, j), each weight read serving four elements), writing pre
+//   [B, H, Lq, Lk] fp32 out too when the backward will need it; then a
+//   warp per (16 rows, head) streams that head's K and V through its own
+//   kStages 16-key buffers (cp.async, kStages - 1 chunks in flight while
+//   one is used), since the heads' K and V do not fit beside pre.
+// - bf16: both products on tensor cores (ldmatrix fragments, fp32
+//   accumulation, the probabilities re-packed from the C to the A layout in
+//   registers). fp32: TF32 stays off, so the products are fp32 FMAs,
+//   register-tiled: a thread holds 2 rows x 4 keys of each chunk and each
+//   16-byte shared load serves 8 FMAs.
+// - The softmax's sum runs in the order of PyTorch's softmax kernel (lanes
+//   over keys j mod 32, then a butterfly), so the probabilities round as
+//   the plain version's do.
+// - Dropout: one Philox4x32-10 call, keyed by a 64-bit seed at counter
+//   (j / 4, i, b*H + h, 0), gives the bits of four keys (word j mod 4);
+//   kept when below keep_thr, as at pallas_attention.py:205-207. The two
+//   threads that hold a row pair's keys j..j+3 each draw one row's call and
+//   swap the halves by a shuffle. The mask is written as a uint8 residual.
+//
+// What bounds it on this card. Per (b, h) it reads q, k, v once and writes
+// o once; at (100, 100), B 64, H 8 that is 7.8 us of bytes in bf16 and the
+// products 1.3 GFLOP (1.3 us on the tensor cores), so bf16 is bound by
+// bytes and latency: the staging, the expf per score and the dropout's
+// Philox rounds, with 7 warps per block and two blocks per SM. fp32 is
+// bound by its FMAs (20 us at 67 TFLOP/s) and the shared loads that feed
+// them. With the relation chain the chain's fp32 FMAs dominate (R (Rr + H)
+// per (b, i, j): 768 at Rr 4, R 64, H 8), then the K and V reads, once per
+// 16 rows and head from L2.
 //
 // Operands are fp32 or bf16 (T); the pad mask arrives as the caller's bool
 // [B, Lk] row (true = pad) and adds -1e9 to a padded key's score, as the
-// TPU kernel's additive mask row does. raw is read in its natural
-// [B, Lq, Lk, Rr] layout (the TPU kernel split it into planes only for its
-// tiling), W1 is [R, Rr] and Wr is [H, R] (torch Linear layout).
-//
-// What bounds it on this card: neither device memory nor the FMA units. At
-// the shapes of the searched VQA net (L <= 100, D = 64) a head's K and V fit
-// in shared memory whole, so q, k, v are read from device memory once (K/V
-// once more per extra row block, from L2) and o is written once; the
-// [Lq, Lk] scores and the [Lq, Lk, R] relation features never leave the SM.
-// Both products and the relation chain run as scalar fp32 FMAs on the CUDA
-// cores, and every FMA of the two products reads both its operands from
-// shared memory (one a broadcast), so the kernel is bound by shared-memory
-// load issue: at one warp-wide load per SM per cycle, the loads of a
-// (100, 100) call at B 64, H 8 take about 0.17 ms of the 0.25 ms it was
-// measured at (H100 80GB HBM3, 700 W power limit), about 5 TFLOP/s of the
-// card's 67. The relation chain adds the most: each of its R steps reads
-// Rr + 2 weights from shared memory for Rr + 1 FMAs, 2.5x the FMAs of the
-// two products per score at Rr = 4, R = 64, D = 64. Holding several scores
-// per thread in registers per loaded operand is the first remedy.
-//
-// Design: no state passes between blocks (the TPU kernel carried the
-// relation features across the head programs of a batch row in VMEM; here
-// each (b, h, row block) recomputes them, which keeps blocks independent).
-// The chain stays fp32 even for bf16 operands: pre sits at the 1e-6 clamp
-// and the log turns small errors into large bias errors. Lengths 14 and 100
-// are not multiples of anything: every loop is bounded by the true row and
-// key counts. Shared memory is dynamic (about 64 KB at Lk = 100, D = 64,
-// above the 48 KB static limit) and opted in per launch.
+// TPU kernel's additive mask row does, so a fully padded row stays uniform
+// over its Lk keys. raw is read in its natural [B, Lq, Lk, Rr] layout, W1 is
+// [R, Rr] and Wr is [H, R] (torch Linear layout). The chain stays fp32 even
+// for bf16 operands: pre sits at the 1e-6 clamp and the log turns small
+// errors into large bias errors. Limits (the launcher returns
+// cudaErrorInvalidValue past them): D a multiple of 16 up to 128, Lk up to
+// 208 (128 with the chain), H up to 16 with the chain, shared memory within
+// 227 KB.
 
 #include "attention_common.cuh"
 
@@ -56,13 +69,39 @@ namespace {
 
 using namespace mmnas;
 
-constexpr int kRows = 16;      // query rows per block
-constexpr int kThreads = 256;  // 8 warps; the softmax gives each warp 2 rows
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSmemCap = 232448;  // 227 KB, a block's most dynamic shared memory
+constexpr int kChainE = 4;        // relation-chain elements per thread and pass
+constexpr int kStages = 2;        // 16-key buffers a warp streams K and V through
 
-// Philox4x32-10 (Salmon et al., SC'11): the first output word for
-// counter (c0, c1, c2, 0) and key `seed`.
-__device__ __forceinline__ unsigned int philox_first(unsigned long long seed, unsigned int c0,
-                                                     unsigned int c1, unsigned int c2) {
+template <typename T>
+struct Args {
+  const T* q;                 // [B, H, Lq, D]
+  const T* k;                 // [B, H, Lk, D]
+  const T* v;                 // [B, H, Lk, D]
+  const T* bias;              // [B, H, Lq, Lk] or null
+  const unsigned char* mask;  // [B, Lk] bool, true = pad; or null
+  const T* raw;               // [B, Lq, Lk, Rr] or null (no relation chain)
+  const T* w1;                // [R, Rr]
+  const T* b1;                // [R]
+  const T* wr;                // [H, R]
+  const T* br;                // [H]
+  T* out;                     // [B, H, Lq, D]
+  unsigned char* keep;        // [B, H, Lq, Lk] keep mask out, or null (no dropout)
+  float* pre;                 // [B, H, Lq, Lk] relation chain out, or null
+  int H, Lq, Lk, D, Rr, R;
+  int tiles;                  // with the chain: 16-row tiles per block
+  float scale;
+  unsigned long long seed;    // dropout: Philox key
+  unsigned int keep_thr;      // dropout: keep when bits < keep_thr
+  float keep_p;               // dropout: 1 - r
+};
+
+// Philox4x32-10 (Salmon et al., SC'11): the four output words for counter
+// (c0, c1, c2, 0) and key `seed`.
+__device__ __forceinline__ uint4 philox(unsigned long long seed, unsigned int c0,
+                                        unsigned int c1, unsigned int c2) {
   unsigned int x0 = c0, x1 = c1, x2 = c2, x3 = 0u;
   unsigned int k0 = static_cast<unsigned int>(seed);
   unsigned int k1 = static_cast<unsigned int>(seed >> 32);
@@ -77,179 +116,245 @@ __device__ __forceinline__ unsigned int philox_first(unsigned long long seed, un
     k0 += 0x9E3779B9u;
     k1 += 0xBB67AE85u;
   }
-  return x0;
+  return make_uint4(x0, x1, x2, x3);
 }
 
-template <typename T>
-struct Args {
-  const T* q;              // [B, H, Lq, D]
-  const T* k;              // [B, H, Lk, D]
-  const T* v;              // [B, H, Lk, D]
-  const T* bias;           // [B, H, Lq, Lk] or null
-  const unsigned char* mask;  // [B, Lk] bool, true = pad; or null
-  const T* raw;            // [B, Lq, Lk, Rr] or null (no relation chain)
-  const T* w1;             // [R, Rr]
-  const T* b1;             // [R]
-  const T* wr;             // [H, R]
-  const T* br;             // [H]
-  T* out;                  // [B, H, Lq, D]
-  unsigned char* keep;     // [B, H, Lq, Lk] keep mask out, or null (no dropout)
-  int H, Lq, Lk, D, Rr, R;
-  float scale;
-  unsigned long long seed;  // dropout: Philox key
-  unsigned int keep_thr;    // dropout: keep when bits < keep_thr
-  float keep_p;             // dropout: 1 - r
-};
-
-size_t smem_floats(int Lk, int D, int Rr, int R, bool has_rel) {
-  size_t n = (size_t)Lk * (D + 1) + (size_t)Lk * D + (size_t)kRows * D + (size_t)kRows * Lk;
-  if (has_rel) n += (size_t)R * Rr + 2 * (size_t)R;
-  return n;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) fused_attention_fwd_kernel(const Args<T> a) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
-  const int Lq = a.Lq, Lk = a.Lk, D = a.D, R = a.R, Rr = a.Rr;
-  const int rows = min(kRows, Lq - row0);
-  const bool has_rel = a.raw != nullptr;
-
-  const int ldk = D + 1;          // padded K rows: a warp walking j hits 32 banks
-  float* ks = smem;               // [Lk][D + 1]
-  float* vs = ks + Lk * ldk;      // [Lk][D]
-  float* qs = vs + Lk * D;        // [kRows][D]
-  float* ss = qs + kRows * D;     // [kRows][Lk] scores, then probabilities
-  float* w1s = ss + kRows * Lk;   // [R][Rr]
-  float* b1s = w1s + R * Rr;      // [R]
-  float* wrs = b1s + R;           // [R], row h of Wr
-
-  const long bh = (long)b * a.H + h;
-  const T* kp = a.k + bh * Lk * D;
-  const T* vp = a.v + bh * Lk * D;
-  const T* qp = a.q + (bh * Lq + row0) * D;
-  for (int i = threadIdx.x; i < Lk * D; i += kThreads) {
-    const int j = i / D, d = i - j * D;
-    ks[j * ldk + d] = load_f32(kp, i);
-    vs[i] = load_f32(vp, i);
-  }
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) qs[i] = load_f32(qp, i);
-  if (has_rel) {
-    for (int i = threadIdx.x; i < R * Rr; i += kThreads) w1s[i] = load_f32(a.w1, i);
-    for (int i = threadIdx.x; i < R; i += kThreads) {
-      b1s[i] = load_f32(a.b1, i);
-      wrs[i] = load_f32(a.wr, (long)h * R + i);
-    }
-  }
-  __syncthreads();
-
-  // scores, one (row, key) pair per thread per step
-  const float br = has_rel ? load_f32(a.br, h) : 0.f;
-  for (int i = threadIdx.x; i < rows * Lk; i += kThreads) {
-    const int r = i / Lk, j = i - r * Lk;
-    const float* qr = qs + r * D;
-    const float* kj = ks + j * ldk;
-    float dot = 0.f;
-    for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kj[d], dot);
-    float s = dot * a.scale;
-    const long ij = (long)(row0 + r) * Lk + j;
-    if (a.bias != nullptr) s += load_f32(a.bias, bh * Lq * Lk + ij);
-    if (has_rel) {
-      const T* rp = a.raw + ((long)b * Lq * Lk + ij) * Rr;
-      s += logf(fmaxf(relation_pre(rp, Rr, R, w1s, b1s, wrs, br), kClamp));
-    }
-    if (a.mask != nullptr && a.mask[(long)b * Lk + j]) s += kMaskAdd;
-    ss[r * Lk + j] = s;
-  }
-  __syncthreads();
-
-  // fp32 softmax over each row, one warp per row
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    float* sr = ss + r * Lk;
-    float m = -INFINITY;
-    for (int j = lane; j < Lk; j += 32) m = fmaxf(m, sr[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float e = expf(sr[j] - m);
-      sr[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    const int i = row0 + r;
-    for (int j = lane; j < Lk; j += 32) {
-      float p = sr[j] / sum;
-      if (a.keep != nullptr) {
-        const bool kept = philox_first(a.seed, j, i, static_cast<unsigned int>(bh)) < a.keep_thr;
-        a.keep[(bh * Lq + i) * Lk + j] = kept;
-        p = (p * (kept ? 1.f : 0.f)) / a.keep_p;
+// a *= keep / (1 - r) on the tile's probabilities, the keep mask drawn and
+// written for rows < rows, keys < Lk
+template <typename T, int KTM>
+__device__ __forceinline__ void tile_dropout(float (&p)[2 * KTM][4], const Args<T>& a, long bh,
+                                             int row0, int KT) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int Lq = a.Lq, Lk = a.Lk;
+  const unsigned int mine = static_cast<unsigned int>(row0 + g + 8 * (t & 1));
+#pragma unroll
+  for (int n = 0; n < 2 * KTM; ++n)
+    if (n < 2 * KT) {
+      // keys 8n + 4 (t / 2) .. + 3 share one call; lane t & 1 draws row g + 8 (t & 1)
+      const uint4 w = philox(a.seed, static_cast<unsigned int>(2 * n + t / 2), mine,
+                             static_cast<unsigned int>(bh));
+      const unsigned int give0 = (t & 1) ? w.x : w.z, give1 = (t & 1) ? w.y : w.w;
+      const unsigned int got0 = __shfl_xor_sync(0xffffffffu, give0, 1);
+      const unsigned int got1 = __shfl_xor_sync(0xffffffffu, give1, 1);
+      // bits of (row g, key 8n + 2t + c) and (row g + 8, key 8n + 2t + c)
+      const unsigned int bits[4] = {(t & 1) ? got0 : w.x, (t & 1) ? got1 : w.y,
+                                    (t & 1) ? w.z : got0, (t & 1) ? w.w : got1};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = row0 + g + 8 * (e >> 1), j = 8 * n + 2 * t + (e & 1);
+        const bool kept = bits[e] < a.keep_thr;
+        if (i < Lq && j < Lk) a.keep[(bh * Lq + i) * Lk + j] = kept;
+        p[n][e] = (p[n][e] * (kept ? 1.f : 0.f)) / a.keep_p;
       }
-      sr[j] = round_to(p, a.q);
+    }
+}
+
+// one warp: the attention of rows [row0, row0 + 16) of head h from its
+// staged rows of q at qs (rows of ld) and the chunks of k and v; pre (rows
+// of ldpre) with the relation chain
+template <typename T, int DM, int KTM, typename Chunks>
+__device__ __forceinline__ void attend_tile(const Args<T>& a, int b, int h, int row0,
+                                            const T* qs, const Chunks& kc, const Chunks& vc,
+                                            int ld, const float* pre, int ldpre) {
+  const int KT = (a.Lk + 15) / 16;
+  const long bh = (long)b * a.H + h;
+  float s[2 * KTM][4];
+  tile_abt<KTM>(s, qs, kc, ld, a.D, KT);
+  ScoreTerms<T> st{a.bias == nullptr ? nullptr : a.bias + (bh * a.Lq + row0) * a.Lk,
+                   pre, ldpre,
+                   a.mask == nullptr ? nullptr : a.mask + (long)b * a.Lk,
+                   a.Lq - row0, a.Lk, a.scale};
+  tile_scores_epilogue<T, KTM>(s, st, KT);
+  tile_softmax<KTM>(s, KT);
+  if (a.keep != nullptr) tile_dropout<T, KTM>(s, a, bh, row0, KT);
+  float o[DM / 2];
+  tile_px<DM, KTM>(o, s, vc, ld, a.D, KT);
+  store_tile<DM>(o, a.out + bh * a.Lq * a.D, row0, a.Lq, a.D, 1.f);
+}
+
+// Without the relation chain: grid (row groups of kWarps tiles, H, B), a
+// warp per 16-row tile, K and V staged once for the block's (b, h). Two
+// blocks per SM: the register budget is 128 a thread.
+template <typename T, int DM, int KTM>
+__global__ void __launch_bounds__(kThreads, 2) fused_attention_fwd_kernel(const Args<T> a) {
+  extern __shared__ __align__(16) float smem[];
+  const int h = blockIdx.y, b = blockIdx.z, warp = threadIdx.x / 32;
+  const int Lq = a.Lq, Lk = a.Lk, D = a.D, ld = D + Pad<T>::value;
+  const int LkP = (Lk + 15) / 16 * 16;
+  const int row_base = blockIdx.x * kWarps * 16;
+  const int tiles = blockDim.x / 32;
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + LkP * ld;
+  T* qs = vs + LkP * ld;  // [tiles * 16][ld]
+  const long bh = (long)b * a.H + h;
+  stage_rows(ks, ld, a.k + bh * Lk * D, Lk, LkP, D);
+  stage_rows(vs, ld, a.v + bh * Lk * D, Lk, LkP, D);
+  stage_rows(qs, ld, a.q + (bh * Lq + row_base) * D, Lq - row_base, tiles * 16, D);
+  cp_async_wait_all();
+  __syncthreads();
+  const int row0 = row_base + 16 * warp;
+  if (row0 < Lq)
+    attend_tile<T, DM, KTM>(a, b, h, row0, qs + 16 * warp * ld, StagedChunks<T>{ks, ld},
+                            StagedChunks<T>{vs, ld}, ld, nullptr, 0);
+}
+
+// With the relation chain: grid (row groups of a.tiles 16-row tiles, B).
+// The block computes pre for every head of its rows into shared memory, the
+// features once per (b, i, j), kChainE elements a thread at a time; then a
+// warp per (tile, head) streams that head's K and V through its own two
+// chunk buffers. Shared memory: pre [H][16 tiles][LkP] fp32, the chain's
+// weights, and per warp its q rows and chunk buffers.
+template <typename T, int DM, int KTM>
+__global__ void __launch_bounds__(kThreads, 1) fused_attention_fwd_rel_kernel(const Args<T> a) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  const int H = a.H, Lq = a.Lq, Lk = a.Lk, D = a.D, R = a.R, Rr = a.Rr;
+  const int ld = D + Pad<T>::value, LkP = (Lk + 15) / 16 * 16, KT = LkP / 16;
+  const int rows_b = 16 * a.tiles, row_base = blockIdx.x * rows_b;
+  const int rows = min(rows_b, Lq - row_base);
+  float* pres = smem;                        // [H][rows_b][LkP]
+  float* ws = pres + H * rows_b * LkP;       // the chain's weights
+  T* wbuf = reinterpret_cast<T*>(ws + (chain_weight_floats(R) + 3) / 4 * 4);
+  load_chain_weights(a.w1, a.b1, a.wr, a.br, Rr, R, H, ws);
+  __syncthreads();
+
+  const int E = rows * Lk;
+  const T* raw = a.raw + ((long)b * Lq + row_base) * Lk * Rr;
+  for (int e0 = kChainE * threadIdx.x; e0 < E; e0 += kChainE * blockDim.x) {
+    float x[kChainE][kMaxRr], pre[kChainE][kMaxH];
+#pragma unroll
+    for (int u = 0; u < kChainE; ++u) load_raw(raw + (long)min(e0 + u, E - 1) * Rr, Rr, x[u]);
+    relation_pre_heads<kChainE>(x, Rr, R, H, ws, pre);
+#pragma unroll
+    for (int u = 0; u < kChainE; ++u) {
+      const int e = e0 + u;
+      if (e >= E) continue;
+      const int r = e / Lk, j = e - r * Lk;
+#pragma unroll
+      for (int hh = 0; hh < kMaxH; ++hh)
+        if (hh < H) {
+          pres[(hh * rows_b + r) * LkP + j] = pre[u][hh];
+          if (a.pre != nullptr)
+            a.pre[(((long)b * H + hh) * Lq + row_base + r) * Lk + j] = pre[u][hh];
+        }
     }
   }
   __syncthreads();
 
-  // o = a v, one (row, feature) pair per thread per step
-  T* op = a.out + (bh * Lq + row0) * D;
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    const float* sr = ss + r * Lk;
-    float acc = 0.f;
-    for (int j = 0; j < Lk; ++j) acc = fmaf(sr[j], vs[j * D + d], acc);
-    store_f32(op, i, acc);
+  T* qs = wbuf + warp * 16 * (1 + kStages) * ld;  // the warp's q rows [16][ld], then its buffers
+  T* ring = qs + 16 * ld;
+  for (int item = warp; item < a.tiles * H; item += warps) {
+    const int tile = item / H, h = item - tile * H, row0 = row_base + 16 * tile;
+    if (row0 >= Lq) continue;
+    const long bh = (long)b * H + h;
+    __syncwarp();  // the warp is done with qs
+    stage_rows(qs, ld, a.q + (bh * Lq + row0) * D, Lq - row0, 16, D, threadIdx.x % 32, 32);
+    cp_async_commit();
+    const WarpStream<T, kStages> kc{ring, a.k + bh * Lk * D, Lk, D, ld, KT};
+    const WarpStream<T, kStages> vc{ring, a.v + bh * Lk * D, Lk, D, ld, KT};
+    attend_tile<T, DM, KTM>(a, b, h, row0, qs, kc, vc, ld,
+                            pres + (h * rows_b + 16 * tile) * LkP, LkP);
   }
+}
+
+template <typename T, int DM, int KTM>
+cudaError_t launch_head(const Args<T>& a, int B, cudaStream_t stream) {
+  const int ld = a.D + Pad<T>::value, LkP = (a.Lk + 15) / 16 * 16;
+  const int tiles = (a.Lq + 15) / 16, warps = min(kWarps, tiles);
+  const size_t bytes = (size_t)(2 * LkP + 16 * warps) * ld * sizeof(T);
+  if (bytes > (size_t)kSmemCap) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_kernel<T, DM, KTM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tiles + kWarps - 1) / kWarps, a.H, B);
+  fused_attention_fwd_kernel<T, DM, KTM><<<grid, 32 * warps, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int DM, int KTM>
+cudaError_t launch_rel(Args<T> a, int B, cudaStream_t stream) {
+  const int ld = a.D + Pad<T>::value, LkP = (a.Lk + 15) / 16 * 16;
+  const int tiles = (a.Lq + 15) / 16;
+  a.tiles = max(1, min(kWarps / a.H, tiles));  // 8 (tile, head) items a block where H <= 8
+  const size_t fixed =
+      ((size_t)a.H * 16 * a.tiles * LkP + (chain_weight_floats(a.R) + 3) / 4 * 4) * sizeof(float);
+  const size_t per_warp = (size_t)16 * (1 + kStages) * ld * sizeof(T);
+  if (fixed + per_warp > (size_t)kSmemCap) return cudaErrorInvalidValue;
+  const int warps = min(min(kWarps, a.tiles * a.H), (int)((kSmemCap - fixed) / per_warp));
+  const size_t bytes = fixed + warps * per_warp;
+  cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_rel_kernel<T, DM, KTM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tiles + a.tiles - 1) / a.tiles, B);
+  fused_attention_fwd_rel_kernel<T, DM, KTM><<<grid, 32 * warps, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int DM>
+cudaError_t launch_d(const Args<T>& a, int B, cudaStream_t stream) {
+  const int KT = (a.Lk + 15) / 16;
+  if (a.raw != nullptr) {  // keys up to 128 with the relation chain
+    if (KT <= 1) return launch_rel<T, DM, 1>(a, B, stream);
+    if (KT <= 8) return launch_rel<T, DM, 8>(a, B, stream);
+    return cudaErrorInvalidValue;
+  }
+  if (KT <= 1) return launch_head<T, DM, 1>(a, B, stream);
+  if (KT <= 8) return launch_head<T, DM, 8>(a, B, stream);
+  if (KT <= 13) return launch_head<T, DM, 13>(a, B, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    const void* mask, const void* raw, const void* w1, const void* b1,
-                   const void* wr, const void* br, void* out, void* keep, int B, int H,
-                   int Lq, int Lk, int D, int Rr, int R, float scale, unsigned long long seed,
-                   unsigned int keep_thr, float keep_p, cudaStream_t stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1) return cudaErrorInvalidValue;
-  if (raw != nullptr && (Rr < 1 || Rr > kMaxRr || R < 1)) return cudaErrorInvalidValue;
+                   const void* wr, const void* br, void* out, void* keep, void* pre, int B,
+                   int H, int Lq, int Lk, int D, int Rr, int R, float scale,
+                   unsigned long long seed, unsigned int keep_thr, float keep_p,
+                   cudaStream_t stream) {
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 16 || D > 128 || D % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (raw != nullptr && (Rr < 1 || Rr > kMaxRr || R < 1 || H > kMaxH))
+    return cudaErrorInvalidValue;
+  if (raw == nullptr && pre != nullptr) return cudaErrorInvalidValue;
   if (keep != nullptr && !(keep_p > 0.f && keep_p <= 1.f)) return cudaErrorInvalidValue;
-  Args<T> a{static_cast<const T*>(q),  static_cast<const T*>(k),
-            static_cast<const T*>(v),  static_cast<const T*>(bias),
-            static_cast<const unsigned char*>(mask),
-            static_cast<const T*>(raw), static_cast<const T*>(w1),
-            static_cast<const T*>(b1), static_cast<const T*>(wr),
-            static_cast<const T*>(br), static_cast<T*>(out),
-            static_cast<unsigned char*>(keep),
-            H, Lq, Lk, D, Rr, R, scale, seed, keep_thr, keep_p};
-  const size_t bytes = smem_floats(Lk, D, Rr, R, raw != nullptr) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + kRows - 1) / kRows, H, B);
-  fused_attention_fwd_kernel<T><<<grid, kThreads, bytes, stream>>>(a);
-  return cudaGetLastError();
+  const Args<T> a{static_cast<const T*>(q),  static_cast<const T*>(k),
+                  static_cast<const T*>(v),  static_cast<const T*>(bias),
+                  static_cast<const unsigned char*>(mask),
+                  static_cast<const T*>(raw), static_cast<const T*>(w1),
+                  static_cast<const T*>(b1), static_cast<const T*>(wr),
+                  static_cast<const T*>(br), static_cast<T*>(out),
+                  static_cast<unsigned char*>(keep), static_cast<float*>(pre),
+                  H, Lq, Lk, D, Rr, R, 1, scale, seed, keep_thr, keep_p};
+  return D <= 64 ? launch_d<T, 64>(a, B, stream) : launch_d<T, 128>(a, B, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Pointers may be null for absent operands
-// (bias, mask, raw together with w1/b1/wr/br, and keep: no dropout). With
-// keep, the kernel draws the mask for `seed`, keeps an element when its bits
-// are below keep_thr, scales kept probabilities by 1 / keep_p and writes the
-// mask to keep. Returns the CUDA error code of the launch (0 = launched); the
-// kernel runs on `stream`.
+// (bias, mask, raw together with w1/b1/wr/br, keep: no dropout, pre: no
+// relation chain written out). With keep, the kernel draws the mask for
+// `seed`, keeps an element when its bits are below keep_thr, scales kept
+// probabilities by 1 / keep_p and writes the mask to keep. With raw and pre
+// it also writes the relation chain pre [B, H, Lq, Lk] fp32 for the
+// backward. Returns the CUDA error code of the launch (0 = launched;
+// cudaErrorInvalidValue for a shape outside the limits above); the kernel
+// runs on `stream`.
 extern "C" int mmnas_fused_attention_fwd(int dtype, const void* q, const void* k,
                                          const void* v, const void* bias,
                                          const void* mask, const void* raw,
                                          const void* w1, const void* b1, const void* wr,
-                                         const void* br, void* out, void* keep, int B, int H,
-                                         int Lq, int Lk, int D, int Rr, int R, float scale,
-                                         unsigned long long seed, unsigned int keep_thr,
-                                         float keep_p, void* stream) {
+                                         const void* br, void* out, void* keep, void* pre,
+                                         int B, int H, int Lq, int Lk, int D, int Rr, int R,
+                                         float scale, unsigned long long seed,
+                                         unsigned int keep_thr, float keep_p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, bias, mask, raw, w1, b1, wr, br, out, keep, B, H, Lq, Lk,
-                         D, Rr, R, scale, seed, keep_thr, keep_p, s);
+    return launch<float>(q, k, v, bias, mask, raw, w1, b1, wr, br, out, keep, pre, B, H, Lq,
+                         Lk, D, Rr, R, scale, seed, keep_thr, keep_p, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, bias, mask, raw, w1, b1, wr, br, out, keep, B, H,
-                                 Lq, Lk, D, Rr, R, scale, seed, keep_thr, keep_p, s);
+    return launch<__nv_bfloat16>(q, k, v, bias, mask, raw, w1, b1, wr, br, out, keep, pre, B,
+                                 H, Lq, Lk, D, Rr, R, scale, seed, keep_thr, keep_p, s);
   return cudaErrorInvalidValue;
 }

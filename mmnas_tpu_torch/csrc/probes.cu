@@ -12,7 +12,7 @@
 //    features once and all H heads from them, in registers.
 // 2. probe_bias2 (`kernel`, _probe_bias2.py:13): the same chain with the
 //    features recomputed per head. One block per (b, h, chunk of rows)
-//    calls `relation_pre`, the function the attention kernels call.
+//    calls `relation_pre`, the per-head form of the chain.
 //    Both kernels build the chain from attention_common.cuh's
 //    `relation_feature`, with the same operations in the same order per
 //    head, so they give equal bits, and the attention kernels' scores carry
@@ -42,27 +42,7 @@ namespace {
 using namespace mmnas;
 
 constexpr int kThreads = 256;
-constexpr int kMaxH = 16;   // heads probe_bias holds in registers
 constexpr int kRows = 4;    // query rows per block of the bias probes
-
-// pre[h] for every head h < H, the features computed once: per head the
-// operations and their order of relation_pre. wrs [H][R], brs [H].
-__device__ __forceinline__ void relation_pre_heads(const float (&x)[kMaxRr], int Rr, int R,
-                                                   int H, const float* w1s, const float* b1s,
-                                                   const float* wrs, const float* brs,
-                                                   float (&pre)[kMaxH]) {
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h) pre[h] = 0.f;
-  for (int rr = 0; rr < R; ++rr) {
-    const float t = relation_feature(x, Rr, w1s + rr * Rr, b1s[rr]);
-#pragma unroll
-    for (int h = 0; h < kMaxH; ++h)
-      if (h < H) pre[h] = fmaf(t, wrs[h * R + rr], pre[h]);
-  }
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h)
-    if (h < H) pre[h] = pre[h] + brs[h];
-}
 
 struct BiasArgs {
   const float* raw;  // [B, L, L, Rr]
@@ -74,57 +54,39 @@ struct BiasArgs {
   int H, L, Rr, R;
 };
 
-// shared memory: W1, b1, Wr (all heads), br
-size_t bias_smem_bytes(int H, int Rr, int R) {
-  return ((size_t)R * Rr + R + (size_t)H * R + H) * sizeof(float);
-}
-
-__device__ __forceinline__ void load_weights(const BiasArgs& a, float* w1s, float* b1s,
-                                             float* wrs, float* brs) {
-  for (int i = threadIdx.x; i < a.R * a.Rr; i += kThreads) w1s[i] = a.w1[i];
-  for (int i = threadIdx.x; i < a.R; i += kThreads) b1s[i] = a.b1[i];
-  for (int i = threadIdx.x; i < a.H * a.R; i += kThreads) wrs[i] = a.wr[i];
-  for (int i = threadIdx.x; i < a.H; i += kThreads) brs[i] = a.br[i];
-  __syncthreads();
-}
+// shared memory: the chain's weights (attention_common.cuh's layouts)
+size_t bias_smem_bytes(int R) { return (size_t)chain_weight_floats(R) * sizeof(float); }
 
 // grid (row chunks, B): features once per element, all heads
 __global__ void __launch_bounds__(kThreads) probe_bias_kernel(const BiasArgs a) {
-  extern __shared__ float smem[];
-  float* w1s = smem;
-  float* b1s = w1s + a.R * a.Rr;
-  float* wrs = b1s + a.R;
-  float* brs = wrs + a.H * a.R;
-  load_weights(a, w1s, b1s, wrs, brs);
+  extern __shared__ __align__(16) float smem[];
+  load_chain_weights(a.w1, a.b1, a.wr, a.br, a.Rr, a.R, a.H, smem);
+  __syncthreads();
   const int b = blockIdx.y, L = a.L, row0 = blockIdx.x * kRows;
   const int E = min(kRows, L - row0) * L;
   const long plane = (long)L * L;
   for (int e = threadIdx.x; e < E; e += kThreads) {
     const long ij = (long)row0 * L + e;
-    float x[kMaxRr], pre[kMaxH];
-    load_raw(a.raw + ((long)b * plane + ij) * a.Rr, a.Rr, x);
-    relation_pre_heads(x, a.Rr, a.R, a.H, w1s, b1s, wrs, brs, pre);
+    float x[1][kMaxRr], pre[1][kMaxH];
+    load_raw(a.raw + ((long)b * plane + ij) * a.Rr, a.Rr, x[0]);
+    relation_pre_heads<1>(x, a.Rr, a.R, a.H, smem, pre);
 #pragma unroll
     for (int h = 0; h < kMaxH; ++h)
-      if (h < a.H) a.out[((long)b * a.H + h) * plane + ij] = logf(fmaxf(pre[h], kClamp));
+      if (h < a.H) a.out[((long)b * a.H + h) * plane + ij] = logf(fmaxf(pre[0][h], kClamp));
   }
 }
 
-// grid (row chunks, H, B): features recomputed per head, as the attention kernels do
+// grid (row chunks, H, B): features recomputed per head
 __global__ void __launch_bounds__(kThreads) probe_bias2_kernel(const BiasArgs a) {
-  extern __shared__ float smem[];
-  float* w1s = smem;
-  float* b1s = w1s + a.R * a.Rr;
-  float* wrs = b1s + a.R;
-  float* brs = wrs + a.H * a.R;
-  load_weights(a, w1s, b1s, wrs, brs);
+  extern __shared__ __align__(16) float smem[];
+  load_chain_weights(a.w1, a.b1, a.wr, a.br, a.Rr, a.R, a.H, smem);
+  __syncthreads();
   const int h = blockIdx.y, b = blockIdx.z, L = a.L, row0 = blockIdx.x * kRows;
   const int E = min(kRows, L - row0) * L;
   const long plane = (long)L * L;
   for (int e = threadIdx.x; e < E; e += kThreads) {
     const long ij = (long)row0 * L + e;
-    const float pre = relation_pre(a.raw + ((long)b * plane + ij) * a.Rr, a.Rr, a.R, w1s, b1s,
-                                   wrs + h * a.R, brs[h]);
+    const float pre = relation_pre(a.raw + ((long)b * plane + ij) * a.Rr, a.Rr, a.R, smem, h);
     a.out[((long)b * a.H + h) * plane + ij] = logf(fmaxf(pre, kClamp));
   }
 }
@@ -188,7 +150,7 @@ extern "C" int mmnas_probe_bias(int fresh, const void* raw, const void* w1, cons
                    static_cast<const float*>(b1), static_cast<const float*>(wr),
                    static_cast<const float*>(br), static_cast<float*>(out), H, L, Rr, R};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = bias_smem_bytes(H, Rr, R);
+  const size_t bytes = bias_smem_bytes(R);
   const int chunks = (L + kRows - 1) / kRows;
   cudaError_t err;
   if (fresh == 0) {

@@ -12,15 +12,19 @@ The kernels live in `csrc/`, are built with nvcc at first use and are
 called through ctypes:
 
 - `fused_attention_fwd` (csrc/fused_attention_fwd.cu): the forward without
-  dropout (replaces `_fwd_kernel`, pallas_attention.py:173-213);
+  dropout (replaces `_fwd_kernel`, pallas_attention.py:173-213); with the
+  RSA chain it computes the chain once per (b, i, j) for all heads and, when
+  the call will be differentiated, writes it out ([B,H,Lq,Lk] fp32 `pre`)
+  for the backward;
 - `fused_attention_fwd_dropout`: the same kernel drawing the keep mask with
-  a counter-based Philox4x32-10 (key: a 64-bit seed, counter: (j, i, b*H+h))
-  and emitting it as a uint8 [B,H,Lq,Lk] residual (replaces the dropout
-  variant, :201-210);
+  a counter-based Philox4x32-10 (key: a 64-bit seed, counter: (j // 4, i,
+  b*H+h, 0), word j % 4) and emitting it as a uint8 [B,H,Lq,Lk] residual
+  (replaces the dropout variant, :201-210);
 - `fused_attention_bwd` (csrc/fused_attention_bwd.cu): dq, dk, dv, dbias
-  and, with the RSA chain, dpre = d s / d pre (replaces `_bwd_kernel`,
-  :325-467, without its relation reductions); when no relation input needs
-  a gradient (the search's arch step) it writes no dpre;
+  and, with the RSA chain (read from the forward's `pre`), dpre = d s / d
+  pre (replaces `_bwd_kernel`, :325-467, without its relation reductions);
+  when no relation input needs a gradient (the search's arch step) it
+  writes no dpre;
 - `fused_attention_bwd_rel`: the relation pass, per (batch, row chunk) the
   gradients of W1, b1, Wr, br as partials, and the raw geometry's gradient
   when asked for (the relation half of `_bwd_kernel`).
@@ -28,10 +32,11 @@ called through ctypes:
 `FusedAttentionFn` is the counterpart of the custom VJP (:572-599).
 Dispatch follows the tensor: a CUDA tensor goes through the kernels (or
 raises), a CPU tensor through `fused_attention_reference`, whose autograd
-is the plain backward. The kernels add the -1e9 pad row to the scores while
-the plain version replaces masked scores with -1e9
-(mmnas_tpu/ops/primitives.py:113-117); the two agree whenever a row has at
-least one valid key.
+is the plain backward. In bf16 the kernels run their products on tensor
+cores (fp32 accumulation), in fp32 as register-tiled FMAs (no TF32). The
+kernels add the -1e9 pad row to the scores while the plain version
+replaces masked scores with -1e9 (mmnas_tpu/ops/primitives.py:113-117);
+the two agree whenever a row has at least one valid key.
 
 `LAUNCHES` counts launches per kernel, so a run can show that its attention
 went through the kernels.
@@ -49,7 +54,8 @@ import torch
 from mmnas_tpu_torch.ops.primitives import mask_scores
 
 MAX_REL_CHANNELS = 8  # raw geometry channels the kernels hold in registers
-MAX_REL_HEADS = 16    # heads the relation pass holds in registers
+MAX_REL_HEADS = 16    # heads the relation chain and its pass hold in registers
+MAX_HEAD_DIM = 128    # head widths the kernels take: multiples of 16 up to this
 
 LAUNCHES = {"fused_attention_fwd": 0, "fused_attention_fwd_dropout": 0,
             "fused_attention_bwd": 0, "fused_attention_bwd_rel": 0}
@@ -135,10 +141,12 @@ def keep_threshold(dropout_r: float) -> int:
 
 def keep_mask_reference(seed: int, B: int, H: int, Lq: int, Lk: int, dropout_r: float):
     """The keep mask [B,H,Lq,Lk] (bool) that the dropout kernel draws for
-    `seed`: the first word of Philox4x32-10 at counter (j, i, b*H+h, 0)."""
-    bh, i, j = np.meshgrid(np.arange(B * H), np.arange(Lq), np.arange(Lk), indexing="ij")
-    counter = np.stack([j, i, bh, np.zeros_like(j)], axis=-1)
-    bits = philox4x32_10(counter, seed)[..., 0]
+    `seed`: word j % 4 of Philox4x32-10 at counter (j // 4, i, b*H+h, 0), so
+    one call serves four keys."""
+    groups = -(-Lk // 4)
+    bh, i, c = np.meshgrid(np.arange(B * H), np.arange(Lq), np.arange(groups), indexing="ij")
+    counter = np.stack([c, i, bh, np.zeros_like(c)], axis=-1)
+    bits = philox4x32_10(counter, seed).reshape(B * H, Lq, 4 * groups)[..., :Lk]
     return torch.from_numpy(bits < keep_threshold(dropout_r)).reshape(B, H, Lq, Lk)
 
 
@@ -184,37 +192,46 @@ def fused_attention(q, k, v, mask=None, log_bias=None, *, rel=None,
                          f"on that device, got one on {generator.device}")
     seed = draw_seed(generator) if dropout_r > 0.0 else 0
     raw, w1, b1, wr, br = rel if rel is not None else (None,) * 5
+    # the relation chain is kept for the backward only when one will run
+    want_pre = rel is not None and torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, log_bias, *rel))
     return FusedAttentionFn.apply(q, k, v, mask, log_bias, raw, w1, b1, wr, br,
-                                  float(dropout_r), seed)
+                                  float(dropout_r), seed, want_pre)
 
 
 class FusedAttentionFn(torch.autograd.Function):
     """The kernels' forward and backward as one differentiable op
     (counterpart of `_fused`, pallas_attention.py:572-599). The forward
-    saves its inputs and the keep mask; the backward recomputes the
-    probabilities from them."""
+    saves its inputs, the keep mask and, with the RSA chain and want_pre
+    (the caller will differentiate), the chain's pre; the backward
+    recomputes the probabilities from them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, log_bias, raw, w1, b1, wr, br, dropout_r, seed):
+    def forward(ctx, q, k, v, mask, log_bias, raw, w1, b1, wr, br, dropout_r, seed,
+                want_pre=True):
         rel = None if raw is None else (raw, w1, b1, wr, br)
-        out, keep = attention_fwd(q, k, v, mask, log_bias, rel, dropout_r, seed)
-        ctx.save_for_backward(q, k, v, mask, log_bias, raw, w1, b1, wr, br, keep)
+        out, keep, pre = attention_fwd(q, k, v, mask, log_bias, rel, dropout_r, seed,
+                                       want_pre=want_pre and rel is not None)
+        ctx.save_for_backward(q, k, v, mask, log_bias, raw, w1, b1, wr, br, keep, pre)
         ctx.dropout_r = dropout_r
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, mask, log_bias, raw, w1, b1, wr, br, keep = ctx.saved_tensors
+        q, k, v, mask, log_bias, raw, w1, b1, wr, br, keep, pre = ctx.saved_tensors
         rel = None if raw is None else (raw, w1, b1, wr, br)
+        if rel is not None and pre is None:
+            raise RuntimeError("the forward kept no relation chain (want_pre=False), so "
+                               "this call cannot be differentiated")
         # the production path never differentiates the geometry (input data);
         # the search's arch step differentiates none of the relation inputs
         need_draw = raw is not None and ctx.needs_input_grad[5]
         need_rel = raw is not None and any(ctx.needs_input_grad[5:10])
         dq, dk, dv, dbias, drel = attention_bwd(q, k, v, mask, log_bias, rel, keep,
                                                 ctx.dropout_r, do.contiguous(), need_draw,
-                                                need_rel)
+                                                need_rel, pre=pre)
         drel = drel if drel is not None else (None,) * 5
-        return (dq, dk, dv, None, dbias, *drel, None, None)
+        return (dq, dk, dv, None, dbias, *drel, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +243,7 @@ def _fwd_kernel():
     from mmnas_tpu_torch.csrc import build
 
     fn = build.load("fused_attention_fwd").mmnas_fused_attention_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -239,7 +256,7 @@ def _bwd_kernels():
 
     lib = build.load("fused_attention_bwd")
     bwd = lib.mmnas_fused_attention_bwd
-    bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
+    bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     rel = lib.mmnas_fused_attention_bwd_rel
@@ -249,7 +266,9 @@ def _bwd_kernels():
     return bwd, rel
 
 
-def _check(t, name, shape, like, dtype=None):
+def _check(t, name, shape, like, dtype=None, rows=False):
+    """rows: the kernels copy t's rows by 16-byte loads, so t must start on a
+    16-byte boundary."""
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, q on {like.device}")
     if t.dtype != (dtype or like.dtype):
@@ -258,6 +277,9 @@ def _check(t, name, shape, like, dtype=None):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if rows and t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (the kernels copy its rows "
+                         "by 16-byte loads)")
 
 
 def _validate(q, k, v, mask, log_bias, rel):
@@ -272,9 +294,12 @@ def _validate(q, k, v, mask, log_bias, rel):
     Lk = k.shape[2]
     if min(B, H, Lq, Lk, D) < 1 or B > 65535 or H > 65535 or Lq > 65535 or Lk > 65535:
         raise ValueError(f"unsupported attention shape q {tuple(q.shape)}, k {tuple(k.shape)}")
-    _check(q, "q", (B, H, Lq, D), q)
-    _check(k, "k", (B, H, Lk, D), q)
-    _check(v, "v", (B, H, Lk, D), q)
+    if D % 16 or D > MAX_HEAD_DIM:
+        raise ValueError(f"head width {D}: the kernels take multiples of 16 up to "
+                         f"{MAX_HEAD_DIM}")
+    _check(q, "q", (B, H, Lq, D), q, rows=True)
+    _check(k, "k", (B, H, Lk, D), q, rows=True)
+    _check(v, "v", (B, H, Lk, D), q, rows=True)
     if log_bias is not None:
         _check(log_bias, "log_bias", (B, H, Lq, Lk), q)
     if mask is not None and (mask.dtype != torch.bool or tuple(mask.shape) != (B, 1, 1, Lk)
@@ -289,6 +314,8 @@ def _validate(q, k, v, mask, log_bias, rel):
         Rr, R = raw.shape[3], w1.shape[0]
         if not 1 <= Rr <= MAX_REL_CHANNELS:
             raise ValueError(f"raw has {Rr} channels; the kernel takes 1..{MAX_REL_CHANNELS}")
+        if H > MAX_REL_HEADS:
+            raise ValueError(f"the relation chain takes at most {MAX_REL_HEADS} heads, got {H}")
         _check(raw, "raw", (B, Lq, Lk, Rr), q)
         _check(w1, "W1", (R, Rr), q)
         _check(b1, "b1", (R,), q)
@@ -302,15 +329,21 @@ def _ptr(t):
 
 
 def _raise_on(err, name):
+    if err == 1:
+        raise RuntimeError(f"{name} launch failed with CUDA error 1 (invalid value): the "
+                           "shape is outside the kernel's limits (keys up to 208 forward, "
+                           "128 with the relation chain or backward; the block's tiles "
+                           "within 227 KB of shared memory)")
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
 def attention_fwd(q, k, v, mask=None, log_bias=None, rel=None, dropout_r: float = 0.0,
-                  seed: int = 0):
-    """Launch the forward kernel: o [B,H,Lq,D] in q's dtype and, with
-    dropout_r > 0, the keep mask it drew for `seed` (uint8 [B,H,Lq,Lk];
-    else None)."""
+                  seed: int = 0, want_pre: bool = False):
+    """Launch the forward kernel: (o [B,H,Lq,D] in q's dtype; with
+    dropout_r > 0 the keep mask it drew for `seed` (uint8 [B,H,Lq,Lk]), else
+    None; with rel and want_pre the relation chain pre ([B,H,Lq,Lk] fp32,
+    the backward's residual), else None)."""
     B, H, Lq, Lk, D, Rr, R = _validate(q, k, v, mask, log_bias, rel)
     if not 0.0 <= dropout_r < 1.0:
         raise ValueError(f"dropout rate {dropout_r} outside [0, 1)")
@@ -318,36 +351,41 @@ def attention_fwd(q, k, v, mask=None, log_bias=None, rel=None, dropout_r: float 
     out = torch.empty_like(q)
     keep = (torch.empty((B, H, Lq, Lk), dtype=torch.uint8, device=q.device)
             if dropout_r > 0.0 else None)
+    pre = (torch.empty((B, H, Lq, Lk), dtype=torch.float32, device=q.device)
+           if rel is not None and want_pre else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fwd_kernel()(_DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(log_bias),
                             _ptr(mask), _ptr(raw), _ptr(w1), _ptr(b1), _ptr(wr), _ptr(br),
-                            _ptr(out), _ptr(keep), B, H, Lq, Lk, D, Rr, R,
+                            _ptr(out), _ptr(keep), _ptr(pre), B, H, Lq, Lk, D, Rr, R,
                             1.0 / math.sqrt(D), seed & (2**64 - 1),
                             keep_threshold(dropout_r) if keep is not None else 0,
                             1.0 - dropout_r, stream)
     name = "fused_attention_fwd_dropout" if keep is not None else "fused_attention_fwd"
     _raise_on(err, name)
     LAUNCHES[name] += 1
-    return out, keep
+    return out, keep, pre
 
 
 def attention_bwd(q, k, v, mask, log_bias, rel, keep, dropout_r: float, do,
-                  need_draw: bool = False, need_rel: bool = True):
+                  need_draw: bool = False, need_rel: bool = True, *, pre=None):
     """Launch the backward kernel (and, with rel and need_rel, the relation
-    pass) for the forward on the same inputs and keep mask. Returns (dq, dk,
-    dv, dbias, drel): dbias is None without log_bias; drel is None without
-    rel or need_rel, else (draw or None, dW1, db1, dWr, dbr) in the layouts
-    and dtypes of rel. Without need_rel the kernel writes no dpre and no
-    relation pass runs."""
+    pass) for the forward on the same inputs, keep mask and, with rel, the
+    relation chain `pre` that the forward wrote (`attention_fwd(...,
+    want_pre=True)`). Returns (dq, dk, dv, dbias, drel): dbias is None
+    without log_bias; drel is None without rel or need_rel, else (draw or
+    None, dW1, db1, dWr, dbr) in the layouts and dtypes of rel. Without
+    need_rel the kernel writes no dpre and no relation pass runs."""
     B, H, Lq, Lk, D, Rr, R = _validate(q, k, v, mask, log_bias, rel)
-    _check(do, "do", (B, H, Lq, D), q)
+    _check(do, "do", (B, H, Lq, D), q, rows=True)
     if (keep is None) != (dropout_r <= 0.0):
         raise ValueError("pass a keep mask exactly when dropout_r > 0")
     if keep is not None:
         _check(keep, "keep", (B, H, Lq, Lk), q, dtype=torch.uint8)
-    if rel is not None and H > MAX_REL_HEADS:
-        raise ValueError(f"the relation pass takes at most {MAX_REL_HEADS} heads, got {H}")
+    if (pre is None) != (rel is None):
+        raise ValueError("pass the forward's relation chain pre exactly with rel")
+    if pre is not None:
+        _check(pre, "pre", (B, H, Lq, Lk), q, dtype=torch.float32)
     raw, w1, b1, wr, br = rel if rel is not None else (None,) * 5
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(log_bias) if log_bias is not None else None
@@ -358,9 +396,8 @@ def attention_bwd(q, k, v, mask, log_bias, rel, keep, dropout_r: float, do,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_kernels()[0](
             _DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(log_bias), _ptr(mask),
-            _ptr(raw), _ptr(w1), _ptr(b1), _ptr(wr), _ptr(br), _ptr(keep), _ptr(do),
-            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(dpre),
-            B, H, Lq, Lk, D, Rr, R, 1.0 / math.sqrt(D), 1.0 - dropout_r, stream)
+            _ptr(pre), _ptr(keep), _ptr(do), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias),
+            _ptr(dpre), B, H, Lq, Lk, D, 1.0 / math.sqrt(D), 1.0 - dropout_r, stream)
     _raise_on(err, "fused_attention_bwd")
     LAUNCHES["fused_attention_bwd"] += 1
     drel = relation_bwd(raw, w1, b1, wr, br, dpre, need_draw) if need_rel else None

@@ -10,7 +10,11 @@ input checks and launch counters.
   version on that mask;
 - backward and relation pass: every gradient equals autograd through the
   plain version on the same keep mask, and two runs give the same bits;
-- `FusedAttentionFn`: autograd through the kernels, launch counts.
+- `FusedAttentionFn`: autograd through the kernels, launch counts;
+- the tiles' edges: query lengths around the 16-row warp tile, key lengths
+  around the 16-key chunk (and not multiples of 4, the keys one Philox call
+  serves), a fully padded row, D 32 and 128, the search's B 32 H 4 with the
+  relation chain and its `pre` residual against the plain chain.
 
 Needs a CUDA GPU and nvcc; skipped elsewhere. This file imports no JAX, so
 on a machine without it run it as
@@ -99,7 +103,7 @@ def test_dropout_forward_draws_philox_mask_and_matches_plain(dev, B, H, Lq, Lk, 
     (args, m, b, r) = on(dev, dt, *make(B, H, Lq, Lk, D, kind, Rr, seed=1))
     seed = 0x1234_5678_9ABC_DEF0 + B
     before = dict(FA.LAUNCHES)
-    out, keep = FA.attention_fwd(*args, m, b, r, dropout_r=RATE, seed=seed)
+    out, keep, _ = FA.attention_fwd(*args, m, b, r, dropout_r=RATE, seed=seed)
     torch.cuda.synchronize()
     assert FA.LAUNCHES["fused_attention_fwd_dropout"] == before["fused_attention_fwd_dropout"] + 1
     assert keep.dtype == torch.uint8 and keep.shape == (B, H, Lq, Lk)
@@ -139,10 +143,11 @@ def test_backward_matches_plain_autograd(dev, B, H, Lq, Lk, D, kind, Rr, dt, dro
     (args, m, b, r) = on(dev, dt, *make(B, H, Lq, Lk, D, kind, Rr, seed=2))
     do = torch.randn(B, H, Lq, D, generator=torch.Generator().manual_seed(3)).to(dev, dt)
     rate = RATE if drop else 0.0
-    _, keep = FA.attention_fwd(*args, m, b, r, dropout_r=rate, seed=99)
+    _, keep, pre = FA.attention_fwd(*args, m, b, r, dropout_r=rate, seed=99,
+                                    want_pre=r is not None)
     before = dict(FA.LAUNCHES)
     dq, dk, dv, dbias, drel = FA.attention_bwd(*args, m, b, r, keep, rate, do,
-                                               need_draw=r is not None)
+                                               need_draw=r is not None, pre=pre)
     torch.cuda.synchronize()
     assert FA.LAUNCHES["fused_attention_bwd"] == before["fused_attention_bwd"] + 1
     assert (FA.LAUNCHES["fused_attention_bwd_rel"]
@@ -155,7 +160,7 @@ def test_backward_matches_plain_autograd(dev, B, H, Lq, Lk, D, kind, Rr, dt, dro
         err = (g.float() - w).abs().max().item() / max(w.abs().max().item(), 1e-6)
         assert err <= tol, (i, err)
 
-    again = FA.attention_bwd(*args, m, b, r, keep, rate, do, need_draw=r is not None)
+    again = FA.attention_bwd(*args, m, b, r, keep, rate, do, need_draw=r is not None, pre=pre)
     flat = [t for t in again[:4] if t is not None] + ([t for t in again[4]] if r is not None else [])
     for x, y in zip([t for t in got if t is not None], flat):
         assert torch.equal(x, y)                 # no atomics: the same bits every run
@@ -301,10 +306,10 @@ def test_backward_without_relation_gradients_skips_the_relation_pass(dev, dt):
     bits of the full backward."""
     (args, m, _, r) = on(dev, dt, *make(2, 4, 100, 100, 64, "mask+rel", 4, R=64, seed=6))
     do = torch.randn(2, 4, 100, 64, generator=torch.Generator().manual_seed(7)).to(dev, dt)
-    _, keep = FA.attention_fwd(*args, m, None, r, dropout_r=RATE, seed=11)
-    full = FA.attention_bwd(*args, m, None, r, keep, RATE, do)
+    _, keep, pre = FA.attention_fwd(*args, m, None, r, dropout_r=RATE, seed=11, want_pre=True)
+    full = FA.attention_bwd(*args, m, None, r, keep, RATE, do, pre=pre)
     before = dict(FA.LAUNCHES)
-    lean = FA.attention_bwd(*args, m, None, r, keep, RATE, do, need_rel=False)
+    lean = FA.attention_bwd(*args, m, None, r, keep, RATE, do, need_rel=False, pre=pre)
     torch.cuda.synchronize()
     assert lean[4] is None and full[4] is not None
     assert {n: FA.LAUNCHES[n] - before[n] for n in before}["fused_attention_bwd_rel"] == 0
@@ -390,3 +395,138 @@ def test_kpath_weight_step_on_the_card_matches_the_cpu(dev, tmp_path):
         "fused_attention_fwd": 9, "fused_attention_fwd_dropout": 0, "fused_attention_bwd": 9,
         "fused_attention_bwd_rel": 3}
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
+
+
+# The kernels' tiles: a warp owns 16 query rows, keys are padded to a
+# multiple of 16 (a padded key has probability exactly 0), and with the
+# relation chain a block runs every head of one 16-row tile. Lengths at and
+# around those edges, at tolerances as above.
+EDGE_LQ = (1, 15, 16, 17, 100, 128)
+EDGE_LK = (1, 14, 100, 112, 113, 128, 200)
+
+
+def bwd_fits(Lq, Lk, D, dt):
+    """Whether the backward kernel takes the shape: keys up to 128 and q, k,
+    v, do and the two probability tiles within 227 KB of shared memory
+    (csrc/fused_attention_bwd.cu, `launch_bwd_shape`)."""
+    es = 2 if dt == torch.bfloat16 else 4
+    pad, LqP, LkP = 16 // es, -(-Lq // 16) * 16, -(-Lk // 16) * 16
+    return Lk <= 128 and ((2 * LkP + 2 * LqP) * (D + pad) + 2 * LqP * (LkP + pad)) * es <= 232448
+
+
+def check_backward(args, m, b, r, keep, pre, rate, do, dt):
+    """The backward against autograd through the plain version, or, past
+    the kernel's limits, a refusal that names them."""
+    B, H, Lq, D = args[0].shape
+    if not bwd_fits(Lq, args[1].shape[2], D, dt):
+        with pytest.raises(RuntimeError, match="shared memory"):
+            FA.attention_bwd(*args, m, b, r, keep, rate, do, pre=pre)
+        return
+    got = FA.attention_bwd(*args, m, b, r, keep, rate, do, pre=pre)
+    got = [t for t in got[:4] if t is not None] + (list(got[4][1:]) if r is not None else [])
+    want = plain_grads(args, m, b, r, keep, rate, do)
+    want = want[:-5] + want[-4:] if r is not None else want   # no raw gradient asked for
+    tol = 2e-2 if dt == torch.bfloat16 else (1e-3 if r is not None else 1e-4)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape, i
+        err = (g.float() - w).abs().max().item() / max(w.abs().max().item(), 1e-6)
+        assert err <= tol, (i, err)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Lq", EDGE_LQ)
+def test_tile_edges_match_plain_version(dev, Lq, dt):
+    """For every key length of EDGE_LK: the forward (twice, the same bits),
+    the dropout forward (its mask equal to the Philox bits of
+    `keep_mask_reference` bit for bit, most lengths not a multiple of 4) and
+    the backward on that mask, against the plain version."""
+    tol = 5e-2 if dt == torch.bfloat16 else 1e-4
+    for Lk in EDGE_LK:
+        args, m, b, r = on(dev, dt, *make(2, 3, Lq, Lk, 64, "mask", seed=Lq + Lk))
+        got = FA.fused_attention(*args, m)
+        assert torch.equal(got, FA.fused_attention(*args, m))
+        want = FA.fused_attention_reference(*[t.float() for t in args], m)
+        torch.testing.assert_close(got.float(), want, rtol=0, atol=tol, msg=f"Lk {Lk}")
+        seed = 1000 + Lk
+        out, keep, _ = FA.attention_fwd(*args, m, dropout_r=RATE, seed=seed)
+        assert torch.equal(keep.cpu().bool(), FA.keep_mask_reference(seed, 2, 3, Lq, Lk, RATE))
+        want = FA.fused_attention_reference(*[t.float() for t in args], m, keep=keep,
+                                            dropout_r=RATE)
+        torch.testing.assert_close(out.float(), want, rtol=0, atol=tol, msg=f"Lk {Lk}")
+        do = torch.randn(2, 3, Lq, 64, generator=torch.Generator().manual_seed(Lk)).to(dev, dt)
+        check_backward(args, m, None, None, keep, None, RATE, do, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_fully_padded_row_is_uniform_over_its_keys(dev, dt):
+    """A batch row whose every key is padded: each key gets -1e9 added, so
+    the row's attention is uniform over its Lk keys (the padding up to a
+    multiple of 16 gets none), as in the plain version; with the relation
+    chain too. Its gradients are those of that additive row: the kernels add
+    -1e9 where the plain version replaces a masked score (ROADMAP queue 3,
+    difference (c)), so the backward is held to autograd through the plain
+    version with the pad row added to an additive bias. (With the relation
+    chain a padded row's dpre = ds / pre is not damped by a small
+    probability where pre nears the 1e-6 clamp, so its relation gradients
+    carry fp32 rounding of pre amplified up to 1e6 times: no tolerance
+    holds them.)"""
+    args, m, b, r = on(dev, dt, *make(2, 4, 100, 100, 64, "mask+bias+rel", R=64, seed=8))
+    m = m.clone()
+    m[1] = True
+    mean_v = args[2][1].float().mean(dim=1, keepdim=True).expand(4, 100, 64)
+    tol = 5e-2 if dt == torch.bfloat16 else 1e-4
+    for bias, rel, tol_all in ((None, r, 5e-2 if dt == torch.bfloat16 else 1e-3),
+                               (b, None, tol)):
+        out = FA.attention_fwd(*args, m, bias, rel)[0]
+        torch.testing.assert_close(out[1].float(), mean_v, rtol=0, atol=tol)
+        want = FA.fused_attention_reference(*[t.float() for t in args], m, f32(bias),
+                                            rel=None if rel is None else tuple(map(f32, rel)))
+        torch.testing.assert_close(out.float(), want, rtol=0, atol=tol_all)
+    do = torch.randn(2, 4, 100, 64, generator=torch.Generator().manual_seed(9)).to(dev, dt)
+    dq, dk, dv, dbias, _ = FA.attention_bwd(*args, m, b, None, None, 0.0, do)
+    leaves = [t.float().requires_grad_() for t in args]
+    bl = b.float().requires_grad_()
+    plain = FA.fused_attention_reference(*leaves, None, bl + torch.where(m, -1e9, 0.0))
+    want = torch.autograd.grad(plain, leaves + [bl], do.float())
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    for i, (g, w) in enumerate(zip([dq, dk, dv, dbias], want)):
+        err = (g.float() - w).abs().max().item() / max(w.abs().max().item(), 1e-6)
+        assert err <= tol, (i, err)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 128])
+def test_head_widths(dev, D, dt):
+    """D 32 and 128 at (100, 100) with the pad mask and the relation chain:
+    the forward, and the backward where its tiles fit (else its refusal)."""
+    args, m, _, r = on(dev, dt, *make(2, 4, 100, 100, D, "mask+rel", R=64, seed=D))
+    out, keep, pre = FA.attention_fwd(*args, m, None, r, dropout_r=RATE, seed=D, want_pre=True)
+    want = FA.fused_attention_reference(*[t.float() for t in args], m, rel=tuple(map(f32, r)),
+                                        keep=keep, dropout_r=RATE)
+    torch.testing.assert_close(out.float(), want, rtol=0,
+                               atol=5e-2 if dt == torch.bfloat16 else 1e-3)
+    do = torch.randn(2, 4, 100, D, generator=torch.Generator().manual_seed(D)).to(dev, dt)
+    check_backward(args, m, None, r, keep, pre, RATE, do, dt)
+
+
+def test_search_k8_rows_with_the_relation_chain(dev):
+    """B 32, H 4 in bf16 with the relation chain (the search's KPATH 8 leg
+    per path): the pre residual equals the plain chain (both fp32, 1e-5),
+    writing it leaves o's bits unchanged, and forward and backward match the
+    plain version."""
+    args, m, _, r = on(dev, torch.bfloat16, *make(32, 4, 100, 100, 64, "mask+rel", R=64,
+                                                  seed=10))
+    out, keep, pre = FA.attention_fwd(*args, m, None, r, dropout_r=RATE, seed=5, want_pre=True)
+    plain_out, _, none = FA.attention_fwd(*args, m, None, r, dropout_r=RATE, seed=5)
+    assert none is None and torch.equal(out, plain_out)
+    raw, w1, b1, wr, br = (t.float() for t in r)
+    want_pre = (torch.matmul(torch.relu(torch.matmul(raw, w1.t()) + b1), wr.t())
+                + br).permute(0, 3, 1, 2)
+    assert pre.dtype == torch.float32 and pre.shape == (32, 4, 100, 100)
+    torch.testing.assert_close(pre, want_pre, rtol=0, atol=1e-5)
+    want = FA.fused_attention_reference(*[t.float() for t in args], m, rel=tuple(map(f32, r)),
+                                        keep=keep, dropout_r=RATE)
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=5e-2)
+    do = torch.randn(32, 4, 100, 64, generator=torch.Generator().manual_seed(11)).to(
+        dev, torch.bfloat16)
+    check_backward(args, m, None, r, keep, pre, RATE, do, torch.bfloat16)
