@@ -8,12 +8,14 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    mmnas_tpu_torch/csrc (one nvcc per source, all started together),
    prints each attention kernel's registers, spills and HMMA (tensor-core)
    instructions from ptxas and `cuobjdump -sass` (every bf16 attention
-   kernel must have some) and turns TF32 off for matmuls and cuDNN;
+   kernel must have some; the relation pass's instantiations for 4 and 8
+   heads must not spill) and turns TF32 off for matmuls and cuDNN;
 2. drives the probe path, `python -m mmnas_tpu_torch.tools.probes` (the
    five Pallas debug probes of tools/debug/ as CUDA kernels) with exact
    launch counts, holds the bias probes' output against the fp64 numpy
    chain, holds each probe kernel against its plain version (the two bias
-   kernels also against each other, bit for bit) and times them;
+   kernels also against each other, bit for bit) and times them and their
+   library calls, eager and on the device;
 3. holds the forward kernel (no dropout) against its plain PyTorch version
    at the shapes of the searched VQA net (B 64, 8 heads of 64: 14x14,
    100x100, 100x14 with the pad mask, 100x100 with mask + RSA geometry
@@ -25,8 +27,8 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    with the RSA chain the pre residual equals the plain chain),
    the backward and the relation pass (every gradient equals autograd
    through the plain version on that mask), and times forward, backward,
-   forward + backward and, with the RSA chain, the relation pass alone,
-   each beside its bound (the function's least bytes and operations, see
+   forward + backward and, with the RSA chain, the relation pass alone
+   (eager and device), each beside its bound (the function's least bytes and operations, see
    `attention_bytes_ops`);
 5. repeats 3 and 4 at the search's shapes (B 128, 4 heads of 64: 14x14,
    100x14, 100x100 with the pad mask and with the RSA chain), and in bf16
@@ -211,6 +213,24 @@ def sass_report(built):
     return {fn: r for fn, r in rows.items() if "fused_attention" in fn}
 
 
+def relation_kernel_report(sass):
+    """The relation pass's instantiations in the SASS report, each as
+    (raw channels held, heads held, features a thread, row); prints one line
+    each. The paths' shapes (4 and 8 heads) must not spill."""
+    import re
+
+    rel = {}
+    for fn, r in sorted(sass.items()):
+        m = re.search(r"fused_attention_bwd_rel_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E",
+                      fn)
+        if m:
+            rel[fn] = (int(m.group(2)), int(m.group(3)), int(m.group(4)), r)
+            print(f"  relation pass {'fp32' if m.group(1) == 'f' else 'bf16'} Rr<={m.group(2)} "
+                  f"H<={m.group(3)} F {m.group(4)}: {r['registers']} registers, "
+                  f"{r['spill_bytes']} bytes spilled")
+    return rel
+
+
 def cuda_time_ms(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -227,19 +247,22 @@ def device_time_ms(fn, iters=10):
     """Device time of one call: the CUDA kernels that `iters` calls launch,
     summed by torch.profiler, over iters. Unlike cuda_time_ms it leaves
     out the host's time between launches, which bounds calls of a few
-    microseconds of device work."""
+    microseconds of device work. The profiler at times records nothing, or
+    only some of the launches: a reading in which a kernel appears fewer
+    than `iters` times is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):  # the profiler at times records nothing; then once more
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages() if ev.device_type.name == "CUDA"]
         us = sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
-                 for ev in prof.key_averages() if ev.device_type.name == "CUDA")
-        if us:
+                 for ev in events)
+        if us and all(ev.count >= iters for ev in events):
             return us / 1e3 / iters
     return None  # not measured
 
@@ -534,7 +557,8 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                   f"  bound fwd {row['fwd_bound_ms']:.4f} bwd {row['bwd_bound_ms']:.4f} "
                   f"fwd+bwd {row['fwd_bwd_bound_ms']:.4f} ms" + (
                       "" if r_ is None else
-                      f"  relation pass {row['rel_ms']:.4f} ms, plain {row['rel_plain_ms']:.4f} ms,"
+                      f"  relation pass {row['rel_ms']:.4f} ms (device {fmt(row['rel_device_ms'])}),"
+                      f" plain {row['rel_plain_ms']:.4f} ms,"
                       f" bound {row['rel_bound_ms']:.4f} ms (live share {live:.3f}); bwd without "
                       f"dpre {row['bwd_no_rel_ms']:.4f} ms, dq dk dv equal"),
                   flush=True)
@@ -547,8 +571,8 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
 
 
 def relation_pass(FA, args, m, rel, keep, do, live):
-    """Times of the relation pass alone (its gradients are checked with the
-    backward's), on the dpre of the plain version for this case's cotangent
+    """Times of the relation pass alone, eager and device (its gradients
+    are checked with the backward's), on the dpre of the plain version for this case's cotangent
     do, and its bound: raw and dpre read once, raw W1^T for every feature,
     the rest (du, dWr, dW1, db1) for the live ones, all in fp32."""
     raw, w1, b1, wr, br = (t.float() for t in rel)
@@ -564,6 +588,7 @@ def relation_pass(FA, args, m, rel, keep, do, live):
     ops = n * 2 * R * RR + n * R * live * (4 * H + 2 * RR + 1)
     bound_ms, bound_by = bound(nbytes, {torch.float32: ops})
     return {"rel_ms": cuda_time_ms(lambda: FA.relation_bwd(*rel, dpre)),
+            "rel_device_ms": device_time_ms(lambda: FA.relation_bwd(*rel, dpre)),
             "rel_plain_ms": cuda_time_ms(lambda: FA.relation_bwd_reference(*rel, dpre)),
             "rel_bound_ms": bound_ms, "rel_bound_by": bound_by, "live_share": live}
 
@@ -831,13 +856,20 @@ def probe_path(PR, dev):
 
     rows = {}
 
-    def record(name, err, ms, plain_ms, nbytes, ops, library_ms=None, **extra):
+    def record(name, err, kernel, plain, nbytes, ops, library=None, **extra):
+        """kernel, plain, library: calls, each timed eager; kernel and
+        library also on the device."""
         bound_ms, bound_by = bound(nbytes, ops)
+        ms, plain_ms, dev_ms = cuda_time_ms(kernel), cuda_time_ms(plain), device_time_ms(kernel)
+        library_ms = None if library is None else cuda_time_ms(library)
+        library_dev_ms = None if library is None else device_time_ms(library)
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms, **extra}
-        print(f"probe   {name:16s} max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms  library {library_ms if library_ms is None else round(library_ms, 4)}"
-              f" ms  bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+                      "bound_by": bound_by, "library_ms": library_ms, "device_ms": dev_ms,
+                      "library_device_ms": library_dev_ms, **extra}
+        print(f"probe   {name:16s} max_abs_err {err:.3e}  kernel {ms:.4f} ms (device "
+              f"{fmt(dev_ms)})  plain {plain_ms:.4f} ms  library "
+              f"{'none' if library is None else f'{library_ms:.4f} ms (device {fmt(library_dev_ms)})'}"
+              f"  bound {bound_ms:.5f} ms ({bound_by})", flush=True)
 
     # rows 5-6: the RSA log-bias, features once for all heads / per head
     args = [torch.from_numpy(a).to(dev) for a in (raw, w1, b1, wr, br)]
@@ -857,8 +889,8 @@ def probe_path(PR, dev):
         exp_err, log_err = bias_errs(got, plain)
         if not max(exp_err, log_err) <= PROBE_BIAS_TOL:
             raise AssertionError(f"{name} against its plain version: {exp_err}, {log_err}")
-        record(name, exp_err, cuda_time_ms(lambda: PR.probe_bias(*args, fresh=fresh_)),
-               cuda_time_ms(lambda: PR.bias_reference(*args)), nbytes, ops,
+        record(name, exp_err, lambda: PR.probe_bias(*args, fresh=fresh_),
+               lambda: PR.bias_reference(*args), nbytes, ops,
                log_err_where_pre_over_0_1=log_err, vs_fp64=vs_fp64["bias2" if fresh_ else "bias"],
                live_share=live, shape=f"B{Bn} H{Hn} L{L} Rr{Rr} R{Rn} fp32")
 
@@ -874,8 +906,8 @@ def probe_path(PR, dev):
                           "plain_ms": cuda_time_ms(lambda: PR.slice_reference(plane))}
     plane = PR.slice_inputs()[torch.float32].to(dev)
     n = plane.numel()
-    record("probe_slice", 0.0, cases["torch.float32"]["ms"], cases["torch.float32"]["plain_ms"],
-           n * 8, {torch.float32: n}, cuda_time_ms(lambda: torch.mul(plane, 2)),
+    record("probe_slice", 0.0, lambda: PR.probe_slice(plane), lambda: PR.slice_reference(plane),
+           n * 8, {torch.float32: n}, lambda: torch.mul(plane, 2),
            cases=cases, shape="[1,100,100] f32 -> f32")
 
     # row 8: plane (x) w + b1 in fp32
@@ -890,9 +922,9 @@ def probe_path(PR, dev):
                           "plain_ms": cuda_time_ms(lambda: PR.outer_reference(*ops_))}
     pl, w, b1_ = (t.to(dev) for t in PR.outer_inputs()[torch.float32])
     n, Rn = pl.numel(), w.numel()
-    record("probe_outer", 0.0, cases["torch.float32"]["ms"], cases["torch.float32"]["plain_ms"],
-           (n + 2 * Rn + n * Rn) * 4, {torch.float32: 2 * n * Rn},
-           cuda_time_ms(lambda: torch.addcmul(b1_, pl[..., None], w)),
+    record("probe_outer", 0.0, lambda: PR.probe_outer(pl, w, b1_),
+           lambda: PR.outer_reference(pl, w, b1_), (n + 2 * Rn + n * Rn) * 4,
+           {torch.float32: 2 * n * Rn}, lambda: torch.addcmul(b1_, pl[..., None], w),
            cases=cases, shape="[100,100] (x) [64] f32 -> f32")
 
     # row 9: Wr through a per-head slice (A) and a dynamic index (B)
@@ -903,11 +935,9 @@ def probe_path(PR, dev):
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"probe_wrblock_{variant} differs from its plain version")
-        record(f"probe_wrblock_{variant}", 0.0,
-               cuda_time_ms(lambda: PR.probe_wrblock(wr_, variant)),
-               cuda_time_ms(lambda: PR.wrblock_reference(wr_)), wr_.numel() * 4 * 3, {},
-               cuda_time_ms(lambda: wr_.repeat(2, 1, 1, 1)),
-               shape="Wr [8,64,1] -> [2,8,64,1] f32")
+        record(f"probe_wrblock_{variant}", 0.0, lambda: PR.probe_wrblock(wr_, variant),
+               lambda: PR.wrblock_reference(wr_), wr_.numel() * 4 * 3, {},
+               lambda: wr_.repeat(2, 1, 1, 1), shape="Wr [8,64,1] -> [2,8,64,1] f32")
     for name, row in rows.items():
         row["launches"] = launches[name]
     return {"launches": launches, "vs_fp64": vs_fp64, "rows": rows}
@@ -1263,10 +1293,15 @@ def main() -> int:
         print(f"  {fn}: {r['registers']} registers, {r['spill_bytes']} bytes spilled, "
               f"{r['hmma']} HMMA")
     no_mma = [fn for fn, r in sass.items()
-              if "bfloat16" in fn and "rel_kernel" not in fn and r["hmma"] == 0]
+              if "bfloat16" in fn and "bwd_rel" not in fn and r["hmma"] == 0]
     if not sass or no_mma:
         raise AssertionError(f"bf16 attention kernels without tensor-core instructions: "
                              f"{no_mma or 'no kernel found in the SASS'}")
+    rel_sass = relation_kernel_report(sass)
+    spilled = [fn for fn, (_, heads, _, r) in rel_sass.items() if heads <= 8 and r["spill_bytes"]]
+    if len(rel_sass) != 12 or spilled:
+        raise AssertionError(f"relation pass: {len(rel_sass)} of 12 instantiations found; spills at "
+                             f"4 or 8 heads in {spilled}")
 
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
@@ -1317,7 +1352,7 @@ def main() -> int:
                 "bound_by": "bwd_bound_by", "library_ms": "sdpa_bwd_ms",
                 "device_ms": "bwd_device_ms", "library_device_ms": "sdpa_bwd_device_ms"}
     rel_keys = {"ms": "rel_ms", "plain_ms": "rel_plain_ms", "bound_ms": "rel_bound_ms",
-                "bound_by": "rel_bound_by"}
+                "bound_by": "rel_bound_by", "device_ms": "rel_device_ms"}
     rows = [
         {"name": "fused_attention_fwd", "max_abs_err": max(
             c["max_abs_err"] for c in fwd_cases if c["dtype"] == "float32"),
@@ -1342,6 +1377,7 @@ def main() -> int:
         {"name": "fused_attention_bwd_rel", "max_abs_err": rel["rel_abs_err"],
          "ms": rel["rel_ms"], "plain_ms": rel["rel_plain_ms"], "bound_ms": rel["rel_bound_ms"],
          "bound_by": rel["rel_bound_by"], "library_ms": None,
+         "device_ms": rel["rel_device_ms"], "library_device_ms": None,
          "shape": "B64 H8 (100,100) Rr4 R64 fp32",
          "search_shape": at_search_shape(search_train, "mask+rel", rel_keys)},
     ]

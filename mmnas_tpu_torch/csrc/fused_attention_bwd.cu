@@ -35,22 +35,37 @@
 //    sum and rowsum(da * a) run in the order of PyTorch's softmax kernels
 //    (lane_order_sums), so ds rounds as the plain version's does.
 //
-// 2. fused_attention_bwd_rel_kernel, the relation pass, one block per
-//    (batch b, chunk of `rows` query rows, chosen by the wrapper). It
-//    recomputes the relation features t = relu(raw W1^T + b1) once for all
-//    heads and reduces
+// 2. fused_attention_bwd_rel_kernel, the relation pass. For the cotangent
+//    dpre of pre = relu(raw W1^T + b1) Wr^T + br it computes, per element
+//    e = (b, i, j),
 //
-//      du[i,j,r]   = sum_h dpre[h,i,j] * Wr[h,r] * [t[i,j,r] > 0]
-//      dW1[r,c]   += sum_ij du[i,j,r] * raw[i,j,c]     db1[r] += sum_ij du[i,j,r]
-//      dWr[h,r]   += sum_ij t[i,j,r] * dpre[h,i,j]     dbr[h] += sum_ij dpre[h,i,j]
-//      draw[i,j,c] = sum_r du[i,j,r] * W1[r,c]          (only when asked for)
+//      t[e,r]   = relu(raw[e,:] . W1[r,:] + b1[r])
+//      du[e,r]  = [t[e,r] > 0] * sum_h dpre[h,e] Wr[h,r]
+//      dW1[r,c] = sum_e du[e,r] raw[e,c]      db1[r] = sum_e du[e,r]
+//      dWr[h,r] = sum_e t[e,r] dpre[h,e]      dbr[h] = sum_e dpre[h,e]
 //
-//    into per-(b, chunk) partials that the caller sums with torch.sum. The
-//    TPU kernel carried du across the head programs of a batch row in VMEM
-//    (du_scr, :341-343, :426-432); blocks on this card run in no order, so
-//    the head sum moved into this second pass, which gets dpre from device
-//    memory ([B, H, Lq, Lk] fp32, written by kernel 1) and needs neither
-//    atomics nor an order between blocks. The sums are deterministic.
+//    A block owns 64 features (a third grid axis walks R in 64s) and one
+//    run of the Lq * Lk elements of a batch row: the wrapper picks the
+//    runs per row so that the grid fills the card once
+//    (mmnas_fused_attention_bwd_rel_chunks), so a run is thousands of
+//    elements and no length is refused. A thread owns F features (F 4, or
+//    2 at 16 heads) with their W1 rows, b1 and Wr columns in registers, and
+//    per element loads raw[e, :Rr] and dpre[:H, e] from shared memory once
+//    for all F: Rr + H + 1 shared loads for F (2 Rr + 2 H + 2) FMAs and
+//    selects. The live mask [t > 0] is a select, not a branch. Its
+//    accumulators (dW1, dWr in fp32; db1, dbr in fp32 over a 256-element
+//    tile, then in fp64, as these sums cancel) stay in registers for the
+//    whole run; raw and dpre tiles arrive by 16-byte cp.async into two
+//    buffers, the next tile in flight while the block computes this one.
+//    The block then reduces once (shuffles, shared memory, warps in order)
+//    to one partial row, and fused_attention_bwd_rel_reduce_kernel sums the
+//    rows in a fixed order into dW1, db1, dWr, dbr in the operand type: no
+//    atomics, the same bits every run. draw (asked for by no VQA path: raw
+//    is data) is fused_attention_bwd_rel_draw_kernel, a thread per element.
+//    The TPU kernel carried du across the head programs of a batch row in
+//    VMEM (du_scr, :341-343, :426-432); blocks on this card run in no order,
+//    so the head sum is this second pass, which gets dpre from device memory
+//    ([B, H, Lq, Lk] fp32, written by kernel 1).
 //
 // The relation chain is fp32 under bf16 operands. Kernel 1 does not rebuild
 // it: the forward kernel computed pre once per (b, i, j) for all heads and
@@ -62,13 +77,23 @@
 // 3.3 GFLOP (3.3 us on the tensor cores), so bf16 is bound by bytes and by
 // latency: one block per (b, h) and one block per SM (its shared memory),
 // 7 busy warps of 8 at Lq = Lk = 100, and the serial phases A and B. fp32
-// is bound by its FMAs (49 us at 67 TFLOP/s) and the same occupancy. Kernel 2 moves dpre (20 MB at B 64, 8 heads, 100 x 100)
-// through device memory and does about (2 Rr + 2 H + 1) FMAs per (i, j, r).
+// is bound by its FMAs (49 us at 67 TFLOP/s) and the same occupancy. Kernel 2
+// must read raw and dpre once (at B 64, H 8, (100, 100): 20.5 MB of dpre
+// and 10 MB of raw in fp32, 9.2 us) and do R Rr FMAs per element plus
+// (2 H + Rr) R FMAs and R adds on the live features (about half): 1.2 GFLOP at 67
+// TFLOP/s, 17 us, so it is bound by operations; branch-free it does the
+// dead features' work too (2.0 GFLOP, 31 us), which costs less than a
+// divergent branch per lane. Its threads hold 157 to 255 registers (214 at
+// Rr 4, H 8 in fp32; none spilled), one block of 8 warps an SM, so its
+// FMAs rely on the ILP of F independent features and, at 8 or more heads,
+// two elements at a time.
 //
 // Shared memory is dynamic: at Lq = Lk = 100, D 64 about 118 KB in bf16
 // (q, k, v, do, and the two probability tiles) and 225 KB in fp32, opted in
 // per launch. Limits (cudaErrorInvalidValue past them): D a multiple of 16
 // up to 128, Lk up to 128, shared memory within 227 KB.
+
+#include <algorithm>
 
 #include "attention_common.cuh"
 
@@ -214,142 +239,325 @@ __global__ void __launch_bounds__(kThreads) fused_attention_bwd_kernel(const Bwd
 // kernel 2: the relation pass
 // ---------------------------------------------------------------------------
 
+constexpr int kRelFeatures = 64;  // features a block owns
+constexpr int kRelTile = 256;     // elements per staged tile
+constexpr int kRelMinRun = 1024;  // fewest elements of a batch row a block takes, when it can
+
 template <typename T>
 struct RelArgs {
-  const T* raw;        // [B, Lq, Lk, Rr]
-  const T* w1;         // [R, Rr]
-  const T* b1;         // [R]
-  const T* wr;         // [H, R]
-  const float* dpre;   // [B, H, Lq, Lk]
-  float* dw1;          // [B, chunks, R, Rr] partials
-  float* db1;          // [B, chunks, R]
-  float* dwr;          // [B, chunks, H, R]
-  float* dbr;          // [B, chunks, H]
-  float* draw;         // [B, Lq, Lk, Rr] or null
-  int H, Lq, Lk, Rr, R;
-  int rows;            // query rows per block
+  const T* raw;       // [B, Lq, Lk, Rr]
+  const T* w1;        // [R, Rr]
+  const T* b1;        // [R]
+  const T* wr;        // [H, R]
+  const float* dpre;  // [B, H, Lq, Lk]
+  float* pw;          // [B * chunks][R * Rr + H * R] partials: dW1, then dWr
+  double* pd;         // [B * chunks][R + H] partials: db1, then dbr
+  int H, N, Rr, R;    // N = Lq * Lk elements per batch row
+  int chunks, run;    // runs per batch row, elements per run (a multiple of 16)
+  int vec;            // dpre's head rows start on 16-byte boundaries
 };
 
-size_t rel_smem_floats(int rows, int Lk, int H, int Rr, int R) {
-  const size_t E = (size_t)rows * Lk;
-  return E * (Rr + H) + (size_t)R * Rr + R + (size_t)H * R;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 
+// A stage buffer: the raw window (rel_raw_bytes), then dpre [H][kRelTile] fp32.
+__host__ __device__ __forceinline__ int rel_raw_bytes(int Rr, int elem) {
+  return (kRelTile * Rr * elem + 32 + 15) / 16 * 16;
+}
+__host__ __device__ __forceinline__ int rel_stage_bytes(int Rr, int H, int elem) {
+  return rel_raw_bytes(Rr, elem) + H * kRelTile * 4;
+}
+
+// The first byte of raw element e0 of batch row b, as the window stages it.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) fused_attention_bwd_rel_kernel(const RelArgs<T> a) {
+__device__ __forceinline__ const char* rel_raw_at(const RelArgs<T>& a, int b, int e0) {
+  return reinterpret_cast<const char*>(a.raw + ((long)b * a.N + e0) * a.Rr);
+}
+
+// Start the copies of elements [e0, e0 + n) of batch row b into `buf`, by
+// the block's threads. raw: the 16-byte-aligned window around its n Rr
+// channels, so any Rr and any alignment copy by 16 bytes; the element
+// lands at byte (address % 16) of the buffer. The window's ends read at
+// most 15 bytes before or past the tensor, inside a 16-byte-aligned chunk
+// that holds one of its bytes (so never on another page), and nothing
+// uses them.
+// dpre: each head's n values, by 16 bytes when its rows are aligned
+// (N % 4 == 0, e0 % 16 == 0), else by 4.
+template <typename T>
+__device__ __forceinline__ void rel_stage(const RelArgs<T>& a, int b, int e0, int n, char* buf) {
+  const uintptr_t src = reinterpret_cast<uintptr_t>(rel_raw_at(a, b, e0));
+  const uintptr_t lo = src & ~(uintptr_t)15;
+  const uintptr_t hi = (src + (uintptr_t)n * a.Rr * sizeof(T) + 15) & ~(uintptr_t)15;
+  const int chunks = (int)((hi - lo) / 16);
+  for (int c = threadIdx.x; c < chunks; c += kThreads)
+    cp_async16(buf + 16 * c, reinterpret_cast<const void*>(lo + 16 * c));
+  float* dps = reinterpret_cast<float*>(buf + rel_raw_bytes(a.Rr, sizeof(T)));
+  const float* d0 = a.dpre + (long)b * a.H * a.N + e0;
+  if (a.vec) {
+    constexpr int per = kRelTile / 4;
+    const int m = (n + 3) / 4;
+    for (int c = threadIdx.x; c < a.H * per; c += kThreads) {
+      const int h = c / per, k = c % per;  // per is a power of two
+      if (k < m) cp_async16(dps + h * kRelTile + 4 * k, d0 + (long)h * a.N + 4 * k);
+    }
+  } else {
+    for (int c = threadIdx.x; c < a.H * kRelTile; c += kThreads) {
+      const int h = c / kRelTile, k = c % kRelTile;
+      if (k < n) cp_async4(dps + h * kRelTile + k, d0 + (long)h * a.N + k);
+    }
+  }
+}
+
+template <int RM, int HM, int F>
+struct RelShape {
+  static constexpr int G = kRelFeatures / F;  // feature groups, one per lane of a group
+  static constexpr int S = 32 / G;            // element slots of a warp
+  static constexpr int EL = kWarps * S;       // elements the block takes at a time
+  static constexpr int NF = F * (RM + HM);    // fp32 accumulators a thread holds
+  static constexpr int ND = F + 1;            // fp64 accumulators a thread holds
+  // the block's reduction in shared memory: [kWarps][G][ND] fp64, [kWarps][G][NF] fp32
+  static constexpr int reduce_bytes = kWarps * G * (ND * 8 + NF * 4);
+};
+
+template <typename T, int RM, int HM, int F>
+__global__ void __launch_bounds__(kThreads)
+    fused_attention_bwd_rel_kernel(const RelArgs<T> a) {
+  using S = RelShape<RM, HM, F>;
+  // elements a thread takes at a time: two at 8 or more heads, for
+  // independent FMA chains; one at 4, whose chains are short (measured)
+  constexpr int kRelElems = HM >= 8 ? 2 : 1;
   extern __shared__ __align__(16) float smem[];
-  const int chunk = blockIdx.x, b = blockIdx.y, chunks = gridDim.x;
-  const int H = a.H, Lq = a.Lq, Lk = a.Lk, Rr = a.Rr, R = a.R;
-  const int row0 = chunk * a.rows;
-  const int E = min(a.rows, Lq - row0) * Lk;  // (i, j) elements of this block
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int chunk = blockIdx.x, b = blockIdx.y, fblk = blockIdx.z;
+  const int H = a.H, Rr = a.Rr, R = a.R;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int fg = lane % S::G, slot = warp * S::S + lane / S::G;
+  const int e_begin = chunk * a.run, n_run = max(0, min(a.N - e_begin, a.run));
+  const int r0 = kRelFeatures * fblk + F * fg;  // the thread's features r0 .. r0 + F - 1
 
-  const int ldE = a.rows * Lk;
-  float* raws = smem;               // [Rr][ldE]
-  float* dps = raws + Rr * ldE;     // [H][ldE]
-  float* w1s = dps + H * ldE;       // [R][Rr]
-  float* b1s = w1s + R * Rr;        // [R]
-  float* wrs = b1s + R;             // [H][R]
-
-  const long e0 = (long)b * Lq * Lk + (long)row0 * Lk;  // first element, [B, Lq, Lk] order
-  for (int i = tid; i < E * Rr; i += kThreads) {
-    const int e = i / Rr, c = i - e * Rr;
-    raws[c * ldE + e] = load_f32(a.raw, e0 * Rr + i);
+  // the F features' weights; features past R get zeros, so t = 0 and du = 0
+  float w1r[F][RM], wrr[F][HM], b1r[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const bool ok = r0 + f < R;
+#pragma unroll
+    for (int c = 0; c < RM; ++c)
+      w1r[f][c] = ok && c < Rr ? load_f32(a.w1, (long)(r0 + f) * Rr + c) : 0.f;
+#pragma unroll
+    for (int h = 0; h < HM; ++h) wrr[f][h] = ok && h < H ? load_f32(a.wr, (long)h * R + r0 + f) : 0.f;
+    b1r[f] = ok ? load_f32(a.b1, r0 + f) : 0.f;
   }
-  for (int i = tid; i < H * E; i += kThreads) {
-    const int hh = i / E, e = i - hh * E;
-    dps[hh * ldE + e] = a.dpre[((long)b * H + hh) * Lq * Lk + (long)row0 * Lk + e];
+  float dw1[F][RM], dwr[F][HM], db1_tile[F], dbr_tile = 0.f;
+  double db1[F], dbr = 0.0;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+#pragma unroll
+    for (int c = 0; c < RM; ++c) dw1[f][c] = 0.f;
+#pragma unroll
+    for (int h = 0; h < HM; ++h) dwr[f][h] = 0.f;
+    db1_tile[f] = 0.f;
+    db1[f] = 0.0;
   }
-  for (int i = tid; i < R * Rr; i += kThreads) w1s[i] = load_f32(a.w1, i);
-  for (int i = tid; i < R; i += kThreads) b1s[i] = load_f32(a.b1, i);
-  for (int i = tid; i < H * R; i += kThreads) wrs[i] = load_f32(a.wr, i);
-  __syncthreads();
+  const int hb = min(fg, H - 1);  // the head whose dbr this lane sums (kept when fg < H)
 
-  const long part = (long)b * chunks + chunk;
-  // one feature r per warp at a time; lanes walk the elements
-  for (int r = warp; r < R; r += kThreads / 32) {
-    float w1r[kMaxRr], wrr[kMaxH];
+  char* bufs = reinterpret_cast<char*>(smem);
+  const int stage = rel_stage_bytes(Rr, H, sizeof(T));
+  const int raw_bytes = rel_raw_bytes(Rr, sizeof(T));
+  const int tiles = (n_run + kRelTile - 1) / kRelTile;
+  if (tiles > 0) rel_stage(a, b, e_begin, min(kRelTile, n_run), bufs);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int e0 = e_begin + t * kRelTile, n = min(kRelTile, e_begin + n_run - e0);
+    if (t + 1 < tiles)  // the next tile's copies run while this one computes
+      rel_stage(a, b, e0 + kRelTile, min(kRelTile, e_begin + n_run - e0 - kRelTile),
+                bufs + ((t + 1) & 1) * stage);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const char* buf = bufs + (t & 1) * stage;
+    const T* rw = reinterpret_cast<const T*>(
+        buf + (reinterpret_cast<uintptr_t>(rel_raw_at(a, b, e0)) & 15));
+    const float* dps = reinterpret_cast<const float*>(buf + raw_bytes);
+    // kRelElems elements an iteration; one past the tile's end enters as
+    // zeros, which add nothing
+    for (int e = slot; e < n; e += kRelElems * S::EL) {
+      float x[kRelElems][RM], dp[kRelElems][HM];
 #pragma unroll
-    for (int c = 0; c < kMaxRr; ++c) w1r[c] = c < Rr ? w1s[r * Rr + c] : 0.f;
+      for (int k = 0; k < kRelElems; ++k) {
+        const int ek = e + k * S::EL;
+        const bool in = k == 0 || ek < n;
 #pragma unroll
-    for (int hh = 0; hh < kMaxH; ++hh) wrr[hh] = hh < H ? wrs[hh * R + r] : 0.f;
-    const float b1r = b1s[r];
-    float acc_db1 = 0.f, acc_dw1[kMaxRr], acc_dwr[kMaxH];
+        for (int c = 0; c < RM; ++c) x[k][c] = in && c < Rr ? load_f32(rw, ek * Rr + c) : 0.f;
 #pragma unroll
-    for (int c = 0; c < kMaxRr; ++c) acc_dw1[c] = 0.f;
-#pragma unroll
-    for (int hh = 0; hh < kMaxH; ++hh) acc_dwr[hh] = 0.f;
-    for (int e = lane; e < E; e += 32) {
-      float u = b1r;
-#pragma unroll
-      for (int c = 0; c < kMaxRr; ++c)
-        if (c < Rr) u = fmaf(raws[c * ldE + e], w1r[c], u);
-      if (u > 0.f) {  // t = relu(u) > 0
-        float du = 0.f;
-#pragma unroll
-        for (int hh = 0; hh < kMaxH; ++hh)
-          if (hh < H) {
-            const float dp = dps[hh * ldE + e];
-            du = fmaf(dp, wrr[hh], du);
-            acc_dwr[hh] = fmaf(u, dp, acc_dwr[hh]);
-          }
-        acc_db1 += du;
-#pragma unroll
-        for (int c = 0; c < kMaxRr; ++c)
-          if (c < Rr) acc_dw1[c] = fmaf(du, raws[c * ldE + e], acc_dw1[c]);
+        for (int h = 0; h < HM; ++h) dp[k][h] = in && h < H ? dps[h * kRelTile + ek] : 0.f;
+        dbr_tile += in ? dps[hb * kRelTile + ek] : 0.f;
       }
-    }
-    acc_db1 = warp_sum(acc_db1);
 #pragma unroll
-    for (int c = 0; c < kMaxRr; ++c)
-      if (c < Rr) acc_dw1[c] = warp_sum(acc_dw1[c]);
+      for (int f = 0; f < F; ++f) {
 #pragma unroll
-    for (int hh = 0; hh < kMaxH; ++hh)
-      if (hh < H) acc_dwr[hh] = warp_sum(acc_dwr[hh]);
-    if (lane == 0) {
-      a.db1[part * R + r] = acc_db1;
+        for (int k = 0; k < kRelElems; ++k) {
+          float u = b1r[f];
 #pragma unroll
-      for (int c = 0; c < kMaxRr; ++c)
-        if (c < Rr) a.dw1[(part * R + r) * Rr + c] = acc_dw1[c];
-#pragma unroll
-      for (int hh = 0; hh < kMaxH; ++hh)
-        if (hh < H) a.dwr[(part * H + hh) * R + r] = acc_dwr[hh];
-    }
-  }
-  // dbr: one head per warp at a time
-  for (int hh = warp; hh < H; hh += kThreads / 32) {
-    float acc = 0.f;
-    for (int e = lane; e < E; e += 32) acc += dps[hh * ldE + e];
-    acc = warp_sum(acc);
-    if (lane == 0) a.dbr[part * H + hh] = acc;
-  }
-  // draw = du W1, one element per thread (du recomputed feature by feature)
-  if (a.draw != nullptr) {
-    for (int e = tid; e < E; e += kThreads) {
-      float x[kMaxRr], acc[kMaxRr];
-#pragma unroll
-      for (int c = 0; c < kMaxRr; ++c) {
-        x[c] = c < Rr ? raws[c * ldE + e] : 0.f;
-        acc[c] = 0.f;
-      }
-      for (int r = 0; r < R; ++r) {
-        float u = b1s[r];
-#pragma unroll
-        for (int c = 0; c < kMaxRr; ++c)
-          if (c < Rr) u = fmaf(x[c], w1s[r * Rr + c], u);
-        if (u > 0.f) {
+          for (int c = 0; c < RM; ++c) u = fmaf(x[k][c], w1r[f][c], u);
+          const float tf = fmaxf(u, 0.f);
           float du = 0.f;
-          for (int hh = 0; hh < H; ++hh) du = fmaf(dps[hh * ldE + e], wrs[hh * R + r], du);
 #pragma unroll
-          for (int c = 0; c < kMaxRr; ++c)
-            if (c < Rr) acc[c] = fmaf(du, w1s[r * Rr + c], acc[c]);
+          for (int h = 0; h < HM; ++h) {
+            du = fmaf(dp[k][h], wrr[f][h], du);
+            dwr[f][h] = fmaf(tf, dp[k][h], dwr[f][h]);
+          }
+          du = u > 0.f ? du : 0.f;  // the live mask, a select
+          db1_tile[f] += du;
+#pragma unroll
+          for (int c = 0; c < RM; ++c) dw1[f][c] = fmaf(du, x[k][c], dw1[f][c]);
         }
       }
+    }
 #pragma unroll
-      for (int c = 0; c < kMaxRr; ++c)
-        if (c < Rr) a.draw[(e0 + e) * Rr + c] = acc[c];
+    for (int f = 0; f < F; ++f) {
+      db1[f] += (double)db1_tile[f];
+      db1_tile[f] = 0.f;
+    }
+    dbr += (double)dbr_tile;
+    dbr_tile = 0.f;
+    __syncthreads();  // every thread is done with this buffer before tile t + 2 lands in it
+  }
+  cp_async_wait<0>();
+
+  // the block's reduction: the warp's slots by shuffles, then the warps in
+  // order through shared memory (the stage buffers are free now)
+#pragma unroll
+  for (int o = S::G; o < 32; o <<= 1) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+#pragma unroll
+      for (int c = 0; c < RM; ++c) dw1[f][c] += __shfl_xor_sync(0xffffffffu, dw1[f][c], o);
+#pragma unroll
+      for (int h = 0; h < HM; ++h) dwr[f][h] += __shfl_xor_sync(0xffffffffu, dwr[f][h], o);
+      db1[f] += __shfl_xor_sync(0xffffffffu, db1[f], o);
+    }
+    dbr += __shfl_xor_sync(0xffffffffu, dbr, o);
+  }
+  double* red_d = reinterpret_cast<double*>(smem);
+  float* red_f = reinterpret_cast<float*>(red_d + kWarps * S::G * S::ND);
+  if (lane < S::G) {
+    double* d = red_d + (warp * S::G + fg) * S::ND;
+    float* p = red_f + (warp * S::G + fg) * S::NF;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      d[f] = db1[f];
+#pragma unroll
+      for (int c = 0; c < RM; ++c) p[f * RM + c] = dw1[f][c];
+#pragma unroll
+      for (int h = 0; h < HM; ++h) p[F * RM + f * HM + h] = dwr[f][h];
+    }
+    d[F] = dbr;
+  }
+  __syncthreads();
+  const long row = (long)b * a.chunks + chunk;
+  float* pw = a.pw + row * (R * Rr + H * R);
+  double* pd = a.pd + row * (R + H);
+  for (int i = threadIdx.x; i < S::G * S::NF; i += kThreads) {
+    const int g = i / S::NF, k = i - g * S::NF;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red_f[(w * S::G + g) * S::NF + k];
+    const int base = kRelFeatures * fblk + F * g;
+    if (k < F * RM) {
+      const int r = base + k / RM, c = k % RM;
+      if (r < R && c < Rr) pw[r * Rr + c] = s;
+    } else {
+      const int r = base + (k - F * RM) / HM, h = (k - F * RM) % HM;
+      if (r < R && h < H) pw[R * Rr + h * R + r] = s;
     }
   }
+  for (int i = threadIdx.x; i < S::G * S::ND; i += kThreads) {
+    const int g = i / S::ND, k = i - g * S::ND;
+    double s = 0.0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red_d[(w * S::G + g) * S::ND + k];
+    const int r = kRelFeatures * fblk + F * g + k;
+    if (k < F) {
+      if (r < R) pd[r] = s;
+    } else if (fblk == 0 && g < H) {
+      pd[R + g] = s;
+    }
+  }
+}
+
+// The partial rows summed in a fixed order, in fp64, into the operand type:
+// a warp per output value, lane l summing rows l, l + 32, ... in order, then
+// the lanes by a butterfly.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fused_attention_bwd_rel_reduce_kernel(const float* pw, const double* pd, int rows, int R,
+                                          int Rr, int H, T* dw1, T* db1, T* dwr, T* dbr) {
+  const int nw = R * Rr + H * R, nd = R + H;
+  const int i = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (i >= nw + nd) return;
+  double s = 0.0;
+  if (i < nw)
+    for (int r = lane; r < rows; r += 32) s += pw[(long)r * nw + i];
+  else
+    for (int r = lane; r < rows; r += 32) s += pd[(long)r * nd + i - nw];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane != 0) return;
+  if (i < R * Rr)
+    store_f32(dw1, i, (float)s);
+  else if (i < nw)
+    store_f32(dwr, i - R * Rr, (float)s);
+  else if (i < nw + R)
+    store_f32(db1, i - nw, (float)s);
+  else
+    store_f32(dbr, i - nw - R, (float)s);
+}
+
+// draw[e, c] = sum_r du[e, r] W1[r, c], a thread per element of batch row
+// blockIdx.y; the weights in shared memory: W1 [R][kMaxRr], Wr^T
+// [R][kMaxH], b1 [R].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fused_attention_bwd_rel_draw_kernel(const RelArgs<T> a, T* draw) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = a.H, Rr = a.Rr, R = a.R, b = blockIdx.y;
+  float* w1s = smem;
+  float* wrt = w1s + R * kMaxRr;
+  float* b1s = wrt + R * kMaxH;
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+#pragma unroll
+    for (int c = 0; c < kMaxRr; ++c) w1s[r * kMaxRr + c] = c < Rr ? load_f32(a.w1, (long)r * Rr + c) : 0.f;
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h) wrt[r * kMaxH + h] = h < H ? load_f32(a.wr, (long)h * R + r) : 0.f;
+    b1s[r] = load_f32(a.b1, r);
+  }
+  __syncthreads();
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= a.N) return;
+  const long at = (long)b * a.N + e;
+  float x[kMaxRr], dp[kMaxH], acc[kMaxRr];
+#pragma unroll
+  for (int c = 0; c < kMaxRr; ++c) {
+    x[c] = c < Rr ? load_f32(a.raw, at * Rr + c) : 0.f;
+    acc[c] = 0.f;
+  }
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) dp[h] = h < H ? a.dpre[((long)b * H + h) * a.N + e] : 0.f;
+  for (int r = 0; r < R; ++r) {
+    float u = b1s[r];
+#pragma unroll
+    for (int c = 0; c < kMaxRr; ++c) u = fmaf(x[c], w1s[r * kMaxRr + c], u);
+    float du = 0.f;
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h) du = fmaf(dp[h], wrt[r * kMaxH + h], du);
+    du = u > 0.f ? du : 0.f;
+#pragma unroll
+    for (int c = 0; c < kMaxRr; ++c) acc[c] = fmaf(du, w1s[r * kMaxRr + c], acc[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < kMaxRr; ++c)
+    if (c < Rr) store_f32(draw, at * Rr + c, acc[c]);
 }
 
 
@@ -401,24 +609,88 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return D <= 64 ? launch_bwd_d<T, 64>(a, B, stream) : launch_bwd_d<T, 128>(a, B, stream);
 }
 
+template <typename T, int RM, int HM, int F>
+size_t rel_smem(int Rr, int H) {
+  return std::max<size_t>(2 * (size_t)rel_stage_bytes(Rr, H, sizeof(T)),
+                          RelShape<RM, HM, F>::reduce_bytes);
+}
+
+// One instantiation per register shape: RM raw channels (4 or 8), HM heads
+// (4, 8 or 16) and F features a thread, fewer at 16 heads so they fit.
+template <typename T, typename Fn>
+cudaError_t rel_dispatch(int Rr, int H, Fn fn) {
+  if (Rr <= 4) {
+    if (H <= 4) return fn(fused_attention_bwd_rel_kernel<T, 4, 4, 4>, rel_smem<T, 4, 4, 4>(Rr, H));
+    if (H <= 8) return fn(fused_attention_bwd_rel_kernel<T, 4, 8, 4>, rel_smem<T, 4, 8, 4>(Rr, H));
+    return fn(fused_attention_bwd_rel_kernel<T, 4, 16, 2>, rel_smem<T, 4, 16, 2>(Rr, H));
+  }
+  if (H <= 4) return fn(fused_attention_bwd_rel_kernel<T, 8, 4, 4>, rel_smem<T, 8, 4, 4>(Rr, H));
+  if (H <= 8) return fn(fused_attention_bwd_rel_kernel<T, 8, 8, 4>, rel_smem<T, 8, 8, 4>(Rr, H));
+  return fn(fused_attention_bwd_rel_kernel<T, 8, 16, 2>, rel_smem<T, 8, 16, 2>(Rr, H));
+}
+
+bool rel_shape_ok(int B, int H, int Lq, int Lk, int Rr, int R) {
+  return B >= 1 && B <= 65535 && H >= 1 && H <= kMaxH && Lq >= 1 && Lk >= 1 && Rr >= 1 &&
+         Rr <= kMaxRr && R >= 1 && (long)Lq * Lk <= (1L << 30) && (R + kRelFeatures - 1) / kRelFeatures <= 65535;
+}
+
+// Runs per batch row: enough blocks to fill every SM once at the kernel's
+// occupancy, but no run under kRelMinRun elements unless the row is.
+template <typename T>
+int rel_chunks(int B, int H, int Lq, int Lk, int Rr, int R) {
+  if (!rel_shape_ok(B, H, Lq, Lk, Rr, R)) return -(int)cudaErrorInvalidValue;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = rel_dispatch<T>(Rr, H, [&](auto kernel, size_t bytes) {
+      cudaError_t e = opt_in(kernel, bytes);
+      if (e != cudaSuccess) return e;
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
+    });
+  if (err != cudaSuccess) return -(int)err;
+  const long N = (long)Lq * Lk;
+  const long P = (R + kRelFeatures - 1) / kRelFeatures;
+  const long fill = std::max<long>(1, (long)sms * std::max(per_sm, 1) / (B * P));
+  return (int)std::max<long>(1, std::min<long>(fill, (N + kRelMinRun - 1) / kRelMinRun));
+}
+
 template <typename T>
 cudaError_t launch_rel(const void* raw, const void* w1, const void* b1, const void* wr,
                        const void* dpre, void* dw1, void* db1, void* dwr, void* dbr,
-                       void* draw, int B, int H, int Lq, int Lk, int Rr, int R, int rows,
-                       cudaStream_t stream) {
-  if (B < 1 || H < 1 || H > kMaxH || Lq < 1 || Lk < 1 || Rr < 1 || Rr > kMaxRr || R < 1 ||
-      rows < 1)
-    return cudaErrorInvalidValue;
-  RelArgs<T> a{static_cast<const T*>(raw), static_cast<const T*>(w1),
-               static_cast<const T*>(b1), static_cast<const T*>(wr),
-               static_cast<const float*>(dpre), static_cast<float*>(dw1),
-               static_cast<float*>(db1), static_cast<float*>(dwr), static_cast<float*>(dbr),
-               static_cast<float*>(draw), H, Lq, Lk, Rr, R, rows};
-  const size_t bytes = rel_smem_floats(rows, Lk, H, Rr, R) * sizeof(float);
-  cudaError_t err = opt_in(fused_attention_bwd_rel_kernel<T>, bytes);
+                       void* draw, void* work, int B, int H, int Lq, int Lk, int Rr, int R,
+                       int chunks, cudaStream_t stream) {
+  if (!rel_shape_ok(B, H, Lq, Lk, Rr, R) || chunks < 1) return cudaErrorInvalidValue;
+  const int N = Lq * Lk;
+  const int run = ((N + chunks - 1) / chunks + 15) / 16 * 16;
+  const long rows = (long)B * chunks;
+  double* pd = static_cast<double*>(work);
+  float* pw = reinterpret_cast<float*>(pd + rows * (R + H));
+  const int vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(dpre) % 16 == 0;
+  const RelArgs<T> a{static_cast<const T*>(raw), static_cast<const T*>(w1),
+                     static_cast<const T*>(b1), static_cast<const T*>(wr),
+                     static_cast<const float*>(dpre), pw, pd, H, N, Rr, R, chunks, run, vec};
+  const dim3 grid(chunks, B, (R + kRelFeatures - 1) / kRelFeatures);
+  cudaError_t err = rel_dispatch<T>(Rr, H, [&](auto kernel, size_t bytes) {
+    cudaError_t e = opt_in(kernel, bytes);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kThreads, bytes, stream>>>(a);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + rows - 1) / rows, B);
-  fused_attention_bwd_rel_kernel<T><<<grid, kThreads, bytes, stream>>>(a);
+  const int outputs = R * Rr + H * R + R + H;
+  fused_attention_bwd_rel_reduce_kernel<T><<<(outputs + kWarps - 1) / kWarps, kThreads, 0,
+                                             stream>>>(
+      pw, pd, (int)rows, R, Rr, H, static_cast<T*>(dw1), static_cast<T*>(db1),
+      static_cast<T*>(dwr), static_cast<T*>(dbr));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || draw == nullptr) return err;
+  const size_t bytes = (size_t)R * (kMaxRr + kMaxH + 1) * sizeof(float);
+  if (bytes > (size_t)kSmemCap) return cudaErrorInvalidValue;
+  err = opt_in(fused_attention_bwd_rel_draw_kernel<T>, bytes);
+  if (err != cudaSuccess) return err;
+  fused_attention_bwd_rel_draw_kernel<T><<<dim3((N + kThreads - 1) / kThreads, B), kThreads,
+                                           bytes, stream>>>(a, static_cast<T*>(draw));
   return cudaGetLastError();
 }
 
@@ -448,21 +720,33 @@ extern "C" int mmnas_fused_attention_bwd(int dtype, const void* q, const void* k
   return cudaErrorInvalidValue;
 }
 
-// The relation pass: raw/w1/b1/wr in the operand type (dtype as above),
-// dpre and every output fp32; one block per (batch, `rows` query rows), so
-// the partials are [B, ceil(Lq / rows), ...]; draw may be null.
+// The relation pass: raw/w1/b1/wr and the outputs dw1, db1, dwr, dbr in
+// the operand type (dtype as above), dpre fp32; draw (operand type) may be
+// null. `work` holds the partial rows: B * chunks * ((R + H) * 8 + (R * Rr
+// + H * R) * 4) bytes, from a 16-byte boundary; chunks as
+// mmnas_fused_attention_bwd_rel_chunks returns it for the shape. Launches
+// the pass, the fixed-order reduction and, with draw, its kernel.
 extern "C" int mmnas_fused_attention_bwd_rel(int dtype, const void* raw, const void* w1,
                                              const void* b1, const void* wr,
                                              const void* dpre, void* dw1, void* db1,
-                                             void* dwr, void* dbr, void* draw, int B, int H,
-                                             int Lq, int Lk, int Rr, int R, int rows,
-                                             void* stream) {
+                                             void* dwr, void* dbr, void* draw, void* work,
+                                             int B, int H, int Lq, int Lk, int Rr, int R,
+                                             int chunks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_rel<float>(raw, w1, b1, wr, dpre, dw1, db1, dwr, dbr, draw, B, H, Lq, Lk,
-                             Rr, R, rows, s);
+    return launch_rel<float>(raw, w1, b1, wr, dpre, dw1, db1, dwr, dbr, draw, work, B, H, Lq,
+                             Lk, Rr, R, chunks, s);
   if (dtype == 1)
-    return launch_rel<__nv_bfloat16>(raw, w1, b1, wr, dpre, dw1, db1, dwr, dbr, draw, B, H,
-                                     Lq, Lk, Rr, R, rows, s);
+    return launch_rel<__nv_bfloat16>(raw, w1, b1, wr, dpre, dw1, db1, dwr, dbr, draw, work, B,
+                                     H, Lq, Lk, Rr, R, chunks, s);
   return cudaErrorInvalidValue;
+}
+
+// Runs per batch row that the relation pass takes for this shape on the
+// current device (> 0), or minus a CUDA error code.
+extern "C" int mmnas_fused_attention_bwd_rel_chunks(int dtype, int B, int H, int Lq, int Lk,
+                                                    int Rr, int R) {
+  if (dtype == 0) return rel_chunks<float>(B, H, Lq, Lk, Rr, R);
+  if (dtype == 1) return rel_chunks<__nv_bfloat16>(B, H, Lq, Lk, Rr, R);
+  return -(int)cudaErrorInvalidValue;
 }

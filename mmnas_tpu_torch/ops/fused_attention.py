@@ -25,9 +25,10 @@ called through ctypes:
   pre (replaces `_bwd_kernel`, :325-467, without its relation reductions);
   when no relation input needs a gradient (the search's arch step) it
   writes no dpre;
-- `fused_attention_bwd_rel`: the relation pass, per (batch, row chunk) the
-  gradients of W1, b1, Wr, br as partials, and the raw geometry's gradient
-  when asked for (the relation half of `_bwd_kernel`).
+- `fused_attention_bwd_rel`: the relation pass, the gradients of W1, b1,
+  Wr, br (per-block partials over long element runs, summed in a fixed
+  order by a second kernel of the same call), and the raw geometry's
+  gradient when asked for (the relation half of `_bwd_kernel`).
 
 `FusedAttentionFn` is the counterpart of the custom VJP (:572-599).
 Dispatch follows the tensor: a CUDA tensor goes through the kernels (or
@@ -61,7 +62,6 @@ LAUNCHES = {"fused_attention_fwd": 0, "fused_attention_fwd_dropout": 0,
             "fused_attention_bwd": 0, "fused_attention_bwd_rel": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_REL_ROWS = 4  # query rows per block of the relation pass: 1600 blocks at B 64, L 100
 
 
 # ---------------------------------------------------------------------------
@@ -260,10 +260,25 @@ def _bwd_kernels():
                     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     rel = lib.mmnas_fused_attention_bwd_rel
-    rel.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    rel.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                     + [ctypes.c_void_p])
     rel.restype = ctypes.c_int
-    return bwd, rel
+    chunks = lib.mmnas_fused_attention_bwd_rel_chunks
+    chunks.argtypes = [ctypes.c_int] * 7
+    chunks.restype = ctypes.c_int
+    return bwd, rel, chunks
+
+
+@functools.lru_cache(maxsize=None)
+def _rel_chunks(device: int, dtype_code: int, B, H, Lq, Lk, Rr, R) -> int:
+    """Runs per batch row of the relation pass on this device: the kernel
+    picks them from its occupancy and the SM count, so that its blocks fill
+    the card once (no run under 1024 elements unless the row is shorter)."""
+    with torch.cuda.device(device):
+        n = _bwd_kernels()[2](dtype_code, B, H, Lq, Lk, Rr, R)
+    if n <= 0:
+        _raise_on(-n, "fused_attention_bwd_rel")
+    return n
 
 
 def _check(t, name, shape, like, dtype=None, rows=False):
@@ -411,22 +426,20 @@ def relation_bwd(raw, w1, b1, wr, br, dpre, need_draw: bool = False):
     dWr, dbr) in the layouts and dtypes of raw, w1, b1, wr, br."""
     B, Lq, Lk, Rr = raw.shape
     R, H = w1.shape[0], wr.shape[0]
-    chunks = -(-Lq // _REL_ROWS)
-    f32 = dict(dtype=torch.float32, device=raw.device)
-    dw1_p = torch.empty((B, chunks, R, Rr), **f32)
-    db1_p = torch.empty((B, chunks, R), **f32)
-    dwr_p = torch.empty((B, chunks, H, R), **f32)
-    dbr_p = torch.empty((B, chunks, H), **f32)
-    draw = torch.empty((B, Lq, Lk, Rr), **f32) if need_draw else None
+    code = _DTYPE_CODES[raw.dtype]
+    chunks = _rel_chunks(raw.device.index if raw.device.index is not None
+                         else torch.cuda.current_device(), code, B, H, Lq, Lk, Rr, R)
+    rows = B * chunks
+    # the per-(batch row, run) partials: fp64 db1, dbr, then fp32 dW1, dWr
+    work = torch.empty(rows * ((R + H) * 8 + (R * Rr + H * R) * 4), dtype=torch.uint8,
+                       device=raw.device)
+    dw1, db1, dwr, dbr = (torch.empty_like(t) for t in (w1, b1, wr, br))
+    draw = torch.empty_like(raw) if need_draw else None
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream(raw.device).cuda_stream
-        err = _bwd_kernels()[1](_DTYPE_CODES[raw.dtype], _ptr(raw), _ptr(w1), _ptr(b1), _ptr(wr),
-                                _ptr(dpre), _ptr(dw1_p), _ptr(db1_p), _ptr(dwr_p), _ptr(dbr_p),
-                                _ptr(draw), B, H, Lq, Lk, Rr, R, _REL_ROWS, stream)
+        err = _bwd_kernels()[1](code, _ptr(raw), _ptr(w1), _ptr(b1), _ptr(wr), _ptr(dpre),
+                                _ptr(dw1), _ptr(db1), _ptr(dwr), _ptr(dbr), _ptr(draw),
+                                _ptr(work), B, H, Lq, Lk, Rr, R, chunks, stream)
     _raise_on(err, "fused_attention_bwd_rel")
     LAUNCHES["fused_attention_bwd_rel"] += 1
-    # per-(batch, row chunk) partials, summed here in a fixed order (as
-    # pallas_attention.py:558-564 sums its per-batch partials)
-    return (None if draw is None else draw.to(raw.dtype),
-            dw1_p.sum(dim=(0, 1)).to(w1.dtype), db1_p.sum(dim=(0, 1)).to(b1.dtype),
-            dwr_p.sum(dim=(0, 1)).to(wr.dtype), dbr_p.sum(dim=(0, 1)).to(br.dtype))
+    return draw, dw1, db1, dwr, dbr

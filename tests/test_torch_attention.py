@@ -210,3 +210,18 @@ def test_plain_backward_matches_pallas_bwd(interpret, name, kind, Lq, Lk):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL, atol=TOL)
+    if rel is None:
+        return
+    # the relation pass's plain twin on its own, for the dpre that autograd
+    # gives through the plain forward for the same cotangent: held to the
+    # Pallas kernel's relation gradients directly, at the same 1e-5
+    raw, w1, b1, wr, br = tkw["rel"]
+    pre = (torch.matmul(torch.relu(torch.matmul(raw, w1.t()) + b1), wr.t()) + br)
+    pre = pre.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    out = FA.fused_attention_reference(*tq, tkw["mask"], torch.log(torch.clamp(torch.relu(pre),
+                                                                               min=1e-6)),
+                                       keep=torch.from_numpy(keep), dropout_r=RATE)
+    dpre = torch.autograd.grad(out, pre, torch.from_numpy(do))[0]
+    twin = FA.relation_bwd_reference(raw, w1, b1, wr, br, dpre, need_draw=True)
+    for g, w in zip(twin, want[-5:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL, atol=TOL)

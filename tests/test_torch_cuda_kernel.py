@@ -218,19 +218,99 @@ def test_cuda_generator_seeds_differ_per_call_and_repeat_per_seed(dev):
     assert s1 != s2 and FA.draw_seed(g) == s1
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-def test_relation_pass_matches_plain_autograd(dev, dt):
-    _, _, _, _, _, rel = make(3, 8, 37, 37, 64, "rel", Rr=4, R=64, seed=4)
-    rel = tuple(t.to(dev, dt) for t in rel)
-    dpre = (torch.randn(3, 8, 37, 37, generator=torch.Generator().manual_seed(5)) * 0.1).to(dev)
-    got = FA.relation_bwd(*rel, dpre, need_draw=True)
-    want = FA.relation_bwd_reference(*rel, dpre, need_draw=True)
+def make_rel(B, H, Lq, Lk, Rr, R, dt, dev, exact=True, seed=4):
+    """Relation inputs and a cotangent dpre. exact: raw, W1 and b1 on grids
+    of binary fractions (raw k/8 with |k| <= 16, W1 and b1 k/64 with |k| <=
+    32; exact in bf16 too), so u = raw W1^T + b1 is exact in fp32 in any
+    order of summation. Otherwise an element whose u lies within rounding of
+    0 (one in about 10^7 at these scales) may be live in one of two correct
+    fp32 computations (the kernel's FMA chain, the plain version's matmul)
+    and dead in the other, and moves a sum by its whole du."""
+    g = torch.Generator().manual_seed(seed)
+    if exact:
+        raw = torch.randint(-16, 17, (B, Lq, Lk, Rr), generator=g) / 8
+        w1 = torch.randint(-32, 33, (R, Rr), generator=g) / 64
+        b1 = torch.randint(-32, 33, (R,), generator=g) / 64
+        rel = (raw, w1, b1, (torch.rand(H, R, generator=g) * 2 - 1) / R ** 0.5,
+               (torch.rand(H, generator=g) * 2 - 1) / R ** 0.5)
+    else:
+        rel = make(B, H, Lq, Lk, 64, "rel", Rr=Rr, R=R, seed=seed)[5]
+    dpre = (torch.randn(B, H, Lq, Lk, generator=torch.Generator().manual_seed(seed + 1)) * 0.1)
+    return tuple(t.to(dev, dt) for t in rel), dpre.to(dev)
+
+
+REL_CASES = [  # B, H, Lq, Lk, Rr, R, need_draw, exact inputs, dtype
+    (3, 8, 37, 37, 4, 64, True, False, torch.float32),
+    (3, 8, 37, 37, 4, 64, True, False, torch.bfloat16),
+    (2, 1, 14, 14, 1, 16, True, True, torch.float32),
+    (2, 4, 37, 37, 4, 64, False, True, torch.bfloat16),
+    (3, 8, 100, 14, 4, 64, True, True, torch.float32),
+    (3, 4, 100, 14, 8, 64, False, True, torch.bfloat16),
+    (2, 16, 100, 100, 8, 64, False, True, torch.float32),
+    (2, 8, 100, 100, 4, 64, True, True, torch.bfloat16),
+    (2, 4, 128, 128, 4, 80, True, True, torch.float32),
+    (2, 16, 128, 128, 1, 64, True, True, torch.bfloat16),
+    (2, 1, 128, 128, 8, 64, False, True, torch.float32),
+    (2, 16, 14, 14, 8, 130, True, True, torch.bfloat16),
+    (5, 8, 14, 14, 4, 64, False, True, torch.float32),
+    (4, 4, 100, 100, 1, 16, False, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,Rr,R,need_draw,exact,dt", REL_CASES)
+def test_relation_pass_matches_plain_autograd(dev, B, H, Lq, Lk, Rr, R, need_draw, exact, dt):
+    """Element counts that are no multiple of the kernel's 256-element tile
+    or 16-element runs, 1 to 16 heads (each register shape), 1 to 8 raw
+    channels, feature counts past one block's 64, draw on and off."""
+    rel, dpre = make_rel(B, H, Lq, Lk, Rr, R, dt, dev, exact=exact)
+    before = FA.LAUNCHES["fused_attention_bwd_rel"]
+    got = FA.relation_bwd(*rel, dpre, need_draw=need_draw)
+    want = FA.relation_bwd_reference(*rel, dpre, need_draw=need_draw)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["fused_attention_bwd_rel"] == before + 1
+    assert (got[0] is None) == (not need_draw)
     # fp32 sums in both: 1e-4 of the largest; bf16 results are rounded to bf16, whose
     # unit roundoff 2^-8 (3.9e-3) of the largest bounds it, plus the fp32 noise
     tol = 1e-4 if dt == torch.float32 else 4e-3
     for g, w in zip(got, want):
+        if w is None:
+            continue
         assert g.shape == w.shape and g.dtype == dt
         assert (g.float() - w).abs().max().item() <= tol * w.abs().max().item()
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_relation_pass_gives_the_same_bits_every_call(dev, dt):
+    """No atomics: the partial rows are summed in a fixed order."""
+    rel, dpre = make_rel(16, 8, 100, 100, 4, 64, dt, dev, exact=False)
+    first = FA.relation_bwd(*rel, dpre, need_draw=True)
+    for _ in range(2):
+        again = FA.relation_bwd(*rel, dpre, need_draw=True)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_relation_pass_sums_at_the_search_shape_against_fp64(dev):
+    """B 128, H 4, (100, 100), R 64, fp32: db1 and dbr sum 1.28M values that
+    cancel. The kernel sums them in fp32 over at most 16 elements a thread,
+    then in fp64, and rounds to fp32 once; the plain version sums in fp32.
+    Both compute the same per-element terms (u exact on these inputs, du
+    from H = 4 products), so the kernel may be no further from the fp64
+    truth than the plain version within a factor 2 (the per-element du
+    rounds in another order in each), plus half an fp32 ulp of the result
+    for its final rounding (the largest value times 2^-24)."""
+    rel, dpre = make_rel(128, 4, 100, 100, 4, 64, torch.float32, dev, seed=7)
+    got = FA.relation_bwd(*rel, dpre)
+    plain = FA.relation_bwd_reference(*rel, dpre)
+    leaves = [t.double().requires_grad_() for t in rel]
+    x, w1, b1, wr, br = leaves
+    pre = torch.matmul(torch.relu(torch.matmul(x, w1.t()) + b1), wr.t()) + br
+    truth = torch.autograd.grad(pre.permute(0, 3, 1, 2), leaves[1:], dpre.double())
+    for i, name in ((2, "db1"), (4, "dbr")):
+        want = truth[i - 1]
+        scale = want.abs().max().item()
+        err_kernel = (got[i].double() - want).abs().max().item()
+        err_plain = (plain[i].double() - want).abs().max().item()
+        assert err_kernel <= 2 * err_plain + scale * 2.0 ** -24, (name, err_kernel, err_plain)
 
 
 def test_train_step_gradient_against_fp64(dev, monkeypatch, capsys):
