@@ -62,9 +62,31 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    fixed NetFull at HSIZE 512 built from the dumped genotype evaluates one
    batch; weight and arch steps are timed and profiled on one resident
    batch, and search examples/s counted as bench.py counts them;
-9. prints one JSON line with every kernel's numbers (with x_library and
-   x_bound, its time over the library call's and over its bound) and,
-   last, the device line `{"ok": true, "device": {...}}`.
+9. holds the forward, dropout-forward and backward kernels against their
+   plain versions at the VGD net's shapes (B 64, 8 heads of 64: SA 15x15 and
+   GA 100x15 with the pad mask, the query being MAX_TOKEN + 1 = 15 tokens)
+   and at the VGD search's (B 128, 4 heads of 64, the same two; its RSA
+   100x100 is one of 5's shapes), fp32 and bf16, with their times, bounds
+   and SDPA's;
+10. drives the VGD paths of `arch/mmnas_vgd.json` at full width (HSIZE 512,
+   100 regions of 2048, a 15-token query), with the native C++ IoU built:
+   eval (`engine/vgd.py` `Execution(cfg, cuda).run()`, `--RUN val --SYNTH
+   --BS 64 --SYNTH_SIZE 256`, fp32 and bf16, from a checkpoint in the JAX
+   package's pickle format: 19 forward launches per batch (3 encoder SA,
+   11 GA, 5 RSA), scores and box deltas of 16 items against the same net on
+   the CPU, their IoU@0.5 hits equal away from the threshold); 10 train
+   steps (DROPOUT_R 0.1, fp32 and bf16 on fp32 masters: per step 19
+   dropout-forward, 19 backward and 5 relation-pass launches, falling
+   losses, the checkpoint reloaded, the step timed and profiled, one fp32
+   step against the CPU and the plain versions as in 7); the VGD search
+   (`engine/search_vgd.py`, SearchCfg HSIZE 256, BS 128, KPATH 1, fp32: 10
+   weight and 2 arch steps, exact launches from the sampled paths and the
+   argmax-path IoU eval, alpha moved, the genotype archive, the checkpoint,
+   step times and device splits);
+11. prints one JSON line with every kernel's numbers (with x_library and
+   x_bound, its time over the library call's and over its bound; `launches`
+   from the VGD search, this slice's main path, each path's own counts
+   beside them) and, last, the device line `{"ok": true, "device": {...}}`.
 Any failed check raises, so the script exits non-zero and prints no result
 line. It exits 2 when no CUDA device is present.
 """
@@ -84,7 +106,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "build", "mmnas_tpu_torch", "smoke")
-ARCH = os.path.join(HERE, "arch", "mmnas_vqa.json")
+ARCHS = {task: os.path.join(HERE, "arch", f"mmnas_{task}.json") for task in ("vqa", "vgd")}
 SOURCES = ("fused_attention_fwd", "fused_attention_bwd", "probes")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "fused_attention_fwd": ("mmnas_tpu_torch/csrc/fused_attention_fwd.cu",
@@ -111,6 +133,14 @@ LAUNCHES_PER_BATCH = 16           # arch/mmnas_vqa.json at LAYERS 1
 REL_LAUNCHES_PER_BATCH = 4        # its 4 rel_self_att_64 nodes
 CASES = [(14, 14, "mask"), (100, 100, "mask"), (100, 14, "mask"),
          (100, 100, "mask+rel"), (100, 100, "bias")]
+# arch/mmnas_vgd.json at LAYERS 1: 3 encoder SA, 11 GA, 5 RSA; its query is
+# 15 tokens (MAX_TOKEN + 1), so SA 15x15 and GA 100x15
+VGD_LAUNCHES_PER_BATCH, VGD_REL_LAUNCHES_PER_BATCH = 19, 5
+VGD_CASES = [(15, 15, "mask"), (100, 15, "mask")]
+# hits card vs CPU are compared where the CPU's IoU is this far or more
+# from the threshold (the outputs agree to LOGIT_TOL, which moves a box's
+# corners by far less than this share of its overlap)
+VGD_IOU_NEAR = 1e-4
 # the search's attention: HSIZE 256 is 4 heads of 64, batch 128 at KPATH 1;
 # the bf16 BS 256 KPATH 8 leg hands each kernel 32 rows per path
 SEARCH_B, SEARCH_H, SEARCH_K8_B = 128, 4, 32
@@ -118,6 +148,7 @@ SEARCH_CASES = [(14, 14, "mask"), (100, 14, "mask"), (100, 100, "mask"), (100, 1
 # the search runs: 10 weight steps, an arch step after every 5th
 SEARCH_STEPS, ALPHA_EVERY = 10, 5
 SEARCH_LEGS = (("float32", 128, 1), ("bfloat16", 256, 8))   # dtype, batch, KPATH
+VGD_SEARCH_LEGS = (("float32", 128, 1),)
 # the probe CLI's launches: two bias kernels, slice and outer in f32 and
 # bf16, the two wrblock layouts
 PROBE_LAUNCHES = {"probe_bias": 1, "probe_bias2": 1, "probe_slice": 2, "probe_outer": 2,
@@ -229,6 +260,12 @@ def relation_kernel_report(sass):
                   f"H<={m.group(3)} F {m.group(4)}: {r['registers']} registers, "
                   f"{r['spill_bytes']} bytes spilled")
     return rel
+
+
+def zero_launches(module):
+    """Every launch count of the wrappers' module (`LAUNCHES`) set to 0."""
+    for n in module.LAUNCHES:
+        module.LAUNCHES[n] = 0
 
 
 def cuda_time_ms(fn, iters=20, warmup=3):
@@ -593,15 +630,29 @@ def relation_pass(FA, args, m, rel, keep, do, live):
             "rel_bound_ms": bound_ms, "rel_bound_by": bound_by, "live_share": live}
 
 
-def cfg_for(run, dtype, **extra):
+def cfg_for(run, dtype, task="vqa", **extra):
+    """`--RUN run --SYNTH --ARCH_PATH <the task's genotype> --BS 64` of the
+    task's fixed-net CLI (make_arg_parser(task)): HSIZE 512, 100 regions of
+    2048; VQA's 14-token question, VGD's 15-token query."""
     from mmnas_tpu_torch.config import cfg_from_args, make_arg_parser
 
-    args = ["--RUN", run, "--SYNTH", "--ARCH_PATH", ARCH, "--BS", str(BATCH), "--SEED", "0",
-            "--NW", "8", "--DTYPE", dtype]
+    args = ["--RUN", run, "--SYNTH", "--ARCH_PATH", ARCHS[task], "--BS", str(BATCH), "--SEED",
+            "0", "--NW", "8", "--DTYPE", dtype]
     for k, v in extra.items():
         args += [f"--{k}", str(v)]
-    cfg = cfg_from_args("vqa", make_arg_parser("vqa").parse_args(args))
+    cfg = cfg_from_args(task, make_arg_parser(task).parse_args(args))
     return cfg.replace(LOG_ROOT=os.path.join(WORK, "log"), CKPT_ROOT=os.path.join(WORK, "ckpts"))
+
+
+def engines(task):
+    """(fixed-net Execution, SearchExecution, attention ops per batch,
+    rel_self_att_64 ops per batch) of the task's genotype at LAYERS 1."""
+    from mmnas_tpu_torch.engine import search, search_vgd, vgd, vqa
+
+    if task == "vqa":
+        return vqa.Execution, search.SearchExecution, LAUNCHES_PER_BATCH, REL_LAUNCHES_PER_BATCH
+    return (vgd.Execution, search_vgd.SearchExecution, VGD_LAUNCHES_PER_BATCH,
+            VGD_REL_LAUNCHES_PER_BATCH)
 
 
 def eval_path(FA, dev, card):
@@ -627,8 +678,7 @@ def eval_path(FA, dev, card):
     for dtype in ("float32", "bfloat16"):
         cfg = cfg_for("val", dtype, SYNTH_SIZE=SYNTH_SIZE, CKPT_PATH=ckpt)
         exe = Execution(cfg, dev)
-        for n in FA.LAUNCHES:
-            FA.LAUNCHES[n] = 0
+        zero_launches(FA)
         result = exe.run()
         torch.cuda.synchronize()
         launches = dict(FA.LAUNCHES)
@@ -671,156 +721,86 @@ def eval_path(FA, dev, card):
     return out
 
 
-def train_path(FA, dev, card):
-    import mmnas_tpu_torch.ops.attention as ATT
-    from mmnas_tpu_torch.engine.vqa import Execution, batch_to_device
+def train_path(FA, dev, card, task):
+    """Execution.run() of RUN train on the task's genotype at full width:
+    TRAIN_SIZE // BATCH steps at DROPOUT_R 0.1 with the per-epoch eval, in
+    fp32 and in bf16 on fp32 masters. Per leg: exact launches, finite losses
+    whose last 3 average below the first, fp32 masters and Adam moments, the
+    epoch checkpoint evaluated again. Then the fp32 train step alone on one
+    resident batch, timed and profiled, and `one_step_parity`."""
+    from mmnas_tpu_torch.engine.vqa import batch_to_device
     from mmnas_tpu_torch.models.net import INPUT_KEYS
     from mmnas_tpu_torch.train.checkpoint import ckpt_path
     from mmnas_tpu_torch.train.optimizer import build_net_optimizer
 
-    cfg = cfg_for("train", "float32", SYNTH_SIZE=TRAIN_SIZE, MAX_EPOCH=1)
-    if not (cfg.DROPOUT_R == RATE and cfg.EVAL_EVERY_EPOCH and cfg.NET_GRAD_CLIP > 0):
-        raise AssertionError(f"unexpected train config {cfg}")
+    engine, _, n_att, n_rsa = engines(task)
     steps = TRAIN_SIZE // BATCH
-    exe = Execution(cfg, dev)
-    for n in FA.LAUNCHES:
-        FA.LAUNCHES[n] = 0
-    t0 = time.perf_counter()
-    result = exe.run()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(FA.LAUNCHES)
-    want = {"fused_attention_fwd": LAUNCHES_PER_BATCH * steps,          # the per-epoch eval
-            "fused_attention_fwd_dropout": LAUNCHES_PER_BATCH * steps,
-            "fused_attention_bwd": LAUNCHES_PER_BATCH * steps,
-            "fused_attention_bwd_rel": REL_LAUNCHES_PER_BATCH * steps}
-    if launches != want:
-        raise AssertionError(f"train: kernel launches {launches}, expected {want}")
-    losses = result.step_losses
-    print(f"train fp32: {steps} steps, losses per batch of {BATCH} {[round(x, 3) for x in losses]}"
-          f"; {launches}; {seconds:.1f} s with the loader and the eval", flush=True)
-    if len(losses) != steps or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"train: losses {losses}")
-    if not sum(losses[-3:]) / 3 < losses[0]:
-        raise AssertionError(f"train: loss did not fall: {losses}")
-    ckpt = ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, 1)
-    if not os.path.exists(ckpt):
-        raise AssertionError(f"train: no checkpoint at {ckpt}")
-    for n in FA.LAUNCHES:
-        FA.LAUNCHES[n] = 0
-    reloaded = Execution(cfg_for("val", "float32", SYNTH_SIZE=BATCH, CKPT_PATH=ckpt), dev).run()
-    torch.cuda.synchronize()
-    if reloaded.preds.shape != (BATCH,) or FA.LAUNCHES["fused_attention_fwd"] != LAUNCHES_PER_BATCH:
-        raise AssertionError(f"eval of the epoch checkpoint: {reloaded.preds.shape}, "
-                             f"{FA.LAUNCHES}")
-    print(f"eval of {os.path.relpath(ckpt, HERE)}: accuracy {reloaded.accuracy}", flush=True)
-    bf16 = train_bf16_leg(FA, dev, steps, want)
+    want = {"fused_attention_fwd": n_att * steps,          # the per-epoch eval
+            "fused_attention_fwd_dropout": n_att * steps,
+            "fused_attention_bwd": n_att * steps,
+            "fused_attention_bwd_rel": n_rsa * steps}
+    legs = {}
+    for dtype in ("float32", "bfloat16"):
+        name = f"{task} train {dtype}"
+        cfg = cfg_for("train", dtype, task, SYNTH_SIZE=TRAIN_SIZE, MAX_EPOCH=1,
+                      VERSION=f"smoke_{task}_{dtype}")
+        if not (cfg.DROPOUT_R == RATE and cfg.EVAL_EVERY_EPOCH and cfg.NET_GRAD_CLIP > 0):
+            raise AssertionError(f"unexpected train config {cfg}")
+        zero_launches(FA)
+        t0 = time.perf_counter()
+        result = engine(cfg, dev).run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, losses = dict(FA.LAUNCHES), result.step_losses
+        print(f"{name}: {steps} steps, losses per batch of {BATCH} "
+              f"{[round(x, 4) for x in losses]}; {launches}; {seconds:.1f} s with the loader and "
+              "the eval", flush=True)
+        if launches != want:
+            raise AssertionError(f"{name}: kernel launches {launches}, expected {want}")
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{name}: losses {losses}")
+        if not sum(losses[-3:]) / 3 < losses[0]:
+            raise AssertionError(f"{name}: loss did not fall: {losses}")
+        kinds = {p.dtype for p in result.net.parameters()} | {
+            t.dtype for key in ("m", "v") for t in result.opt_state[key].values()}
+        if kinds != {torch.float32}:
+            raise AssertionError(f"{name}: masters or Adam moments in {kinds}")
+        ckpt = ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, 1)
+        zero_launches(FA)
+        reloaded = engine(cfg_for("val", dtype, task, SYNTH_SIZE=BATCH, CKPT_PATH=ckpt), dev).run()
+        torch.cuda.synchronize()
+        items = reloaded.preds if hasattr(reloaded, "preds") else reloaded.hits
+        if items.shape != (BATCH,) or FA.LAUNCHES["fused_attention_fwd"] != n_att:
+            raise AssertionError(f"{name}: eval of the epoch checkpoint: {items.shape}, "
+                                 f"{FA.LAUNCHES}")
+        print(f"eval of {os.path.relpath(ckpt, HERE)}: accuracy {reloaded.accuracy}", flush=True)
+        legs[dtype] = {"launches": launches, "losses": losses, "seconds": seconds,
+                       "reloaded_accuracy": reloaded.accuracy}
+        if dtype == "float32":
+            trained, exe = result, engine(cfg, dev)
+        del result
 
     # the train step alone, one resident batch, dropout on
-    net = result.net
-    params = dict(net.named_parameters())
     dataset = exe.build_dataset("train")
     host_batch = list(exe.make_loader(dataset, BATCH))[0]
-    keys = INPUT_KEYS + ("ans",)
+    keys = INPUT_KEYS + exe.TARGET_KEYS
     batch = batch_to_device(host_batch, dev, keys)
-    optim = build_net_optimizer(cfg, steps)
+    net = trained.net
+    params = dict(net.named_parameters())
+    optim = build_net_optimizer(exe.cfg, steps)
     state = optim.init(params)
     gen = torch.Generator(dev).manual_seed(3)
     step_ms = cuda_time_ms(lambda: exe.train_step(net, optim, state, params, batch, gen),
                            iters=10, warmup=2)
     split = profile_step(lambda: exe.train_step(net, optim, state, params, batch, gen))
-    print(f"train step fp32 BS {BATCH}: {step_ms:.2f} ms, {BATCH / step_ms * 1000:.1f} "
+    print(f"{task} train step fp32 BS {BATCH}: {step_ms:.2f} ms, {BATCH / step_ms * 1000:.1f} "
           f"examples/s on {card}; device time split {split}", flush=True)
-    del net, params, state, result
-
-    # one step at DROPOUT_R 0 from one seeded init: on the card with the
-    # kernels, on the card with the plain versions in their place, on the CPU
-    cfg0 = cfg.replace(DROPOUT_R=0.0)
-    small = {k: v[:16] for k, v in host_batch.items()}
-    out = {}
-    for label, d, attention in (("kernels", "cuda", None), ("plain", "cuda", plain_attention),
-                                ("cpu", "cpu", None)):
-        e = Execution(cfg0, torch.device(d))
-        net = e.build_net(dataset).to(d)                   # the init is drawn on the CPU
-        params = dict(net.named_parameters())
-        optim = build_net_optimizer(cfg0, steps)
-        state = optim.init(params)
-        b = batch_to_device(small, torch.device(d), keys)
-        grads = {}
-        hooks = [p.register_hook(lambda g, n=n: grads.__setitem__(n, g.detach().cpu().clone()))
-                 for n, p in params.items()]
-        saved = ATT.fused_attention
-        ATT.fused_attention = attention or saved
-        try:
-            loss, _ = e.train_step(net, optim, state, params, b, torch.Generator(d))
-        finally:
-            ATT.fused_attention = saved
-        for h in hooks:
-            h.remove()
-        out[label] = (float(loss), grads)
-    (l_gpu, g_kernels), (_, g_plain), (l_cpu, _) = out["kernels"], out["plain"], out["cpu"]
-    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
-    whole = math.sqrt(sum(float((g ** 2).sum()) for g in g_plain.values()))
-    leaf = {n: (float((g_kernels[n] - g).norm()), float(g.norm())) for n, g in g_plain.items()}
-    relation = [n for n in leaf if n.startswith("linear_y_rel.") or ".wr." in n]
-    floor = {n: 0.0 if n in relation else STEP_LEAF_FLOOR * whole for n in leaf}
-    over = {n: d for n, (d, ref) in leaf.items() if not d <= STEP_LEAF_TOL * ref + floor[n]}
-    worst = max(leaf, key=lambda n: leaf[n][0] / max(leaf[n][1], floor[n]))
-    rel_leaves = {n: (leaf[n][0], leaf[n][1]) for n in relation}
-    print(f"one step (fp32, DROPOUT_R 0, 16 examples): loss card {l_gpu:.6f} vs CPU {l_cpu:.6f} "
-          f"(rel {loss_err:.2e}, tol {STEP_LOSS_TOL:g}); gradients, kernels vs plain on the card, "
-          f"{len(leaf)} leaves: worst {worst} {leaf[worst][0]:.3e} of {leaf[worst][1]:.3e} "
-          f"(whole-net norm {whole:.3e}); tol {STEP_LEAF_TOL:g} of the leaf + "
-          f"{STEP_LEAF_FLOOR:g} of the whole", flush=True)
-    print("  the relation pass's leaves, no floor: " + "; ".join(
-        f"{n} {d:.3e} of {ref:.3e} ({d / ref:.2e})" for n, (d, ref) in rel_leaves.items()),
-        flush=True)
-    if not loss_err <= STEP_LOSS_TOL:
-        raise AssertionError(f"one train step's loss differs between the card and the CPU: "
-                             f"{l_gpu} vs {l_cpu}")
-    if len(relation) != 2 + 2 * REL_LAUNCHES_PER_BATCH:
-        raise AssertionError(f"expected the stem and {REL_LAUNCHES_PER_BATCH} RSA ops' wr "
-                             f"among the leaves, found {relation}")
-    if over:
-        raise AssertionError(f"kernel gradients differ from the plain versions' in {over}")
-    return {"launches": launches, "bf16": bf16, "losses": losses, "seconds": seconds,
-            "step_ms": step_ms,
-            "examples_per_s": BATCH / step_ms * 1000, "device_split": split,
-            "step_loss_card_vs_cpu": loss_err,
-            "step_grad_kernels_vs_plain": {"worst_leaf": worst, "diff": leaf[worst][0],
-                                           "norm": leaf[worst][1], "whole_norm": whole,
-                                           "relation_leaves": rel_leaves}}
-
-
-def train_bf16_leg(FA, dev, steps, want):
-    """The same 10 steps under --DTYPE bfloat16: bf16 casts of the fp32
-    master parameters per step, the same launches, finite falling losses,
-    fp32 masters and Adam moments after."""
-    from mmnas_tpu_torch.engine.vqa import Execution
-
-    cfg = cfg_for("train", "bfloat16", SYNTH_SIZE=TRAIN_SIZE, MAX_EPOCH=1,
-                  VERSION="smoke_train_bf16")
-    for n in FA.LAUNCHES:
-        FA.LAUNCHES[n] = 0
-    t0 = time.perf_counter()
-    result = Execution(cfg, dev).run()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches, losses = dict(FA.LAUNCHES), result.step_losses
-    print(f"train bf16: {steps} steps, losses per batch of {BATCH} "
-          f"{[round(x, 3) for x in losses]}; {launches}; {seconds:.1f} s with the loader and "
-          "the eval", flush=True)
-    if launches != want:
-        raise AssertionError(f"train bf16: kernel launches {launches}, expected {want}")
-    if len(losses) != steps or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"train bf16: losses {losses}")
-    if not sum(losses[-3:]) / 3 < losses[0]:
-        raise AssertionError(f"train bf16: loss did not fall: {losses}")
-    kinds = {p.dtype for p in result.net.parameters()} | {
-        t.dtype for key in ("m", "v") for t in result.opt_state[key].values()}
-    if kinds != {torch.float32}:
-        raise AssertionError(f"train bf16: masters or Adam moments in {kinds}")
-    return {"launches": launches, "losses": losses, "seconds": seconds}
+    del net, params, state, trained
+    grad = one_step_parity(engine, exe.cfg.replace(DROPOUT_R=0.0), dataset,
+                           {k: v[:16] for k, v in host_batch.items()}, keys, steps, n_rsa, task,
+                           dev)
+    return {"legs": legs, "step_ms": step_ms, "examples_per_s": BATCH / step_ms * 1000,
+            "device_split": split, **grad}
 
 
 def bias_errs(got, want):
@@ -835,8 +815,7 @@ def bias_errs(got, want):
 def probe_path(PR, dev):
     """The probe CLI on the card with its launch counts, then every probe
     kernel against its plain version on the probes' inputs, and its times."""
-    for n in PR.LAUNCHES:
-        PR.LAUNCHES[n] = 0
+    zero_launches(PR)
     results = PR.main([])                    # python -m mmnas_tpu_torch.tools.probes
     torch.cuda.synchronize()
     launches = dict(PR.LAUNCHES)
@@ -943,17 +922,18 @@ def probe_path(PR, dev):
     return {"launches": launches, "vs_fp64": vs_fp64, "rows": rows}
 
 
-def search_cfg(dtype, batch, kpath, **extra):
-    """`--SYNTH --ALPHA_MODE full` at BS `batch`, KPATH `kpath`, one epoch of
-    SEARCH_STEPS weight steps (the 80/20 split: SYNTH_SIZE = steps * batch /
-    0.8), arch steps from epoch 0 every ALPHA_EVERY."""
+def search_cfg(dtype, batch, kpath, task="vqa", **extra):
+    """`--SYNTH --ALPHA_MODE full` of the task's search CLI at BS `batch`,
+    KPATH `kpath`, one epoch of SEARCH_STEPS weight steps (the 80/20 split:
+    SYNTH_SIZE = steps * batch / 0.8), arch steps from epoch 0 every
+    ALPHA_EVERY."""
     from mmnas_tpu_torch.config import cfg_from_args, make_arg_parser
 
     size = SEARCH_STEPS * batch * 5 // 4
     args = ["--SYNTH", "--SYNTH_SIZE", str(size), "--BS", str(batch), "--KPATH", str(kpath),
             "--DTYPE", dtype, "--SEED", "0", "--NW", "8", "--MAX_EPOCH", "1",
-            "--ALPHA_MODE", "full", "--VERSION", f"smoke_search_{dtype}"]
-    cfg = cfg_from_args("vqa", make_arg_parser("vqa", search=True).parse_args(args), search=True)
+            "--ALPHA_MODE", "full", "--VERSION", f"smoke_search_{task}_{dtype}"]
+    cfg = cfg_from_args(task, make_arg_parser(task, search=True).parse_args(args), search=True)
     return cfg.replace(ALPHA_START=0, ALPHA_EVERY=ALPHA_EVERY, LOG_ROOT=os.path.join(WORK, "log"),
                        CKPT_ROOT=os.path.join(WORK, "ckpts"),
                        ARCH_ROOT=os.path.join(WORK, "arch"), **extra)
@@ -1007,27 +987,29 @@ def search_launches(result, eval_batches, alpha_host):
     return want, every
 
 
-def search_path(FA, dev, card):
-    """Both search legs (SEARCH_LEGS) through SearchExecution.run(), each
-    with its checks, step times and device split; the fp32 leg also
-    resumes from its checkpoint and hands its genotype to a fixed net."""
-    from mmnas_tpu_torch.engine.search import SearchExecution
+def search_path(FA, dev, card, task, legs):
+    """The task's search legs (dtype, batch, KPATH) through
+    SearchExecution.run(), each with its checks (exact launches from the
+    sampled paths and the argmax-path eval, finite losses, alpha moved, the
+    genotype archive in the reference schema, the checkpoint reloads), step
+    times and device split. VQA's fp32 leg also resumes from its checkpoint
+    and hands its genotype to a fixed net; its bf16 leg is held to fp32."""
     from mmnas_tpu_torch.models.convert import from_jax_params
     from mmnas_tpu_torch.models.supernet import SPACES
     from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint
 
+    _, engine, _, _ = engines(task)
     out = {}
-    for dtype, batch, kpath in SEARCH_LEGS:
-        cfg = search_cfg(dtype, batch, kpath)
+    for dtype, batch, kpath in legs:
+        cfg = search_cfg(dtype, batch, kpath, task)
         if not (cfg.DROPOUT_R == RATE and cfg.EVAL_EVERY_EPOCH and cfg.HSIZE == 256
                 and cfg.NET_GRAD_CLIP > 0 and cfg.ALPHA_BINARY_MODE == "full"):
             raise AssertionError(f"unexpected search config {cfg}")
         arch_json = os.path.join(cfg.ARCH_ROOT, cfg.VERSION + ".json")
-        name = f"search {dtype} BS {batch} KPATH {kpath}"
-        for n in FA.LAUNCHES:
-            FA.LAUNCHES[n] = 0
+        name = f"{task} search {dtype} BS {batch} KPATH {kpath}"
+        zero_launches(FA)
         t0 = time.perf_counter()
-        result = SearchExecution(cfg, dev).run()
+        result = engine(cfg, dev).run()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(FA.LAUNCHES)
@@ -1072,12 +1054,12 @@ def search_path(FA, dev, card):
             raise AssertionError(f"{name}: the epoch checkpoint does not reload")
         leg = {"launches": launches, "expected": want, "losses": losses, "seconds": seconds,
                "alpha_moved": moved, "genotype": genotype}
-        if dtype == "float32":
+        if task == "vqa" and dtype == "float32":
             leg["resume"] = search_resume(cfg, dev, arch_json)
             leg["fixed_net"] = fixed_net_from_genotype(FA, dev, arch_json)
-        else:
+        elif task == "vqa":
             leg["precision"] = search_precision(cfg, result, dev)
-        leg.update(search_step_times(cfg, result, dev, card))
+        leg.update(search_step_times(cfg, result, dev, card, engine))
         out[f"{dtype}_bs{batch}_k{kpath}"] = leg
         del result, state, own, ckpt
         torch.cuda.empty_cache()
@@ -1122,8 +1104,7 @@ def fixed_net_from_genotype(FA, dev, arch_json):
     batch = batch_to_device(list(exe.make_loader(dataset, BATCH))[0], dev)
     genotype = load_genotype(arch_json, 2)
     att = sum(op != "feed_forward" for c in ("enc", "dec") for node in genotype[c] for op in node)
-    for n in FA.LAUNCHES:
-        FA.LAUNCHES[n] = 0
+    zero_launches(FA)
     with torch.inference_mode():
         logits = net(batch)
     torch.cuda.synchronize()
@@ -1176,21 +1157,23 @@ def search_precision(cfg, result, dev):
     return {"loss_bf16": losses["bfloat16"], "loss_fp32": losses["float32"], "rel": rel}
 
 
-def search_step_times(cfg, result, dev, card):
+def search_step_times(cfg, result, dev, card, engine):
     """Weight step and arch step ms on one resident batch each (CUDA
     events; the host's sampling included), search examples/s over
     SEARCH_STEPS weight steps of the engine's own loop
     (`SearchExecution.steps`: an arch step after every ALPHA_EVERY-th, the
     alpha host copy renewed after it) on resident batches, what
-    bench.py:462-494 counts, and each step's device split."""
-    from mmnas_tpu_torch.engine.search import SearchExecution, SearchResult, host_copy
+    bench.py:462-494 counts, and each step's device split. `engine`: the
+    task's SearchExecution class."""
+    from mmnas_tpu_torch.engine.search import SearchResult, host_copy
     from mmnas_tpu_torch.engine.vqa import batch_to_device
     from mmnas_tpu_torch.models.net import INPUT_KEYS
     from mmnas_tpu_torch.train.optimizer import build_net_optimizer
 
-    exe = SearchExecution(cfg, dev)
+    exe = engine(cfg, dev)
     dataset = exe.build_dataset()
-    split, bs, keys = int(cfg.SYNTH_SIZE * cfg.SPLIT_PORTION), cfg.BATCH_SIZE, INPUT_KEYS + ("ans",)
+    split, bs, keys = (int(cfg.SYNTH_SIZE * cfg.SPLIT_PORTION), cfg.BATCH_SIZE,
+                       INPUT_KEYS + exe.TARGET_KEYS)
     wb = batch_to_device(list(exe.make_loader(dataset, list(range(bs))))[0], dev, keys)
     ab = batch_to_device(list(exe.make_loader(dataset, list(range(split, split + bs))))[0], dev,
                          keys)
@@ -1219,13 +1202,167 @@ def search_step_times(cfg, result, dev, card):
     loop_ms = cuda_time_ms(loop, iters=2, warmup=1)
     ex_s = SEARCH_STEPS * bs / loop_ms * 1000
     split_w, split_a = profile_step(weight), profile_step(arch)
-    print(f"search {cfg.DTYPE} BS {bs} KPATH {cfg.KPATH} on {card}: weight step {weight_ms:.2f} ms,"
+    print(f"search {cfg.TASK} {cfg.DTYPE} BS {bs} KPATH {cfg.KPATH} on {card}: weight step "
+          f"{weight_ms:.2f} ms,"
           f" arch step {arch_ms:.2f} ms, {SEARCH_STEPS} weight + {SEARCH_STEPS // ALPHA_EVERY} arch "
           f"steps {loop_ms:.2f} ms = {ex_s:.1f} examples/s; device split weight step {split_w}, "
           f"arch step {split_a}",
           flush=True)
     return {"weight_step_ms": weight_ms, "arch_step_ms": arch_ms, "loop_ms": loop_ms,
             "examples_per_s": ex_s, "device_split_weight": split_w, "device_split_arch": split_a}
+
+
+# ---------------------------------------------------------------------------
+# visual grounding (VGD): arch/mmnas_vgd.json, its train and eval, the search
+# ---------------------------------------------------------------------------
+
+def vgd_eval_path(FA, dev, card):
+    """Execution.run() of RUN val at full width from a checkpoint in the JAX
+    package's pickle format, fp32 and bf16: exact launches, hits of the
+    right shape; the scores and box deltas of 16 items against the same net
+    on the CPU, and their hits equal except where the IoU is within
+    VGD_IOU_NEAR of the threshold; the forward's time on a resident batch."""
+    from mmnas_tpu_torch.engine.vgd import (EVAL_KEYS, Execution, eval_params, grounding_forward,
+                                            grounding_hits)
+    from mmnas_tpu_torch.engine.vqa import batch_to_device
+    from mmnas_tpu_torch.models.convert import to_jax_params
+    from mmnas_tpu_torch.train.checkpoint import save_checkpoint
+    from mmnas_tpu_torch.utils import bbox as BBOX
+
+    lib = BBOX._load_lib()
+    if not lib:
+        raise AssertionError("the native C++ IoU did not build: the labels took the numpy path")
+    print(f"native IoU: {os.path.relpath(lib._name, HERE)}", flush=True)
+    ckpt = os.path.join(WORK, "mmnas_vgd_seed0.pkl")
+    cfg32 = cfg_for("val", "float32", "vgd", SYNTH_SIZE=SYNTH_SIZE, CKPT_PATH=ckpt)
+    exe = Execution(cfg32, dev)
+    dataset = exe.build_dataset("val")
+    net = exe.build_net(dataset)
+    item = dataset[0]
+    print(f"VGD path: HSIZE {cfg32.HSIZE}, {cfg32.FRCNFEAT_LEN} regions of {cfg32.FRCNFEAT_SIZE}, "
+          f"query {item['ques_ix'].shape[0]} tokens, text relation {item['rel_ques'].shape}, "
+          f"{sum(p.numel() for p in net.parameters())} parameters", flush=True)
+    if item["ques_ix"].shape != (15,) or item["rel_ques"].shape != (14, 14, 3):
+        raise AssertionError("VGD items off the reference shapes")
+    save_checkpoint(ckpt, {"state_dict": to_jax_params(net), "net_optim": None, "epoch": 0})
+    del net
+
+    n_batches = math.ceil(SYNTH_SIZE / BATCH)
+    keys = EVAL_KEYS
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = cfg_for("val", dtype, "vgd", SYNTH_SIZE=SYNTH_SIZE, CKPT_PATH=ckpt)
+        exe = Execution(cfg, dev)
+        zero_launches(FA)
+        result = exe.run()
+        torch.cuda.synchronize()
+        launches = dict(FA.LAUNCHES)
+        want = {"fused_attention_fwd": VGD_LAUNCHES_PER_BATCH * n_batches,
+                "fused_attention_fwd_dropout": 0, "fused_attention_bwd": 0,
+                "fused_attention_bwd_rel": 0}
+        if launches != want:
+            raise AssertionError(f"VGD {dtype} eval: kernel launches {launches}, expected {want}")
+        if result.hits.shape != (SYNTH_SIZE,) or not np.isfinite(result.ious).all():
+            raise AssertionError(f"VGD {dtype}: hits of shape {result.hits.shape}")
+
+        gpu_net = exe.load_masters(dataset)
+        host_batch = list(exe.make_loader(dataset, BATCH))[0]
+        batch = batch_to_device(host_batch, dev, keys)
+        with torch.inference_mode():
+            params = eval_params(gpu_net, cfg)
+            fwd_ms = cuda_time_ms(lambda: grounding_forward(gpu_net, params, batch), iters=10)
+            small = {k: v[:16] for k, v in host_batch.items()}
+            g_scores, g_reg = grounding_forward(gpu_net, params, batch_to_device(small, dev, keys))
+            g_hits, g_iou = grounding_hits(cfg, g_scores, g_reg, batch_to_device(small, dev, keys))
+            cpu = torch.device("cpu")
+            cpu_net = Execution(cfg, cpu).load_masters(dataset)
+            cb = batch_to_device(small, cpu, keys)
+            c_scores, c_reg = grounding_forward(cpu_net, eval_params(cpu_net, cfg), cb)
+            c_hits, c_iou = grounding_hits(cfg, c_scores, c_reg, cb)
+        g_scores, g_reg, g_hits, g_iou = (t.cpu() for t in (g_scores, g_reg, g_hits, g_iou))
+        if (g_scores.shape != (16, 100) or g_reg.shape != (16, 100, 4)
+                or not (torch.isfinite(g_scores).all() and torch.isfinite(g_reg).all())):
+            raise AssertionError(f"VGD {dtype}: bad outputs {g_scores.shape} {g_reg.shape}")
+        diff = max((g_scores - c_scores).abs().max().item(), (g_reg - c_reg).abs().max().item())
+        near = (c_iou - cfg.OVERLAP_THRESHOLD).abs() < VGD_IOU_NEAR
+        hits_equal = bool(torch.equal(g_hits[~near], c_hits[~near]))
+        tol = LOGIT_TOL[dtype]
+        print(f"VGD eval {dtype}: {launches['fused_attention_fwd']} kernel launches over "
+              f"{n_batches} batches; IoU@0.5 accuracy {result.accuracy}% ({int(result.hits.sum())} "
+              f"hits); {SYNTH_SIZE / result.seconds:.1f} examples/s end to end (loader "
+              f"included), {BATCH / fwd_ms * 1000:.1f} examples/s forward only ({fwd_ms:.3f} ms "
+              f"per batch of {BATCH}) on {card}; scores and deltas card vs CPU max abs diff "
+              f"{diff:.3e} (tol {tol:g}); hits card {int(g_hits.sum())} CPU {int(c_hits.sum())} "
+              f"of 16, {int(near.sum())} near the threshold", flush=True)
+        if not diff <= tol:
+            raise AssertionError(f"VGD {dtype}: card outputs differ from the CPU run by {diff}")
+        if not hits_equal:
+            raise AssertionError(f"VGD {dtype}: hits differ between the card and the CPU")
+        out[dtype] = {"launches": launches["fused_attention_fwd"],
+                      "examples_per_s": SYNTH_SIZE / result.seconds, "forward_ms": fwd_ms,
+                      "output_diff": diff, "accuracy": result.accuracy}
+    return out
+
+
+def one_step_parity(engine, cfg0, dataset, small, keys, steps, n_rsa, label, dev="cuda"):
+    """One train step at DROPOUT_R 0 from one seeded init: on the card with
+    the kernels, on the card with the plain versions in their place, on the
+    CPU. The loss card vs CPU within STEP_LOSS_TOL; the gradient leaf by
+    leaf, kernels vs plain on the card, by the rule of STEP_LEAF_TOL."""
+    import mmnas_tpu_torch.ops.attention as ATT
+    from mmnas_tpu_torch.engine.vqa import batch_to_device
+    from mmnas_tpu_torch.train.optimizer import build_net_optimizer
+
+    out = {}
+    for name, d, attention in (("kernels", dev, None), ("plain", dev, plain_attention),
+                               ("cpu", "cpu", None)):
+        e = engine(cfg0, torch.device(d))
+        net = e.build_net(dataset).to(d)                   # the init is drawn on the CPU
+        params = dict(net.named_parameters())
+        optim = build_net_optimizer(cfg0, steps)
+        state = optim.init(params)
+        b = batch_to_device(small, torch.device(d), keys)
+        grads = {}
+        hooks = [p.register_hook(lambda g, n=n: grads.__setitem__(n, g.detach().cpu().clone()))
+                 for n, p in params.items()]
+        saved = ATT.fused_attention
+        ATT.fused_attention = attention or saved
+        try:
+            loss, _ = e.train_step(net, optim, state, params, b, torch.Generator(d))
+        finally:
+            ATT.fused_attention = saved
+        for h in hooks:
+            h.remove()
+        out[name] = (float(loss), grads)
+    (l_gpu, g_kernels), (_, g_plain), (l_cpu, _) = out["kernels"], out["plain"], out["cpu"]
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    whole = math.sqrt(sum(float((g ** 2).sum()) for g in g_plain.values()))
+    leaf = {n: (float((g_kernels[n] - g).norm()), float(g.norm())) for n, g in g_plain.items()}
+    relation = [n for n in leaf if n.startswith("linear_y_rel.") or ".wr." in n]
+    floor = {n: 0.0 if n in relation else STEP_LEAF_FLOOR * whole for n in leaf}
+    over = {n: d for n, (d, ref) in leaf.items() if not d <= STEP_LEAF_TOL * ref + floor[n]}
+    worst = max(leaf, key=lambda n: leaf[n][0] / max(leaf[n][1], floor[n]))
+    rel_leaves = {n: (leaf[n][0], leaf[n][1]) for n in relation}
+    print(f"{label} one step (fp32, DROPOUT_R 0, 16 examples): loss card {l_gpu:.6f} vs CPU "
+          f"{l_cpu:.6f} (rel {loss_err:.2e}, tol {STEP_LOSS_TOL:g}); gradients, kernels vs plain "
+          f"on the card, {len(leaf)} leaves: worst {worst} {leaf[worst][0]:.3e} of "
+          f"{leaf[worst][1]:.3e} (whole-net norm {whole:.3e}); tol {STEP_LEAF_TOL:g} of the leaf "
+          f"+ {STEP_LEAF_FLOOR:g} of the whole", flush=True)
+    print("  the relation pass's leaves, no floor: " + "; ".join(
+        f"{n} {d:.3e} of {ref:.3e} ({d / ref:.2e})" for n, (d, ref) in rel_leaves.items()),
+        flush=True)
+    if not loss_err <= STEP_LOSS_TOL:
+        raise AssertionError(f"{label}: one train step's loss differs between the card and the "
+                             f"CPU: {l_gpu} vs {l_cpu}")
+    if len(relation) != 2 + 2 * n_rsa:
+        raise AssertionError(f"{label}: expected the stem and {n_rsa} RSA ops' wr among the "
+                             f"leaves, found {relation}")
+    if over:
+        raise AssertionError(f"{label}: kernel gradients differ from the plain versions' in {over}")
+    return {"step_loss_card_vs_cpu": loss_err,
+            "step_grad_kernels_vs_plain": {"worst_leaf": worst, "diff": leaf[worst][0],
+                                           "norm": leaf[worst][1], "whole_norm": whole,
+                                           "relation_leaves": rel_leaves}}
 
 
 def plain_attention(q, k, v, mask=None, log_bias=None, *, rel=None, dropout_r=0.0,
@@ -1325,10 +1462,21 @@ def main() -> int:
     phase("kernels at the search's shapes")
     evals = eval_path(FA, dev, card)
     phase("eval")
-    train = train_path(FA, dev, card)
+    train = train_path(FA, dev, card, "vqa")
     phase("train")
-    search = search_path(FA, dev, card)
+    search = search_path(FA, dev, card, "vqa", SEARCH_LEGS)
     phase("search")
+    vgd_fwd = kernel_cases(FA, dev, B, H, VGD_CASES)
+    vgd_train_cases = train_kernel_cases(FA, dev, B, H, VGD_CASES)
+    vgd_search_fwd = kernel_cases(FA, dev, SEARCH_B, SEARCH_H, VGD_CASES)
+    vgd_search_train = train_kernel_cases(FA, dev, SEARCH_B, SEARCH_H, VGD_CASES)
+    phase("kernels at the VGD net's and the VGD search's shapes")
+    vgd = {"eval": vgd_eval_path(FA, dev, card)}
+    phase("VGD eval")
+    vgd["train"] = train_path(FA, dev, card, "vgd")
+    phase("VGD train")
+    vgd["search"] = search_path(FA, dev, card, "vgd", VGD_SEARCH_LEGS)
+    phase("VGD search")
 
     def pick(rows, Lq, Lk, kind):
         return next(r for r in rows if r["dtype"] == "float32" and (r["Lq"], r["Lk"],
@@ -1338,6 +1486,11 @@ def main() -> int:
         r = pick(rows, 100, 100, kind)
         return {"shape": f"B{SEARCH_B} H{SEARCH_H} (100,100) {kind} fp32",
                 **{k: r[v] for k, v in keys.items()}}
+
+    def at_vgd_shapes(rows, keys):
+        """A VGD path's two attention shapes, fp32 and bf16."""
+        return [{"shape": f"B{r['B']} H{r['H']} ({r['Lq']},{r['Lk']}) mask {r['dtype']}",
+                 **{k: r[v] for k, v in keys.items()}} for r in rows]
 
     fwd, drop = pick(fwd_cases, 100, 100, "mask"), pick(train_cases, 100, 100, "mask")
     rel = pick(train_cases, 100, 100, "mask+rel")
@@ -1360,20 +1513,26 @@ def main() -> int:
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
          "device_ms": fwd["device_ms"], "library_device_ms": fwd["library_device_ms"],
          "shape": "B64 H8 (100,100) mask fp32",
-         "search_shape": at_search_shape(search_fwd, "mask", fwd_keys)},
+         "search_shape": at_search_shape(search_fwd, "mask", fwd_keys),
+         "vgd_shapes": at_vgd_shapes(vgd_fwd, fwd_keys),
+         "vgd_search_shapes": at_vgd_shapes(vgd_search_fwd, fwd_keys)},
         {"name": "fused_attention_fwd_dropout",
          "max_abs_err": max(c["fwd_err"] for c in fp32_train),
          "ms": drop["fwd_ms"], "plain_ms": drop["plain_fwd_ms"], "bound_ms": drop["fwd_bound_ms"],
          "bound_by": drop["fwd_bound_by"], "library_ms": drop["sdpa_fwd_ms"],
          "device_ms": drop["fwd_device_ms"], "library_device_ms": drop["sdpa_fwd_device_ms"],
          "shape": "B64 H8 (100,100) mask fp32 r 0.1",
-         "search_shape": at_search_shape(search_train, "mask", drop_keys)},
+         "search_shape": at_search_shape(search_train, "mask", drop_keys),
+         "vgd_shapes": at_vgd_shapes(vgd_train_cases, drop_keys),
+         "vgd_search_shapes": at_vgd_shapes(vgd_search_train, drop_keys)},
         {"name": "fused_attention_bwd", "max_abs_err": max(c["grad_abs_err"] for c in fp32_train),
          "ms": drop["bwd_ms"], "plain_ms": drop["plain_bwd_ms"], "bound_ms": drop["bwd_bound_ms"],
          "bound_by": drop["bwd_bound_by"], "library_ms": drop["sdpa_bwd_ms"],
          "device_ms": drop["bwd_device_ms"], "library_device_ms": drop["sdpa_bwd_device_ms"],
          "shape": "B64 H8 (100,100) mask fp32 r 0.1",
-         "search_shape": at_search_shape(search_train, "mask", bwd_keys)},
+         "search_shape": at_search_shape(search_train, "mask", bwd_keys),
+         "vgd_shapes": at_vgd_shapes(vgd_train_cases, bwd_keys),
+         "vgd_search_shapes": at_vgd_shapes(vgd_search_train, bwd_keys)},
         {"name": "fused_attention_bwd_rel", "max_abs_err": rel["rel_abs_err"],
          "ms": rel["rel_ms"], "plain_ms": rel["rel_plain_ms"], "bound_ms": rel["rel_bound_ms"],
          "bound_by": rel["rel_bound_by"], "library_ms": None,
@@ -1381,17 +1540,20 @@ def main() -> int:
          "shape": "B64 H8 (100,100) Rr4 R64 fp32",
          "search_shape": at_search_shape(search_train, "mask+rel", rel_keys)},
     ]
-    # the attention kernels' launches on this slice's main path, the fp32
-    # search; each path's own counts beside them
-    main_path = search["float32_bs128_k1"]["launches"]
+    # the attention kernels' launches on this slice's main path, the VGD
+    # search (fp32, BS 128, KPATH 1); each path's own counts beside them
+    main_path = vgd["search"]["float32_bs128_k1"]["launches"]
     for row in rows:
+        fwd_only = row["name"] == "fused_attention_fwd"
         row["launches"] = main_path[row["name"]]
         row["launches_by_path"] = {
-            "eval_fp32": evals["float32"]["launches"] if row["name"] == "fused_attention_fwd"
-            else 0,
-            "train_fp32": train["launches"][row["name"]],
-            "train_bf16": train["bf16"]["launches"][row["name"]],
-            **{f"search_{leg}": v["launches"][row["name"]] for leg, v in search.items()}}
+            "eval_fp32": evals["float32"]["launches"] if fwd_only else 0,
+            **{f"train_{dt}": leg["launches"][row["name"]] for dt, leg in train["legs"].items()},
+            **{f"search_{leg}": v["launches"][row["name"]] for leg, v in search.items()},
+            "vgd_eval_fp32": vgd["eval"]["float32"]["launches"] if fwd_only else 0,
+            **{f"vgd_train_{dt}": leg["launches"][row["name"]]
+               for dt, leg in vgd["train"]["legs"].items()},
+            "vgd_search_fp32": main_path[row["name"]]}
     rows += [{"name": name, **row} for name, row in probes["rows"].items()]
     for row in rows:
         source, replaces = KERNELS[row["name"]]
@@ -1402,10 +1564,12 @@ def main() -> int:
     details = os.path.join(WORK, "kernel_cases.json")
     with open(details, "w") as f:
         json.dump({"fwd": fwd_cases, "train": train_cases, "search_fwd": search_fwd,
-                   "search_train": search_train}, f)
+                   "search_train": search_train, "vgd_fwd": vgd_fwd,
+                   "vgd_train": vgd_train_cases, "vgd_search_fwd": vgd_search_fwd,
+                   "vgd_search_train": vgd_search_train}, f)
     print(f"kernel cases: {os.path.relpath(details, HERE)}")
     print(json.dumps({"kernels": rows, "probes": {k: v for k, v in probes.items() if k != "rows"},
-                      "eval": evals, "train": train, "search": search}))
+                      "eval": evals, "train": train, "search": search, "vgd": vgd}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

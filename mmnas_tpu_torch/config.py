@@ -520,6 +520,6 @@ def cfg_from_args(task: str, args, search: bool = False) -> Cfg:
         cfg = cfg.replace(EVAL_BATCH_SIZE=cfg.BATCH_SIZE)
     if cfg.MULTIHOST:
         raise NotImplementedError(
-            "--MULTIHOST is not ported yet (ROADMAP.md, queue 1 item 12)")
+            "--MULTIHOST is not ported yet (ROADMAP.md, queue 1: parallel/)")
     suffix = "-search" if search else "-full"
     return cfg.replace(VERSION=cfg.VERSION + suffix)

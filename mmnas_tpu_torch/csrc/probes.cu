@@ -18,12 +18,16 @@
 //    head, so they give equal bits, and the attention kernels' scores carry
 //    the same bias bits. That is what the probes check.
 // 3. probe_slice (`k`, _probe_slice.py:7): out[i, j] = 2 plane[0, i, j] in
-//    fp32 from an fp32 or bf16 plane, written by one block per chunk of rows
-//    (the TPU probe wrote four row chunks of 25).
+//    fp32 from an fp32 or bf16 plane, written per chunk of rows (the TPU
+//    probe wrote four row chunks of 25) by several blocks of 128 threads a
+//    chunk, four loads in flight a thread: at 10,000 elements the time is
+//    the launch's and the loads' latency, so the design spreads them.
 // 4. probe_outer (`k`, _probe_outer.py:9): out[i, j, r] = plane[i, j] w[r] +
 //    b1[r] in fp32, from fp32 or bf16 operands. The product and the sum are
 //    rounded one at a time (__fmul_rn, __fadd_rn: no FMA contraction), as
-//    numpy rounds them.
+//    numpy rounds them. One thread per four r of one element, stored as one
+//    16-byte write (the output's bytes are the work), one block of 256
+//    threads per 1024 outputs, no 64-bit division per output.
 // 5. probe_wrblock_a / probe_wrblock_b (`kA`, `kB`, _probe_wrblock.py:9,21):
 //    Wr [H, R, 1] copied to out[b, h] for b < 2 on a (2, H) grid, through
 //    two layouts: A reads through a pointer to its head's slice, B gets
@@ -91,28 +95,56 @@ __global__ void __launch_bounds__(kThreads) probe_bias2_kernel(const BiasArgs a)
   }
 }
 
-// grid (chunks): rows [chunk * rows, +rows) of out = 2 plane
+// grid (chunks, parts): rows [chunk * rows, +rows) of out = 2 plane, each
+// chunk cut into parts of kSliceThreads * kPerThread elements; a block takes
+// parts blockIdx.y, + gridDim.y, ... (gridDim.y is at most kMaxParts), and a
+// thread kPerThread elements of a part kSliceThreads apart (coalesced,
+// independent loads in flight)
+constexpr int kSliceThreads = 128, kPerThread = 4, kMaxParts = 65535;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) probe_slice_kernel(const T* plane, float* out, int L,
-                                                                int rows) {
+__global__ void __launch_bounds__(kSliceThreads) probe_slice_kernel(const T* plane, float* out,
+                                                                     int L, int rows) {
+  constexpr int kPart = kSliceThreads * kPerThread;
   const int row0 = blockIdx.x * rows;
   const int n = min(rows, L - row0) * L;
   const long base = (long)row0 * L;
-  for (int i = threadIdx.x; i < n; i += kThreads) out[base + i] = load_f32(plane, base + i) * 2.f;
+  for (int start = blockIdx.y * kPart; start < n; start += gridDim.y * kPart) {
+    const int i0 = start + threadIdx.x;
+    float v[kPerThread];
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int i = i0 + k * kSliceThreads;
+      v[k] = i < n ? load_f32(plane, base + i) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int i = i0 + k * kSliceThreads;
+      if (i < n) out[base + i] = v[k] * 2.f;
+    }
+  }
 }
 
-// out[p, r] = plane[p] w[r] + b1[r] over p < n, r < R
-template <typename T>
+// out[p, r] = plane[p] w[r] + b1[r] over p < n, r < R; a thread writes V
+// neighbouring r of one p, as one 16-byte store when V is 4 (R % 4 == 0)
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads) probe_outer_kernel(const T* plane, const T* w,
                                                                 const T* b1, float* out, long n,
                                                                 int R) {
-  const long total = n * R;
-  for (long i = (long)blockIdx.x * kThreads + threadIdx.x; i < total;
-       i += (long)gridDim.x * kThreads) {
-    const long p = i / R;
-    const int r = (int)(i - p * R);
-    out[i] = __fadd_rn(__fmul_rn(load_f32(plane, p), load_f32(w, r)), load_f32(b1, r));
-  }
+  const int groups = R / V;                   // V-wide groups per p
+  const long u = (long)blockIdx.x * kThreads + threadIdx.x;
+  if (u >= n * groups) return;
+  const long p = u / groups;
+  const int r = (int)(u - p * groups) * V;
+  const float x = load_f32(plane, p);
+  float o[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+    o[k] = __fadd_rn(__fmul_rn(x, load_f32(w, r + k)), load_f32(b1, r + k));
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(out + p * R + r) = make_float4(o[0], o[1], o[2], o[3]);
+  else
+    out[p * R + r] = o[0];
 }
 
 // grid (2, H): A cuts its head's slice first (the per-head block the TPU
@@ -166,36 +198,48 @@ extern "C" int mmnas_probe_bias(int fresh, const void* raw, const void* w1, cons
 // dtype: 0 = float32, 1 = bfloat16 plane; out fp32 [L, L] in `chunks` row chunks.
 extern "C" int mmnas_probe_slice(int dtype, const void* plane, void* out, int L, int chunks,
                                  void* stream) {
-  if (L < 1 || chunks < 1 || chunks > L) return cudaErrorInvalidValue;
+  if (L < 1 || chunks < 1 || chunks > L || (long)L * L > (1L << 30)) return cudaErrorInvalidValue;
   const int rows = (L + chunks - 1) / chunks;
+  const int per_block = kSliceThreads * kPerThread;
+  const int parts = (rows * L + per_block - 1) / per_block;
+  const dim3 grid(chunks, parts < kMaxParts ? parts : kMaxParts);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    probe_slice_kernel<float><<<chunks, kThreads, 0, s>>>(static_cast<const float*>(plane),
-                                                           static_cast<float*>(out), L, rows);
+    probe_slice_kernel<float><<<grid, kSliceThreads, 0, s>>>(static_cast<const float*>(plane),
+                                                             static_cast<float*>(out), L, rows);
   else if (dtype == 1)
-    probe_slice_kernel<__nv_bfloat16><<<chunks, kThreads, 0, s>>>(
+    probe_slice_kernel<__nv_bfloat16><<<grid, kSliceThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(plane), static_cast<float*>(out), L, rows);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
+template <typename T>
+void launch_outer(const void* plane, const void* w, const void* b1, void* out, long n, int R,
+                  cudaStream_t s) {
+  // 16-byte stores need R % 4 == 0 and out on a 16-byte boundary
+  const bool wide = R % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long units = n * (wide ? R / 4 : R);
+  const unsigned blocks = (unsigned)((units + kThreads - 1) / kThreads);
+  const T *pp = static_cast<const T*>(plane), *wp = static_cast<const T*>(w),
+          *bp = static_cast<const T*>(b1);
+  float* op = static_cast<float*>(out);
+  if (wide)
+    probe_outer_kernel<T, 4><<<blocks, kThreads, 0, s>>>(pp, wp, bp, op, n, R);
+  else
+    probe_outer_kernel<T, 1><<<blocks, kThreads, 0, s>>>(pp, wp, bp, op, n, R);
+}
+
 // dtype as above for plane [n], w [R], b1 [R]; out fp32 [n, R].
 extern "C" int mmnas_probe_outer(int dtype, const void* plane, const void* w, const void* b1,
                                  void* out, long n, int R, void* stream) {
-  if (n < 1 || R < 1) return cudaErrorInvalidValue;
-  const long total = n * R;
-  long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 132L * 16) blocks = 132L * 16;  // 16 blocks per SM; the rest by striding
+  if (n < 1 || R < 1 || n * R > (1L << 38)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    probe_outer_kernel<float><<<(int)blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(plane), static_cast<const float*>(w),
-        static_cast<const float*>(b1), static_cast<float*>(out), n, R);
+    launch_outer<float>(plane, w, b1, out, n, R, s);
   else if (dtype == 1)
-    probe_outer_kernel<__nv_bfloat16><<<(int)blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(plane), static_cast<const __nv_bfloat16*>(w),
-        static_cast<const __nv_bfloat16*>(b1), static_cast<float*>(out), n, R);
+    launch_outer<__nv_bfloat16>(plane, w, b1, out, n, R, s);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

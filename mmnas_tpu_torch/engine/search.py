@@ -101,6 +101,7 @@ class SearchResult:
 
 class SearchExecution:
     TASK = "vqa"
+    TARGET_KEYS = ("ans",)      # the batch keys a step reads besides INPUT_KEYS
 
     def __init__(self, cfg, device: torch.device):
         for flag in ("DENSE_WEIGHT_STEP", "UNIFIED_WEIGHT_STEP", "HYBRID_WEIGHT_STEP"):
@@ -240,7 +241,7 @@ class SearchExecution:
 
     def search(self, train_loader: Loader, eval_loader: Loader) -> SearchResult:
         cfg, dev = self.cfg, self.device
-        keys = INPUT_KEYS + ("ans",)
+        keys = INPUT_KEYS + self.TARGET_KEYS
         net = self.build_net(train_loader.dataset)
         masters = dict(net.named_parameters())
         epoch_steps = train_loader.steps_per_epoch()

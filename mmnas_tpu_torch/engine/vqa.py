@@ -84,6 +84,9 @@ def step_seed(seed: int, global_step: int) -> int:
 
 
 class Execution:
+    TASK = "vqa"
+    TARGET_KEYS = ("ans",)      # the batch keys a train step reads besides INPUT_KEYS
+
     def __init__(self, cfg, device: torch.device):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -115,30 +118,38 @@ class Execution:
             "ans_size": dataset.ans_size,
             "pretrained_emb": getattr(dataset, "pretrained_emb", None),
         }
-        return NetFull(cfg, genotype, init_dict, task="vqa")
+        return NetFull(cfg, genotype, init_dict, task=self.TASK)
 
-    def load_net(self, dataset) -> NetFull:
-        """build_net + the checkpoint at CKPT_FILE_PATH, on the device in the
-        compute dtype, in eval mode."""
-        cfg = self.cfg
-        if not cfg.CKPT_FILE_PATH:
+    def load_masters(self, dataset) -> NetFull:
+        """build_net + the checkpoint at CKPT_FILE_PATH, fp32, on the device,
+        in eval mode."""
+        if not self.cfg.CKPT_FILE_PATH:
             raise ValueError("eval needs a checkpoint: pass --CKPT_PATH")
         net = self.build_net(dataset)
-        ckpt = load_checkpoint(cfg.CKPT_FILE_PATH)
+        ckpt = load_checkpoint(self.cfg.CKPT_FILE_PATH)
         net.load_state_dict(from_jax_params(ckpt["state_dict"]), strict=True)
-        return net.to(self.device, compute_dtype(cfg)).eval()
+        return net.to(self.device).eval()
+
+    def load_net(self, dataset) -> NetFull:
+        """`load_masters` cast to the compute dtype."""
+        return self.load_masters(dataset).to(compute_dtype(self.cfg))
 
     # ----------------------------------------------------------------- train
+    def loss(self, pred, batch: Dict[str, torch.Tensor]):
+        """The summed BCE-with-logits loss of the logits `pred` (train_vqa.py:237)."""
+        return bce_with_logits_sum(pred, batch["ans"])
+
     def train_step(self, net: NetFull, optim, opt_state: Dict,
                    params: Dict[str, torch.nn.Parameter], batch: Dict[str, torch.Tensor],
                    generator: torch.Generator):
         """One optimizer step on one device batch (mmnas_tpu/engine/vqa.py:115-126):
         the forward computes with `compute_params` (bf16 casts of the fp32
         masters under --DTYPE bfloat16), so the gradients, the clip and Adam
-        are fp32. Returns (loss, lr); the loss stays on the device."""
+        are fp32; `self.loss` is the task's loss. Returns (loss, lr); the loss
+        stays on the device."""
         cfg = self.cfg
-        logits = compute_call(net, cfg, (batch,), {"train": True, "generator": generator})
-        loss = bce_with_logits_sum(logits, batch["ans"])
+        pred = compute_call(net, cfg, (batch,), {"train": True, "generator": generator})
+        loss = self.loss(pred, batch)
         names = list(params)
         grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
         # a parameter the loss does not reach has a zero gradient, as in JAX
@@ -176,7 +187,7 @@ class Execution:
             # step would wait for the device every step
             losses, t0, lr = [], time.time(), 0.0
             for step, host_batch in enumerate(train_loader):
-                batch = batch_to_device(host_batch, self.device, INPUT_KEYS + ("ans",))
+                batch = batch_to_device(host_batch, self.device, INPUT_KEYS + self.TARGET_KEYS)
                 generator.manual_seed(step_seed(cfg.SEED, global_step))
                 loss, lr = self.train_step(net, optim, opt_state, params, batch, generator)
                 losses.append(loss)

@@ -1,10 +1,18 @@
-"""Fixed-architecture net for VQA (counterpart of mmnas_tpu/models/net.py).
+"""Fixed-architecture nets for VQA and VGD (counterpart of
+mmnas_tpu/models/net.py).
 
 GloVe embedding -> LSTM text encoder, image-feature projection, the
-geometry-relation stem, genotype-defined encoder/decoder cells, and the VQA
-head: AttFlat(x) + AttFlat(y) -> LN -> proj[ans_size] logits
-(full_vqa.py:85-111). Module and parameter names mirror the JAX pytree, so
-models/convert.py moves weights between the two packages by name. The stem
+geometry-relation stem, genotype-defined encoder/decoder cells, and a task
+head (the two tasks share the whole trunk, full_vgd.py:76-114):
+
+  vqa: AttFlat(x) + AttFlat(y) -> LN -> proj[ans_size] logits
+       (full_vqa.py:85-111);
+  vgd: AttFlat(x)[:, None] + attfc_y(y) -> LN -> per region proj_scores[1]
+       (log_softmax over all FRCNFEAT_LEN regions, pads included, when
+       SCORES_LOSS is 'kld') and proj_reg[4] box deltas (full_vgd.py:104-114).
+
+Module and parameter names mirror the JAX pytree, so models/convert.py
+moves weights between the two packages by name. The stem
 and the head are shared with the search supernet (models/supernet.py):
 `init_stem`/`apply_stem` and `init_heads`/`apply_heads` register and run
 them on the net itself, so their parameters sit at the root of the net, as
@@ -15,14 +23,17 @@ Precision: under --DTYPE bfloat16 the eval path casts the whole net once
 step on `compute_params(net, cfg)`, their bf16 casts, through
 `torch.func.functional_call` (`compute_call`), so the gradients arrive in
 fp32 on the masters (the JAX package's `cast_for_compute`, net.py:44-63). LN
-statistics and the attention softmax stay fp32 either way, and the logits
-leave in fp32.
+statistics and the attention softmax stay fp32 either way, and the heads'
+outputs leave in fp32.
 
 Batch dict keys (fixed shapes, as the JAX package's loaders give them):
   frcn_feat [B, FRCNFEAT_LEN, FRCNFEAT_SIZE]  region features
   bbox_feat [B, FRCNFEAT_LEN, 5]              boxes (with BBOX_FEATURE)
   rel_img   [B, L_img, L_img, 4]              geometry relation tensor
-  ques_ix   [B, MAX_TOKEN] int64              token ids (0 = PAD)
+  ques_ix   [B, MAX_TOKEN] int64              token ids (0 = PAD); VGD's
+                                              query is MAX_TOKEN + 1 = 15 long
+                                              (load_data_vgd.py:190)
+VGD batches also carry the supervision and eval keys of `VGD_KEYS`.
 """
 
 from __future__ import annotations
@@ -39,6 +50,12 @@ from mmnas_tpu_torch.ops.modules import AttFlat, OpCfg
 from mmnas_tpu_torch.ops.registry import make_op
 
 INPUT_KEYS = ("frcn_feat", "bbox_feat", "rel_img", "ques_ix")
+# a VGD batch's targets and eval inputs (mmnas_tpu/data/vgd.py): score and
+# box-delta targets with their masks, the ground-truth box, the proposals
+# and the image's (H, W)
+VGD_KEYS = ("scores", "scores_mask", "transformed_bbox", "bbox_mask", "gt_bbox", "bbox",
+            "img_shape")
+TASKS = ("vqa", "vgd")
 _FLOAT_INPUTS = ("frcn_feat", "bbox_feat", "rel_img")
 
 
@@ -91,8 +108,13 @@ def compute_call(module: nn.Module, cfg, args, kwargs=None,
 
 
 def cast_output(cfg, out):
-    """Heads leave in fp32 (net.py:66-71)."""
-    return out.float() if cfg.DTYPE == "bfloat16" else out
+    """Heads leave in fp32 (net.py:66-71): the VQA logits, or both of the VGD
+    head's (scores, reg)."""
+    if cfg.DTYPE != "bfloat16":
+        return out
+    if isinstance(out, tuple):
+        return tuple(o.float() for o in out)
+    return out.float()
 
 
 def op_cfg_from(cfg) -> OpCfg:
@@ -150,38 +172,58 @@ def apply_stem(net: nn.Module, cfg, batch):
     return x, y, x_mask, y_mask, y_rel
 
 
-def init_heads(net: nn.Module, cfg, ocfg: OpCfg, ans_size: int) -> None:
-    """The VQA head (net.py:162-176)."""
+def check_task(task: str, what: str) -> None:
+    """Raise for a task whose head the port does not have yet."""
+    if task not in TASKS:
+        raise NotImplementedError(
+            f"task '{task}': the {what} is not ported yet (ROADMAP.md, queue 1: ITM)")
+
+
+def init_heads(net: nn.Module, cfg, ocfg: OpCfg, ans_size: int, task: str = "vqa") -> None:
+    """The task's head (net.py:162-176): VQA's AttFlat pair and proj, or
+    VGD's AttFlat(x), attfc_y and the per-region proj_scores and proj_reg."""
     net.attflat_x = AttFlat(ocfg)
-    net.attflat_y = AttFlat(ocfg)
+    if task == "vgd":      # per-region resolution on the image side (full_vgd.py:77)
+        net.attfc_y = nn.Linear(cfg.HSIZE, cfg.ATTFLAT_OUT_SIZE)
+    else:
+        net.attflat_y = AttFlat(ocfg)
     net.proj_norm = P.LayerNorm(cfg.ATTFLAT_OUT_SIZE)
-    net.proj = nn.Linear(cfg.ATTFLAT_OUT_SIZE, ans_size)
+    if task == "vgd":
+        net.proj_scores = nn.Linear(cfg.ATTFLAT_OUT_SIZE, 1)
+        net.proj_reg = nn.Linear(cfg.ATTFLAT_OUT_SIZE, 4)
+    else:
+        net.proj = nn.Linear(cfg.ATTFLAT_OUT_SIZE, ans_size)
 
 
 def apply_heads(net: nn.Module, x, y, x_mask, y_mask, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-    """AttFlat(x) + AttFlat(y) -> LN -> proj: the logits [B, ans_size]
-    (net.py:179-185)."""
+    """The head of `net.task`. VQA: AttFlat(x) + AttFlat(y) -> LN -> proj,
+    the logits [B, ans_size]. VGD: AttFlat(x)[:, None] + attfc_y(y) -> LN ->
+    (scores [B, L], reg [B, L, 4]), the scores log-softmaxed over all L
+    regions under SCORES_LOSS 'kld' (net.py:179-193)."""
     xf = net.attflat_x(x, x_mask, train, generator)
+    if net.task == "vgd":
+        xy = net.proj_norm(xf[:, None, :] + net.attfc_y(y))
+        scores = net.proj_scores(xy)[..., 0]
+        if net.cfg.SCORES_LOSS == "kld":
+            scores = torch.log_softmax(scores, dim=-1)
+        return scores, net.proj_reg(xy)
     yf = net.attflat_y(y, y_mask, train, generator)
     return net.proj(net.proj_norm(xf + yf))
 
 
 class NetFull(nn.Module):
-    """Genotype-defined multimodal encoder-decoder net, task 'vqa'."""
+    """Genotype-defined multimodal encoder-decoder net, task 'vqa' or 'vgd'."""
 
     def __init__(self, cfg, genotype: Genotype, init_dict: Dict, task: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         task = task or cfg.TASK
-        if task != "vqa":
-            raise NotImplementedError(
-                f"task '{task}': the VGD and ITM heads are not ported yet "
-                "(ROADMAP.md, queue 1 items 13-14)")
-        if cfg.SHIP_INT8:
-            raise NotImplementedError("SHIP_INT8 is not ported yet (ROADMAP.md, queue 1 item 5)")
-        if cfg.DEVICE_REL:
-            raise NotImplementedError("DEVICE_REL is not ported yet (ROADMAP.md, queue 1 item 5)")
+        check_task(task, "head")
+        for flag in ("SHIP_INT8", "DEVICE_REL"):
+            if getattr(cfg, flag):
+                raise NotImplementedError(
+                    f"{flag} is not ported yet (ROADMAP.md, queue 1: SHIP_INT8 and DEVICE_REL)")
         # the full net feeds the raw [B,T,T,3] text relation to the encoder
         # (full_vqa.py:85-104 has no x-rel projection): no rel op there
         for node in genotype["enc"]:
@@ -191,6 +233,7 @@ class NetFull(nn.Module):
                         f"'{name}' in enc genotype: fixed-arch nets have no "
                         "text-relation projection (reference parity)")
         self.cfg = cfg
+        self.task = task
         self.genotype = genotype
         self.ocfg = op_cfg_from(cfg)
         self.pretrained_emb = init_dict.get("pretrained_emb", None)
@@ -199,7 +242,7 @@ class NetFull(nn.Module):
         # LAYERS identical cells per side (full_vqa.py:31-44)
         self.enc = nn.ModuleList(self.build_cell("enc") for _ in range(cfg.LAYERS))
         self.dec = nn.ModuleList(self.build_cell("dec") for _ in range(cfg.LAYERS))
-        init_heads(self, cfg, self.ocfg, init_dict.get("ans_size", 1))
+        init_heads(self, cfg, self.ocfg, init_dict.get("ans_size", 1), task)
         self.reset_parameters(generator or torch.Generator().manual_seed(cfg.SEED))
 
     def build_cell(self, cell_type: str) -> nn.ModuleList:

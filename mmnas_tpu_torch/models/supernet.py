@@ -1,10 +1,10 @@
-"""Weight-sharing search supernet for VQA (counterpart of
+"""Weight-sharing search supernet for VQA and VGD (counterpart of
 mmnas_tpu/models/supernet.py).
 
 Every node of the 12-node encoder and the 18-node decoder holds one op of
 each candidate in its search space (enc_safe, dec_safe), so `enc[node][op]`
-and `dec[node][op]` mirror the JAX pytree, and the stem and the VQA head
-are those of the fixed net (models/net.py). The architecture weights alpha
+and `dec[node][op]` mirror the JAX pytree, and the stem and the task's
+head are those of the fixed net (models/net.py). The architecture weights alpha
 are one [n_nodes, n_choices] fp32 tensor per cell type, held by the caller
 (the search engine), not by this module.
 
@@ -25,7 +25,7 @@ them. Forward modes:
 
 The JAX package's `unified`/`hybrid` modes, its dense weight step and
 REMAT are not ported (ROADMAP.md, "Not ported"); `encode_text` and
-`apply_decoder` wait for ITM (queue 1 item 14).
+`apply_decoder` wait for ITM (ROADMAP.md, queue 1: ITM).
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ import torch
 from torch import nn
 
 from mmnas_tpu_torch.models.net import (
-    apply_heads, apply_stem, cast_for_compute, cast_output, init_heads, init_stem, op_cfg_from,
+    apply_heads, apply_stem, cast_for_compute, cast_output, check_task, init_heads, init_stem,
+    op_cfg_from,
 )
 from mmnas_tpu_torch.ops import primitives as P
 from mmnas_tpu_torch.ops.registry import make_op
@@ -69,10 +70,7 @@ class NetSearch(nn.Module):
     def __init__(self, cfg, init_dict: Dict, task: str = "vqa",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if task != "vqa":
-            raise NotImplementedError(
-                f"task '{task}': the VGD and ITM search nets are not ported yet "
-                "(ROADMAP.md, queue 1 items 13-14)")
+        check_task(task, "search net")
         if cfg.LAYERS != 1:
             raise ValueError("the search supernet has one cell per side: LAYERS must be 1 "
                              "(reference parity)")
@@ -80,8 +78,10 @@ class NetSearch(nn.Module):
             raise NotImplementedError("REMAT is not ported (ROADMAP.md, 'Not ported')")
         for flag in ("SHIP_INT8", "DEVICE_REL"):
             if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, queue 1 item 5)")
+                raise NotImplementedError(
+                    f"{flag} is not ported yet (ROADMAP.md, queue 1: SHIP_INT8 and DEVICE_REL)")
         self.cfg = cfg
+        self.task = task
         self.ocfg = op_cfg_from(cfg)
         self.spaces = SPACES
         self.n_nodes = dict(cfg.NODES)
@@ -90,7 +90,7 @@ class NetSearch(nn.Module):
         init_stem(self, cfg, init_dict["token_size"], with_x_rel=True)
         self.enc = self.build_nodes("enc")
         self.dec = self.build_nodes("dec")
-        init_heads(self, cfg, self.ocfg, init_dict.get("ans_size", 1))
+        init_heads(self, cfg, self.ocfg, init_dict.get("ans_size", 1), task)
         self.reset_parameters(generator or torch.Generator().manual_seed(cfg.SEED))
         # every parameter's name -> (cell type, node, op) for the candidate
         # ops' parameters, None for the others (update_mask runs per path)
@@ -187,7 +187,8 @@ class NetSearch(nn.Module):
     def forward(self, batch, alpha: Optional[Mapping[str, torch.Tensor]],
                 idx: Mapping[str, np.ndarray], mode: str = "sampled", train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        """Logits [B, ans_size] in fp32. idx: host indices, [n] per cell type
+        """The head's output in fp32: VQA logits [B, ans_size], VGD (scores
+        [B, L], reg [B, L, 4]). idx: host indices, [n] per cell type
         ('sampled', 'full') or [n, 2] ('two'); alpha: fp32 device tensors,
         read by 'full' and 'two'."""
         if mode in ("unified", "hybrid"):

@@ -27,6 +27,6 @@ def make_op(name: str, cfg: OpCfg, norm: bool, residual: bool) -> nn.Module:
     (ops_adapter.py:24-73)."""
     if name not in OPS:
         raise NotImplementedError(
-            f"op '{name}' is not ported yet (ROADMAP.md, queue 1 item 4: the "
-            "other registry factories)")
+            f"op '{name}' is not ported yet (ROADMAP.md, queue 1: the rest of the "
+            "op library)")
     return OPS[name](cfg, norm, residual)

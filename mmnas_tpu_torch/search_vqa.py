@@ -24,7 +24,7 @@ from mmnas_tpu_torch.engine.search import SearchExecution
 def main(argv=None):
     args = make_arg_parser("vqa", search=True).parse_args(argv)
     if args.MULTIHOST:
-        raise NotImplementedError("--MULTIHOST is not ported (ROADMAP.md, queue 1 item 12)")
+        raise NotImplementedError("--MULTIHOST is not ported (ROADMAP.md, queue 1: parallel/)")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the GPU")
     cfg = cfg_from_args("vqa", args, search=True)

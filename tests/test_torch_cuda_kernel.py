@@ -14,7 +14,11 @@ input checks and launch counters.
 - the tiles' edges: query lengths around the 16-row warp tile, key lengths
   around the 16-key chunk (and not multiples of 4, the keys one Philox call
   serves), a fully padded row, D 32 and 128, the search's B 32 H 4 with the
-  relation chain and its `pre` residual against the plain chain.
+  relation chain and its `pre` residual against the plain chain;
+- the VGD net's shapes (B 64, H 8: SA 15x15, GA 100x15);
+- the relation pass on random inputs at the search's B 128, H 4, with the
+  live-mask flips between the kernel and the plain version counted and
+  their contribution bounded.
 
 Needs a CUDA GPU and nvcc; skipped elsewhere. This file imports no JAX, so
 on a machine without it run it as
@@ -409,8 +413,9 @@ def test_backward_without_relation_gradients_skips_the_relation_pass(dev, dt):
 def test_probe_kernels_match_their_plain_versions(dev):
     """The five probe kernels (csrc/probes.cu) on the probes' own inputs:
     the two bias kernels give equal bits and match the plain version (1e-5
-    where pre > 0.1, and in exp(bias) = max(pre, 1e-6)); slice, outer and
-    wrblock are exact."""
+    where pre > 0.1, and in exp(bias) = max(pre, 1e-6)), which is itself
+    within 1e-5 of the fp64 chain and the same bits on one CPU thread;
+    slice, outer and wrblock are exact."""
     from mmnas_tpu_torch.tools import probes as PR
 
     before = dict(PR.LAUNCHES)
@@ -420,6 +425,19 @@ def test_probe_kernels_match_their_plain_versions(dev):
     torch.cuda.synchronize()
     assert torch.equal(once, fresh)
     want = PR.bias_reference(*args)
+    # the plain version on the CPU: the same bits on one thread as on all of
+    # them, and within the tolerance of the fp64 chain, so that a failure
+    # below shows which side moved
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert torch.equal(PR.bias_reference(*args), want)
+    finally:
+        torch.set_num_threads(threads)
+    fp64 = torch.from_numpy(PR.bias_fp64(*PR.bias_inputs()))
+    torch.testing.assert_close(want.double().exp(), fp64.exp(), rtol=0, atol=1e-5)
+    print(f"probe bias plain version: the same bits on 1 and {threads} CPU threads; max "
+          f"|exp(bias) - exp(fp64 chain)| {(want.double().exp() - fp64.exp()).abs().max():.3e}")
     torch.testing.assert_close(once.exp().cpu(), want.exp(), rtol=0, atol=1e-5)
     away = want.exp() > 0.1
     torch.testing.assert_close(once.cpu()[away], want[away], rtol=0, atol=1e-5)
@@ -434,6 +452,20 @@ def test_probe_kernels_match_their_plain_versions(dev):
     assert {n: PR.LAUNCHES[n] - before[n] for n in before} == {
         "probe_bias": 1, "probe_bias2": 1, "probe_slice": 2, "probe_outer": 2,
         "probe_wrblock_a": 1, "probe_wrblock_b": 1}
+    # off the probes' shapes: a plane whose chunks end mid-part, and R not a
+    # multiple of 4 (the outer kernel's one-column stores)
+    g = torch.Generator().manual_seed(4)
+    for dt in (torch.float32, torch.bfloat16):
+        plane = torch.randn(1, 37, 37, generator=g).to(dt)
+        assert torch.equal(PR.probe_slice(plane.to(dev), chunks=3).cpu(),
+                           PR.slice_reference(plane))
+        ops = [torch.randn(*shape, generator=g).to(dt) for shape in ((7, 9), (5,), (5,))]
+        assert torch.equal(PR.probe_outer(*(t.to(dev) for t in ops)).cpu(),
+                           PR.outer_reference(*ops))
+    # one chunk of more parts (512 elements each) than a grid's second
+    # dimension holds (65535): each block takes several
+    plane = torch.randn(1, 6000, 6000, generator=torch.Generator(dev).manual_seed(5), device=dev)
+    assert torch.equal(PR.probe_slice(plane, chunks=1), PR.slice_reference(plane))
     with pytest.raises(ValueError, match="heads"):
         PR.probe_bias(*(a.to(dev) for a in args[:3]), torch.zeros(17, 64, device=dev),
                       torch.zeros(17, device=dev))
@@ -610,3 +642,70 @@ def test_search_k8_rows_with_the_relation_chain(dev):
     do = torch.randn(32, 4, 100, 64, generator=torch.Generator().manual_seed(11)).to(
         dev, torch.bfloat16)
     check_backward(args, m, None, r, keep, pre, RATE, do, torch.bfloat16)
+
+
+# The VGD net's attention shapes: a 15-token query (MAX_TOKEN + 1, its last
+# slot always a pad), so the encoder's SA is 15x15 and the decoder's GA
+# 100x15, at the fixed net's B 64, 8 heads of 64, and at the search's B 128,
+# 4 heads of 64 (HSIZE 256, KPATH 1).
+VGD_SHAPES = [(15, 15), (100, 15)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Lq,Lk", VGD_SHAPES)
+@pytest.mark.parametrize("B,H", [(64, 8), (128, 4)])
+def test_vgd_shapes_match_plain_version(dev, B, H, Lq, Lk, dt):
+    """The forward, the dropout forward (its keep mask the Philox bits of
+    `keep_mask_reference`: 15 keys end on a partial group of 4) and the
+    backward on that mask, against the plain version with the pad mask."""
+    args, m, _, _ = on(dev, dt, *make(B, H, Lq, Lk, 64, "mask", seed=Lq * Lk))
+    tol = 5e-2 if dt == torch.bfloat16 else 1e-4
+    got = FA.fused_attention(*args, m)
+    want = FA.fused_attention_reference(*[t.float() for t in args], m)
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+    out, keep, _ = FA.attention_fwd(*args, m, dropout_r=RATE, seed=77 + Lq)
+    assert torch.equal(keep.cpu().bool(), FA.keep_mask_reference(77 + Lq, B, H, Lq, Lk, RATE))
+    want = FA.fused_attention_reference(*[t.float() for t in args], m, keep=keep, dropout_r=RATE)
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=tol)
+    do = torch.randn(B, H, Lq, 64, generator=torch.Generator().manual_seed(Lq)).to(dev, dt)
+    assert bwd_fits(Lq, Lk, 64, dt)
+    check_backward(args, m, None, None, keep, None, RATE, do, dt)
+
+
+def test_relation_pass_live_mask_flips_on_random_inputs(dev):
+    """B 128, H 4, (100, 100), Rr 4, R 64, fp32 on random (not grid) inputs:
+    where u = raw W1^T + b1 lies within rounding of 0 the kernel's FMA chain
+    (u = fma(raw_c, W1[r, c], u) from b1, c = 0..Rr-1) and the plain
+    version's matmul may disagree on relu's live mask. The test computes the
+    kernel's u in the kernel's order (each fma exact in fp64, then rounded
+    to fp32), counts the elements whose mask differs from the plain
+    version's, and holds draw, dW1, db1 and dWr to the plain version within
+    1e-4 of the largest (the sums' order, as the grid cases) plus those
+    elements' whole contribution: |du| |raw_c| to dW1, |du| to db1,
+    |du| |W1[r, c]| to draw, |u| |dpre| to dWr."""
+    B, H, L, Rr, R = 128, 4, 100, 4, 64
+    rel, dpre = make_rel(B, H, L, L, Rr, R, torch.float32, dev, seed=21, exact=False)
+    got = FA.relation_bwd(*rel, dpre, need_draw=True)
+    want = FA.relation_bwd_reference(*rel, dpre, need_draw=True)
+    raw, w1, b1, wr, _ = rel
+    u_plain = torch.matmul(raw, w1.t()) + b1
+    u_kernel = b1.double().expand(B, L, L, R)
+    for c in range(Rr):
+        u_kernel = (raw[..., c:c + 1].double() * w1[:, c].double() + u_kernel).float().double()
+    flip = (u_kernel > 0) != (u_plain > 0)
+    du = torch.matmul(dpre.permute(0, 2, 3, 1), wr).abs() * flip       # [B, L, L, R]
+    bound = (torch.einsum("bijr,bijc->rc", du, raw.abs()),
+             du.sum((0, 1, 2)),
+             torch.einsum("bijr,rc->bijc", du, w1.abs()),
+             torch.einsum("bijr,bhij->hr", u_plain.abs() * flip, dpre.abs()))
+    diffs = {}
+    for name, g, w, extra in zip(("dW1", "db1", "draw", "dWr"), (got[1], got[2], got[0], got[3]),
+                                 (want[1], want[2], want[0], want[3]), bound):
+        d = (g - w).abs()
+        slack = d - extra - 1e-4 * w.abs().max()
+        diffs[name] = (d.max().item(), extra.max().item(), w.abs().max().item())
+        assert slack.max().item() <= 0, (name, diffs[name])
+    print(f"relation pass B{B} H{H} (100,100) random inputs: {int(flip.sum())} of {flip.numel()} "
+          f"live-mask flips (|u| <= {u_plain.abs()[flip].max().item() if flip.any() else 0:.2e});"
+          " max |kernel - plain|, flip contribution, max |plain|: "
+          + "; ".join(f"{n} {a:.3e} {b:.3e} {c:.3e}" for n, (a, b, c) in diffs.items()))

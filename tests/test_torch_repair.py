@@ -7,8 +7,11 @@ finds no import of `mmnas_tpu`, `mmnas_tpu.*` or `jax`.
 utils) is the same code as its namesake in the JAX package, up to the
 package name in imports and the module docstring; the one deliberate
 difference is `cfg_from_args`, whose --MULTIHOST raises in the port. The
-two `Cfg`s agree field for field, and the two `SynthVqaDataset`s give
-identical items for one seed. Exact comparisons: these are copies."""
+box helpers' jnp versions are torch twins in the port (held to them in
+tests/test_torch_vgd.py), and the native C++ IoU is the same file byte for
+byte. The two `Cfg`s agree field for field, and the two packages'
+`SynthVqaDataset`s and `SynthVgdDataset`s give identical items for one
+seed. Exact comparisons: these are copies."""
 
 import ast
 import dataclasses
@@ -18,17 +21,23 @@ import numpy as np
 import pytest
 
 import mmnas_tpu.config as jax_config
+from mmnas_tpu.data.synth import SynthVgdDataset as JaxSynthVgdDataset
 from mmnas_tpu.data.synth import SynthVqaDataset as JaxSynthVqaDataset
 import mmnas_tpu_torch.config as port_config
-from mmnas_tpu_torch.data.synth import SynthVqaDataset
+from mmnas_tpu_torch.data.synth import SynthVgdDataset, SynthVqaDataset
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mmnas_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 COPIES = ["config.py", "genotype.py", "data/sampler.py", "data/loader.py", "data/synth.py",
           "data/vqa.py", "data/vocab.py", "data/paths.py", "data/packed.py",
-          "data/relations.py", "data/vgd.py", "utils/answer_norm.py", "utils/vqa_eval.py"]
+          "data/relations.py", "data/vgd.py", "utils/answer_norm.py", "utils/vqa_eval.py",
+          "utils/bbox.py", "utils/bbox_transform.py"]
 CHANGED = {("config.py", "cfg_from_args")}
+# the port's torch versions in place of the JAX package's jnp ones
+TWINS = {("utils/bbox.py", "bbox_overlaps_torch"): "bbox_overlaps_jnp",
+         ("utils/bbox_transform.py", "bbox_transform_inv_torch"): "bbox_transform_inv_jnp",
+         ("utils/bbox_transform.py", "clip_boxes_torch"): "clip_boxes_jnp"}
 
 
 def imported_modules(path):
@@ -57,11 +66,19 @@ def test_copied_code_has_not_drifted(rel):
     port = top_level_defs(ROOT / "mmnas_tpu_torch" / rel)
     ref = top_level_defs(ROOT / "mmnas_tpu" / rel)
     assert port, rel
+    twins = {name: jnp_name for (r, name), jnp_name in TWINS.items() if r == rel}
+    assert all(name in port and name not in ref and jnp_name in ref and jnp_name not in port
+               for name, jnp_name in twins.items()), rel
     for name, code in port.items():
         if (rel, name) in CHANGED:
             assert code != ref[name]
-        else:
+        elif name not in twins:
             assert code == ref.get(name), f"{rel}: {name} differs from the JAX package's"
+
+
+def test_native_iou_source_is_the_jax_packages():
+    assert ((ROOT / "mmnas_tpu_torch" / "native" / "bbox.cpp").read_bytes()
+            == (ROOT / "mmnas_tpu" / "native" / "bbox.cpp").read_bytes())
 
 
 def test_cfg_and_synthetic_data_match_the_jax_package():
@@ -78,20 +95,23 @@ def test_cfg_and_synthetic_data_match_the_jax_package():
             "vqa", port_config.make_arg_parser("vqa").parse_args(argv + ["--MULTIHOST"]))
 
     cfg = port_config.Cfg(FRCNFEAT_LEN=12, FRCNFEAT_SIZE=16, WORD_EMBED_SIZE=8, MAX_TOKEN=6)
-    port_ds, jax_ds = SynthVqaDataset(cfg, size=5, seed=7), JaxSynthVqaDataset(cfg, size=5, seed=7)
-    np.testing.assert_array_equal(port_ds.pretrained_emb, jax_ds.pretrained_emb)
-    for i in range(len(port_ds)):
-        a, b = port_ds[i], jax_ds[i]
-        assert a.keys() == b.keys()
-        for key in a:
-            np.testing.assert_array_equal(a[key], b[key])
+    for port_cls, jax_cls in ((SynthVqaDataset, JaxSynthVqaDataset),
+                              (SynthVgdDataset, JaxSynthVgdDataset)):
+        port_ds, jax_ds = port_cls(cfg, size=5, seed=7), jax_cls(cfg, size=5, seed=7)
+        np.testing.assert_array_equal(port_ds.pretrained_emb, jax_ds.pretrained_emb)
+        for i in range(len(port_ds)):
+            a, b = port_ds[i], jax_ds[i]
+            assert a.keys() == b.keys()
+            for key in a:
+                np.testing.assert_array_equal(a[key], b[key])
 
 
 @pytest.mark.parametrize("rel", ["models/supernet.py", "engine/search.py", "search_vqa.py",
-                                 "tools/probes.py"])
+                                 "tools/probes.py", "engine/vgd.py", "engine/search_vgd.py",
+                                 "train_vgd.py", "search_vgd.py", "native/build.py"])
 def test_search_and_probe_modules_are_scanned(rel):
-    """The search slice's modules are among the scanned files and import
-    neither package of JAX."""
+    """The search, probe and VGD slices' modules are among the scanned files
+    and import neither package of JAX."""
     path = ROOT / "mmnas_tpu_torch" / rel
     assert path in PORT_FILES
     assert not [m for m in imported_modules(path) if m.split(".")[0] in ("mmnas_tpu", "jax")]
