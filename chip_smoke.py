@@ -23,10 +23,11 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    and `scaled_dot_product_attention` where one call computes the function;
 4. does the same for the training kernels at r = 0.1: the dropout forward
    (keep fraction 0.9 +- 0.005, the mask bits follow the seed and equal the
-   numpy Philox, the output equals the plain version on the emitted mask,
-   with the RSA chain the pre residual equals the plain chain),
+   numpy Philox, the output equals the plain version on the emitted mask),
    the backward and the relation pass (every gradient equals autograd
-   through the plain version on that mask), and times forward, backward,
+   through the plain version on that mask; with the RSA chain the kernel's
+   pre residual equals the plain chain, and the output and every gradient
+   are held to the plain version on that pre), and times forward, backward,
    forward + backward and, with the RSA chain, the relation pass alone
    (eager and device), each beside its bound (the function's least bytes and operations, see
    `attention_bytes_ops`);
@@ -83,10 +84,38 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    weight and 2 arch steps, exact launches from the sampled paths and the
    argmax-path IoU eval, alpha moved, the genotype archive, the checkpoint,
    step times and device splits);
-11. prints one JSON line with every kernel's numbers (with x_library and
+11. holds the forward (also at the eval scorer's 256 pairs), dropout-forward,
+   backward and relation-pass kernels against their plain versions at the
+   ITM net's shapes (text SA 50x50, region SA and RSA 36x36, GA 36x50, each
+   row's keys a valid prefix and a pad tail, as the ITM loaders give them)
+   at B 64 H 8 and at the ITM search's B 128 H 4, fp32 and bf16, and the
+   forward at the mining's tiles (NEG_BATCHSIZE * NEG_RANDSIZE = 3,200
+   pairs through the decoder's SA, RSA and GA) at the fixed net's 8 heads
+   and the search's 4;
+12. drives the ITM paths of `arch/mmnas_itm.json` at full width (HSIZE 512,
+   36 regions of 2048, 50-token captions; `itm_path`): `--RUN train --SYNTH
+   --BS 64 --SYNTH_SIZE 1000` in fp32 and bf16 on fp32 masters, mining
+   before the epoch (NEG_RANDSIZE 64, NEG_HARDSIZE 5: 24 scorer tiles of
+   3,200 pairs), 16 triplet train steps (three forwards each) and the R@K
+   eval over the full 200 x 1,000 score matrix, with exact launches from
+   the genotype and the sweeps' sizes; `--RUN val --CKPT_PATH` on the epoch
+   checkpoint, its score matrix's 20 x 100 corner against the CPU's; the
+   mined negatives of the first items against the CPU's ranking; the split
+   trunk against the forward; one fp32 step against the CPU and the plain
+   versions as in 7; the train step, mining, text encoder and scorer
+   timed and the scorer tile profiled; then the ITM search (`engine/search_itm.py`, SearchCfg HSIZE 256,
+   BS 128, KPATH 1, fp32: mining with a sampled path, 10 weight and 2 arch
+   steps of three forwards, the argmax path's R@K on the val split, exact
+   launches, alpha moved, the archive, the checkpoint, a resumed epoch,
+   step times);
+13. prints one JSON line with every kernel's numbers (with x_library and
    x_bound, its time over the library call's and over its bound; `launches`
-   from the VGD search, this slice's main path, each path's own counts
-   beside them) and, last, the device line `{"ok": true, "device": {...}}`.
+   from the ITM fixed net's fp32 run, this slice's main path, each path's
+   own counts beside them) and, last, the device line `{"ok": true,
+   "device": {...}}`. A device time the profiler did not record in full
+   (5 tries) is taken from CUDA events around replays of a CUDA graph of the
+   calls, and named so: every device reading `<key>` has `<key>_by`,
+   "profiler" or "cuda graph".
 Any failed check raises, so the script exits non-zero and prints no result
 line. It exits 2 when no CUDA device is present.
 """
@@ -106,7 +135,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "build", "mmnas_tpu_torch", "smoke")
-ARCHS = {task: os.path.join(HERE, "arch", f"mmnas_{task}.json") for task in ("vqa", "vgd")}
+ARCHS = {task: os.path.join(HERE, "arch", f"mmnas_{task}.json")
+         for task in ("vqa", "vgd", "itm")}
 SOURCES = ("fused_attention_fwd", "fused_attention_bwd", "probes")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "fused_attention_fwd": ("mmnas_tpu_torch/csrc/fused_attention_fwd.cu",
@@ -149,6 +179,27 @@ SEARCH_CASES = [(14, 14, "mask"), (100, 14, "mask"), (100, 100, "mask"), (100, 1
 SEARCH_STEPS, ALPHA_EVERY = 10, 5
 SEARCH_LEGS = (("float32", 128, 1), ("bfloat16", 256, 8))   # dtype, batch, KPATH
 VGD_SEARCH_LEGS = (("float32", 128, 1),)
+# ITM (arch/mmnas_itm.json): a corpus of 1,000 captions over 200 images,
+# 50-token captions (3 to 12 of them words) and 36 regions (8 to 36 of them
+# objects), mined at NEG_RANDSIZE 64 / NEG_HARDSIZE 5; its attention:
+# text SA 50x50, region SA and RSA 36x36, GA 36x50, at the train step's
+# B 64 H 8, the eval scorer's 256 pairs (EVAL_BATCH_SIZE * 2), the search's
+# B 128 H 4, and the mining's tiles (NEG_BATCHSIZE * NEG_RANDSIZE pairs, the
+# decoder's shapes, at either net's heads)
+ITM_SIZE = 1000
+ITM_RELOAD_SIZE = 320             # the eval of the epoch checkpoint: 64 images
+ITM_SCORER_B = 256
+PAD_VALID = {50: (3, 12), 36: (8, 36)}   # valid keys of a "padmask" row, by Lk
+ITM_CASES = [(50, 50, "padmask"), (36, 36, "padmask"), (36, 36, "padmask+rel"),
+             (36, 50, "padmask")]
+ITM_DECODER_CASES = ITM_CASES[1:]       # a scorer tile runs the decoder alone
+ITM_SEARCH_LEGS = (("float32", 128, 1),)
+ITM_CORNER = (20, 100)            # images x captions of the card-vs-CPU score check
+ITM_MINE_CHECK = (4, 8)           # images, captions whose mined negatives the CPU re-ranks
+# the ITM CLI's configuration the fixed-net leg must run (make_arg_parser("itm"))
+ITM_CFG = {"HSIZE": 512, "MAX_TOKEN": 50, "FRCNFEAT_LEN": 36, "NEG_RANDSIZE": 64,
+           "NEG_HARDSIZE": 5, "DROPOUT_R": RATE, "EVAL_EVERY_EPOCH": True,
+           "SCORES_LOSS": "bce", "TEXT_ENC_BLOCK": 0}
 # the probe CLI's launches: two bias kernels, slice and outer in f32 and
 # bf16, the two wrblock layouts
 PROBE_LAUNCHES = {"probe_bias": 1, "probe_bias2": 1, "probe_slice": 2, "probe_outer": 2,
@@ -159,18 +210,26 @@ PROBE_LAUNCHES = {"probe_bias": 1, "probe_bias2": 1, "probe_slice": 2, "probe_ou
 # ~1, into large errors near the 1e-6 clamp): 1e-5
 PROBE_BIAS_TOL = 1e-5
 # kernel vs plain version on the same inputs. fp32: both sum in fp32 in
-# other orders; 1e-4, except with the RSA chain, where log(pre) turns the
-# fp32 rounding of pre (~4e-7 absolute) into up to ~1e-3 in the scores.
+# other orders; 1e-4, 1e-3 with the RSA chain. With the chain, the kernel's
+# pre is held to the plain chain by PRE_TOL, and everything after it (the
+# output, every gradient) to the plain version on the kernel's own pre: pre
+# sums R = 64 terms of size ~1, so both chains round it by ~1e-7 absolute,
+# and near the 1e-6 clamp log(pre) turns that into large score errors. A row
+# whose keys all have pre near the clamp then moves by the rounding alone:
+# at B 3,200 H 8 (36,36) on an H100 the kernel is 5.1e-3 and the plain fp32
+# version 4.4e-3 from an fp64 chain and attention, 1.9e-3 apart
+# (`python -m mmnas_tpu_torch.tools.rsa_conditioning`).
 # bf16: the kernel rounds probabilities and output to bf16 (unit roundoff
 # 2^-8 relative each, |o| < 4) against the plain version run in fp32 on the
 # same bf16 inputs: 5e-2.
 KERNEL_TOL = {(torch.float32, False): 1e-4, (torch.float32, True): 1e-3,
               (torch.bfloat16, False): 5e-2, (torch.bfloat16, True): 5e-2}
 # gradients, kernel vs autograd through the plain version on the same keep
-# mask, as a share of the largest reference gradient (the method of
+# mask (with the RSA chain, on the kernel's pre, as KERNEL_TOL), as a share
+# of the largest reference gradient (the method of
 # tests/test_pallas_dropout_tpu.py:5-12): fp32 1e-4 (sums of up to 100
 # products in other orders), 1e-3 with the RSA chain (dpre = ds / pre grows
-# the fp32 rounding of pre near the 1e-6 clamp); bf16 2e-2 (the kernel
+# the rounding of ds near the 1e-6 clamp); bf16 2e-2 (the kernel
 # rounds ds and the dropped-out probabilities to bf16, unit roundoff 2^-8
 # relative, before its products, and its results to bf16; the plain
 # version runs in fp32 on the same bf16 inputs)
@@ -280,18 +339,21 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, iters=10):
-    """Device time of one call: the CUDA kernels that `iters` calls launch,
-    summed by torch.profiler, over iters. Unlike cuda_time_ms it leaves
-    out the host's time between launches, which bounds calls of a few
-    microseconds of device work. The profiler at times records nothing, or
-    only some of the launches: a reading in which a kernel appears fewer
-    than `iters` times is taken again."""
+def device_time_ms(fn, iters=10, graph=None):
+    """(ms, by): device time of one call, and how it was taken. By
+    "profiler": the CUDA kernels that `iters` calls launch, summed by
+    torch.profiler, over iters. Unlike cuda_time_ms it leaves out the host's
+    time between launches, which bounds calls of a few microseconds of
+    device work. The profiler at times records nothing, or only some of the
+    launches: a reading in which a kernel appears fewer than `iters` times
+    is taken again, up to 5 times. Failing that, by "cuda graph":
+    `graph_time_ms(fn)`, or `graph()` where a call cannot be captured alone
+    (a backward whose forward ran outside the capture)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -300,12 +362,38 @@ def device_time_ms(fn, iters=10):
         us = sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
                  for ev in events)
         if us and all(ev.count >= iters for ev in events):
-            return us / 1e3 / iters
-    return None  # not measured
+            return us / 1e3 / iters, "profiler"
+    return (graph() if graph else graph_time_ms(fn, iters)), "cuda graph"
 
 
-def fmt(ms):
-    return "not measured" if ms is None else f"{ms:.4f}"
+def graph_time_ms(fn, iters=10, replays=5):
+    """Device time of one call from CUDA events around `replays` replays of
+    a CUDA graph holding `iters` calls, over replays * iters: the graph runs
+    them back to back with no host time between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm-up off the capture, as CUDA graphs need
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def fmt(ms, by="profiler"):
+    if ms is None:
+        return "not measured"
+    return f"{ms:.4f}" + ("" if by == "profiler" else f" ({by})")
 
 
 def bound(nbytes, ops):
@@ -317,6 +405,10 @@ def bound(nbytes, ops):
 
 
 def make_case(g, Lq, Lk, kind, B=B, H=H):
+    """Random q, k, v (B, H, L, D), and by `kind`: a key mask ("mask": ~30%
+    of the keys at random, key 0 valid; "padmask": keys from a random count
+    of valid ones on, that count drawn from PAD_VALID[Lk]), an additive bias
+    ("bias"), the RSA geometry chain ("rel")."""
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g) * scale
 
@@ -326,6 +418,10 @@ def make_case(g, Lq, Lk, kind, B=B, H=H):
     q, k, v = randn(B, H, Lq, D), randn(B, H, Lk, D), randn(B, H, Lk, D)
     mask = torch.rand(B, 1, 1, Lk, generator=g) > 0.7
     mask[..., 0] = False                     # every row keeps a valid key
+    if "padmask" in kind:                    # a pad tail, as the loaders' rows
+        lo, hi = PAD_VALID[Lk]
+        valid = torch.randint(lo, hi + 1, (B, 1, 1, 1), generator=g)
+        mask = torch.arange(Lk).view(1, 1, 1, Lk) >= valid
     bias = randn(B, H, Lq, Lk) if kind == "bias" else None
     rel = None
     if "rel" in kind:                        # init-like stem and Wr weights
@@ -401,7 +497,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 def kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
-    """Forward kernel (no dropout) against its plain version."""
+    """Forward kernel (no dropout) against its plain version (with the RSA
+    chain: its pre against the plain chain, the output on that pre; see
+    KERNEL_TOL)."""
     g = torch.Generator().manual_seed(0)
     rows = []
     for dt in dtypes:
@@ -409,29 +507,38 @@ def kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
             args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind, B, H))
             got = FA.fused_attention(*args, m, b_, rel=r_)
             torch.cuda.synchronize()
-            ref = FA.fused_attention_reference(
-                *[a.float() for a in args], m, f32(b_),
-                rel=None if r_ is None else tuple(map(f32, r_)))
+            log_bias, pre_err = f32(b_), None
+            if r_ is not None:    # pre against the plain chain, the attention on it
+                again, _, pre = FA.attention_fwd(*args, m, b_, r_, want_pre=True)
+                if not torch.equal(again, got):
+                    raise AssertionError("the RSA forward that writes pre out differs from the "
+                                         "one that does not")
+                pre_err, log_bias = check_pre(pre, r_, f"fwd B{B} H{H} {dt}"), log_pre(pre)
+            ref = FA.fused_attention_reference(*[a.float() for a in args], m, log_bias)
             err = (got.float() - ref).abs().max().item()
             tol = KERNEL_TOL[(dt, r_ is not None)]
             ms = cuda_time_ms(lambda: FA.fused_attention(*args, m, b_, rel=r_))
             plain_ms = cuda_time_ms(lambda: FA.fused_attention_reference(*args, m, b_, rel=r_))
-            dev_ms = device_time_ms(lambda: FA.fused_attention(*args, m, b_, rel=r_))
+            dev_ms, dev_by = device_time_ms(lambda: FA.fused_attention(*args, m, b_, rel=r_))
             am = sdpa_inputs(args, m, b_)
-            library_ms = library_dev_ms = None
+            library_ms = library_dev_ms = library_dev_by = None
             if r_ is None:
                 def sdpa():
                     return torch.nn.functional.scaled_dot_product_attention(*args, attn_mask=am)
-                library_ms, library_dev_ms = cuda_time_ms(sdpa), device_time_ms(sdpa)
+                library_ms = cuda_time_ms(sdpa)
+                library_dev_ms, library_dev_by = device_time_ms(sdpa)
             live = 1.0 if r_ is None else live_share(r_)
             bound_ms, bound_by = bound(*attention_bytes_ops(Lq, Lk, kind, dt, "fwd", live, B, H))
             row = {"dtype": str(dt).replace("torch.", ""), "B": B, "H": H, "Lq": Lq, "Lk": Lk,
-                   "operands": kind, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+                   "operands": kind, "max_abs_err": err, "tol": tol, "pre_err": pre_err, "ms": ms,
+                   "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "device_ms": dev_ms, "library_device_ms": library_dev_ms}
+                   "device_ms": dev_ms, "device_ms_by": dev_by, "library_device_ms": library_dev_ms,
+                   "library_device_ms_by": library_dev_by}
             print(f"fwd     B{B} H{H} {row['dtype']:8s} ({Lq:3d},{Lk:3d}) {kind:8s} max_abs_err {err:.3e} "
-                  f"(tol {tol:g})  kernel {ms:.4f} ms (device {fmt(dev_ms)})  plain {plain_ms:.4f} ms  "
-                  f"sdpa {fmt(library_ms)} ms (device {fmt(library_dev_ms)})  bound "
+                  f"(tol {tol:g})  kernel {ms:.4f} ms (device {fmt(dev_ms, dev_by)})  plain "
+                  f"{plain_ms:.4f} ms  sdpa {fmt(library_ms)} ms (device "
+                  f"{fmt(library_dev_ms, library_dev_by)})  bound "
                   f"{bound_ms:.4f} ms ({bound_by})", flush=True)
             if not (math.isfinite(err) and err <= tol):
                 raise AssertionError(f"kernel disagrees with its plain version: {row}")
@@ -467,34 +574,32 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                 raise AssertionError(f"{name}: keep fraction {frac}")
             if not torch.equal(keep, keep2) or torch.equal(keep, keep3):
                 raise AssertionError(f"{name}: the keep mask does not follow its seed")
-            if dt == torch.float32 and kind == "mask":
+            if dt == torch.float32 and kind in ("mask", "padmask"):
                 want_keep = FA.keep_mask_reference(1234, B, H, Lq, Lk, RATE)
                 if not torch.equal(keep.cpu().bool(), want_keep):
                     raise AssertionError(f"{name}: keep bits differ from Philox4x32-10")
-            ref = FA.fused_attention_reference(*[a.float() for a in args], m, f32(b_),
-                                               rel=None if r_ is None else tuple(map(f32, r_)),
+            # with the RSA chain: pre against the plain chain, the rest on the kernel's pre
+            pre_err = None if r_ is None else check_pre(pre, r_, name)
+            ref = FA.fused_attention_reference(*[a.float() for a in args], m,
+                                               f32(b_) if r_ is None else log_pre(pre),
                                                keep=keep, dropout_r=RATE)
             fwd_err = (out.float() - ref).abs().max().item()
             fwd_tol = KERNEL_TOL[(dt, r_ is not None)]
-            pre_err = None
-            if want_pre:      # the residual against the plain chain, both fp32
-                raw, w1, b1, wr, br = (t.float() for t in r_)
-                want_pre_t = (torch.matmul(torch.relu(torch.matmul(raw, w1.t()) + b1), wr.t())
-                              + br).permute(0, 3, 1, 2)
-                pre_err = (pre - want_pre_t).abs().max().item()
-                if not pre_err <= PRE_TOL:
-                    raise AssertionError(f"{name}: the pre residual is {pre_err} off the chain")
 
             # the backward on that mask against autograd through the plain version
             do = torch.randn(B, H, Lq, D, generator=g).to(dev, dt)
             dq, dk, dv, dbias, drel = FA.attention_bwd(*args, m, b_, r_, keep, RATE, do, pre=pre)
             leaves = [a.float().requires_grad_() for a in args]
             bl = None if b_ is None else b_.float().requires_grad_()
-            rl = None if r_ is None else [t.float().requires_grad_() for t in r_]
-            plain = FA.fused_attention_reference(*leaves, m, bl, rel=rl, keep=keep,
-                                                 dropout_r=RATE)
-            wrt = leaves + ([bl] if bl is not None else []) + (rl[1:] if rl is not None else [])
-            want = torch.autograd.grad(plain, wrt, do.float())
+            pl = None if r_ is None else pre.detach().requires_grad_()
+            plain = FA.fused_attention_reference(*leaves, m, bl if r_ is None else log_pre(pl),
+                                                 keep=keep, dropout_r=RATE)
+            wrt = leaves + [x for x in (bl, pl) if x is not None]
+            want = list(torch.autograd.grad(plain, wrt, do.float()))
+            dpre_plain = None
+            if r_ is not None:     # dpre through the plain relation chain's backward
+                dpre_plain = want.pop()
+                want += FA.relation_bwd_reference(*r_, dpre_plain)[1:]
             got = [dq, dk, dv] + ([dbias] if b_ is not None else []) + \
                 (list(drel[1:]) if r_ is not None else [])
             labels = ["dq", "dk", "dv"] + (["dbias"] if b_ is not None else []) + \
@@ -504,6 +609,7 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
             abs_err = max((x.float() - w).abs().max().item()
                           for lab, x, w in zip(labels, got, want) if lab in ("dq", "dk", "dv", "dbias"))
             tol = GRAD_TOL[(dt, r_ is not None)]
+            bad = [lab for lab in labels if not (math.isfinite(errs[lab]) and errs[lab] <= tol)]
 
             # times: forward + backward of the kernels, of the plain version, of SDPA
             def kernel_step():
@@ -534,7 +640,8 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                 return FA.attention_bwd(*args, m, b_, r_, keep, RATE, do, pre=pre)
 
             fwd_ms, bwd_ms = cuda_time_ms(fwd_call), cuda_time_ms(bwd_call)
-            fwd_dev_ms, bwd_dev_ms = device_time_ms(fwd_call), device_time_ms(bwd_call)
+            (fwd_dev_ms, fwd_dev_by), (bwd_dev_ms, bwd_dev_by) = (device_time_ms(fwd_call),
+                                                                  device_time_ms(bwd_call))
             step_ms = cuda_time_ms(kernel_step)
             plain_fwd_ms = cuda_time_ms(lambda: FA.fused_attention_reference(
                 *args, m, b_, rel=r_, keep=keep, dropout_r=RATE))
@@ -545,6 +652,7 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                 plain_out, plain_leaves, do, retain_graph=True))
             plain_ms = cuda_time_ms(plain_step)
             sdpa_ms = sdpa_fwd_ms = sdpa_bwd_ms = sdpa_fwd_dev_ms = sdpa_bwd_dev_ms = None
+            sdpa_fwd_dev_by = sdpa_bwd_dev_by = None
             if r_ is None:
                 sdpa_leaves = [a.detach().requires_grad_() for a in args]
                 sdpa_out = sdpa_fwd(sdpa_leaves)
@@ -554,8 +662,13 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
 
                 sdpa_fwd_ms = cuda_time_ms(lambda: sdpa_fwd(args))
                 sdpa_bwd_ms = cuda_time_ms(sdpa_bwd)
-                sdpa_fwd_dev_ms = device_time_ms(lambda: sdpa_fwd(args))
-                sdpa_bwd_dev_ms = device_time_ms(sdpa_bwd)
+                sdpa_fwd_dev_ms, sdpa_fwd_dev_by = device_time_ms(lambda: sdpa_fwd(args))
+                # a backward is captured with its forward: (fwd + bwd) - fwd
+                sdpa_bwd_dev_ms, sdpa_bwd_dev_by = device_time_ms(
+                    sdpa_bwd, graph=lambda: graph_time_ms(sdpa_step) - graph_time_ms(
+                        lambda: sdpa_fwd(args)))
+                if sdpa_bwd_dev_by != "profiler":
+                    sdpa_bwd_dev_by = "cuda graph, fwd+bwd - fwd"
                 sdpa_ms = cuda_time_ms(sdpa_step)
             live = 1.0 if r_ is None else live_share(r_)
             row = {"dtype": str(dt).replace("torch.", ""), "B": B, "H": H, "Lq": Lq, "Lk": Lk,
@@ -566,13 +679,15 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                    "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
                    "plain_fwd_bwd_ms": plain_ms, "sdpa_fwd_ms": sdpa_fwd_ms,
                    "sdpa_bwd_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_ms,
-                   "fwd_device_ms": fwd_dev_ms, "bwd_device_ms": bwd_dev_ms,
-                   "sdpa_fwd_device_ms": sdpa_fwd_dev_ms, "sdpa_bwd_device_ms": sdpa_bwd_dev_ms}
+                   "fwd_device_ms": fwd_dev_ms, "fwd_device_ms_by": fwd_dev_by,
+                   "bwd_device_ms": bwd_dev_ms, "bwd_device_ms_by": bwd_dev_by,
+                   "sdpa_fwd_device_ms": sdpa_fwd_dev_ms, "sdpa_fwd_device_ms_by": sdpa_fwd_dev_by,
+                   "sdpa_bwd_device_ms": sdpa_bwd_dev_ms, "sdpa_bwd_device_ms_by": sdpa_bwd_dev_by}
             for part, key in (("fwd", "fwd"), ("bwd", "bwd"), ("fwd+bwd", "fwd_bwd")):
                 row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound(
                     *attention_bytes_ops(Lq, Lk, kind, dt, part, live, B, H))
             if r_ is not None:
-                row.update(relation_pass(FA, args, m, r_, keep, do, live))
+                row.update(relation_pass(FA, r_, dpre_plain, live))
                 row["rel_abs_err"] = max((x.float() - w).abs().max().item()
                                          for lab, x, w in zip(labels, got, want)
                                          if lab in ("dW1", "db1", "dWr", "dbr"))
@@ -588,44 +703,58 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                                              pre=pre))
             print(f"train   {name} keep {frac:.4f}  fwd err {fwd_err:.2e} (tol {fwd_tol:g})  "
                   f"grad rel err max {max(errs.values()):.2e} (tol {tol:g})  kernel fwd "
-                  f"{fwd_ms:.4f} + bwd {bwd_ms:.4f} ms (device {fmt(fwd_dev_ms)} + {fmt(bwd_dev_ms)}),"
-                  f" fwd+bwd {step_ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
-                  f"{fmt(sdpa_ms)} ms (device fwd {fmt(sdpa_fwd_dev_ms)} bwd {fmt(sdpa_bwd_dev_ms)})"
+                  f"{fwd_ms:.4f} + bwd {bwd_ms:.4f} ms (device {fmt(fwd_dev_ms, fwd_dev_by)} + "
+                  f"{fmt(bwd_dev_ms, bwd_dev_by)}), fwd+bwd {step_ms:.4f} ms  plain {plain_ms:.4f} ms"
+                  f"  sdpa {fmt(sdpa_ms)} ms (device fwd {fmt(sdpa_fwd_dev_ms, sdpa_fwd_dev_by)} bwd "
+                  f"{fmt(sdpa_bwd_dev_ms, sdpa_bwd_dev_by)})"
                   f"  bound fwd {row['fwd_bound_ms']:.4f} bwd {row['bwd_bound_ms']:.4f} "
                   f"fwd+bwd {row['fwd_bwd_bound_ms']:.4f} ms" + (
                       "" if r_ is None else
-                      f"  relation pass {row['rel_ms']:.4f} ms (device {fmt(row['rel_device_ms'])}),"
+                      f"  relation pass {row['rel_ms']:.4f} ms (device "
+                      f"{fmt(row['rel_device_ms'], row['rel_device_ms_by'])}),"
                       f" plain {row['rel_plain_ms']:.4f} ms,"
                       f" bound {row['rel_bound_ms']:.4f} ms (live share {live:.3f}); bwd without "
                       f"dpre {row['bwd_no_rel_ms']:.4f} ms, dq dk dv equal"),
                   flush=True)
             if not (math.isfinite(fwd_err) and fwd_err <= fwd_tol):
                 raise AssertionError(f"dropout forward disagrees with its plain version: {row}")
-            if not all(math.isfinite(e) and e <= tol for e in errs.values()):
-                raise AssertionError(f"backward disagrees with its plain version: {row}")
+            if bad:
+                raise AssertionError(f"backward disagrees with its plain version in {bad}: {row}")
             rows.append(row)
     return rows
 
 
-def relation_pass(FA, args, m, rel, keep, do, live):
-    """Times of the relation pass alone, eager and device (its gradients
-    are checked with the backward's), on the dpre of the plain version for this case's cotangent
-    do, and its bound: raw and dpre read once, raw W1^T for every feature,
-    the rest (du, dWr, dW1, db1) for the live ones, all in fp32."""
+def log_pre(pre):
+    """The attention's bias from the relation chain's output pre, as
+    rsa_log_bias takes it: log(clamp(relu(pre), 1e-6))."""
+    return torch.log(torch.clamp(torch.relu(pre), min=1e-6))
+
+
+def check_pre(pre, rel, name):
+    """The largest distance of the kernel's relation chain output pre
+    ([B, H, Lq, Lk], fp32) from the plain chain's on the same operands in
+    fp32, which must be within PRE_TOL."""
     raw, w1, b1, wr, br = (t.float() for t in rel)
-    pre = (torch.matmul(torch.relu(torch.matmul(raw, w1.t()) + b1), wr.t()) + br)
-    pre = pre.permute(0, 3, 1, 2).contiguous().requires_grad_()
-    out = FA.fused_attention_reference(*[a.float() for a in args], m,
-                                       torch.log(torch.clamp(torch.relu(pre), min=1e-6)),
-                                       keep=keep, dropout_r=RATE)
-    dpre = torch.autograd.grad(out, pre, do.float())[0]
+    plain = (torch.matmul(torch.relu(torch.matmul(raw, w1.t()) + b1), wr.t()) + br)
+    err = (pre - plain.permute(0, 3, 1, 2)).abs().max().item()
+    if not err <= PRE_TOL:
+        raise AssertionError(f"{name}: the kernel's pre is {err} off the plain chain")
+    return err
+
+
+def relation_pass(FA, rel, dpre, live):
+    """Times of the relation pass alone, eager and device (its gradients
+    are checked with the backward's), on the plain version's dpre, and its
+    bound: raw and dpre read once, raw W1^T for every feature, the rest
+    (du, dWr, dW1, db1) for the live ones, all in fp32."""
     B, H, Lq, Lk = dpre.shape
     n = B * Lq * Lk
     nbytes = n * RR * (torch.finfo(rel[0].dtype).bits // 8) + n * H * 4
     ops = n * 2 * R * RR + n * R * live * (4 * H + 2 * RR + 1)
     bound_ms, bound_by = bound(nbytes, {torch.float32: ops})
+    dev_ms, dev_by = device_time_ms(lambda: FA.relation_bwd(*rel, dpre))
     return {"rel_ms": cuda_time_ms(lambda: FA.relation_bwd(*rel, dpre)),
-            "rel_device_ms": device_time_ms(lambda: FA.relation_bwd(*rel, dpre)),
+            "rel_device_ms": dev_ms, "rel_device_ms_by": dev_by,
             "rel_plain_ms": cuda_time_ms(lambda: FA.relation_bwd_reference(*rel, dpre)),
             "rel_bound_ms": bound_ms, "rel_bound_by": bound_by, "live_share": live}
 
@@ -647,12 +776,26 @@ def cfg_for(run, dtype, task="vqa", **extra):
 def engines(task):
     """(fixed-net Execution, SearchExecution, attention ops per batch,
     rel_self_att_64 ops per batch) of the task's genotype at LAYERS 1."""
-    from mmnas_tpu_torch.engine import search, search_vgd, vgd, vqa
+    from mmnas_tpu_torch.engine import itm, search, search_itm, search_vgd, vgd, vqa
 
     if task == "vqa":
         return vqa.Execution, search.SearchExecution, LAUNCHES_PER_BATCH, REL_LAUNCHES_PER_BATCH
+    if task == "itm":
+        enc_att, dec_att, n_rsa = itm_genotype_ops()
+        return itm.Execution, search_itm.SearchExecution, enc_att + dec_att, n_rsa
     return (vgd.Execution, search_vgd.SearchExecution, VGD_LAUNCHES_PER_BATCH,
             VGD_REL_LAUNCHES_PER_BATCH)
+
+
+def itm_genotype_ops():
+    """(encoder attention ops, decoder attention ops, rel_self_att_64 ops) of
+    arch/mmnas_itm.json at LAYERS 1, counted from the genotype."""
+    from mmnas_tpu_torch.genotype import load_genotype
+
+    genotype = load_genotype(ARCHS["itm"])
+    att = [sum(op != "feed_forward" for node in genotype[c] for op in node) for c in ("enc", "dec")]
+    rel = sum(op == "rel_self_att_64" for node in genotype["dec"] for op in node)
+    return att[0], att[1], rel
 
 
 def eval_path(FA, dev, card):
@@ -839,15 +982,19 @@ def probe_path(PR, dev):
         """kernel, plain, library: calls, each timed eager; kernel and
         library also on the device."""
         bound_ms, bound_by = bound(nbytes, ops)
-        ms, plain_ms, dev_ms = cuda_time_ms(kernel), cuda_time_ms(plain), device_time_ms(kernel)
-        library_ms = None if library is None else cuda_time_ms(library)
-        library_dev_ms = None if library is None else device_time_ms(library)
+        ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
+        dev_ms, dev_by = device_time_ms(kernel)
+        library_ms, (library_dev_ms, library_dev_by) = (
+            (None, (None, None)) if library is None
+            else (cuda_time_ms(library), device_time_ms(library)))
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": library_ms, "device_ms": dev_ms,
-                      "library_device_ms": library_dev_ms, **extra}
+                      "device_ms_by": dev_by, "library_device_ms": library_dev_ms,
+                      "library_device_ms_by": library_dev_by, **extra}
+        library_read = ("none" if library is None else
+                        f"{library_ms:.4f} ms (device {fmt(library_dev_ms, library_dev_by)})")
         print(f"probe   {name:16s} max_abs_err {err:.3e}  kernel {ms:.4f} ms (device "
-              f"{fmt(dev_ms)})  plain {plain_ms:.4f} ms  library "
-              f"{'none' if library is None else f'{library_ms:.4f} ms (device {fmt(library_dev_ms)})'}"
+              f"{fmt(dev_ms, dev_by)})  plain {plain_ms:.4f} ms  library {library_read}"
               f"  bound {bound_ms:.5f} ms ({bound_by})", flush=True)
 
     # rows 5-6: the RSA log-bias, features once for all heads / per head
@@ -959,32 +1106,55 @@ def arch_backwards(idx):
     return attention_ops(idx)[0] - first
 
 
-def search_launches(result, eval_batches, alpha_host):
-    """The launches the recorded paths call for: per weight step, for each
-    of its paths, one dropout forward and one backward per attention op and
-    one relation pass per rel_self_att_64 op; per 'full' arch step a dropout
+def search_launches(result, eval_fwd, forwards=1):
+    """The launches the recorded paths call for, each step running
+    `forwards` forwards (ITM's triplet: 3): per weight step, for each of its
+    paths, one dropout forward and one backward per attention op and one
+    relation pass per rel_self_att_64 op; per 'full' arch step a dropout
     forward for every attention op of every node and the backwards of
-    `arch_backwards`; per eval batch a forward per attention op of the
-    argmax path."""
-    from mmnas_tpu_torch.models.supernet import SPACES, NetSearch
+    `arch_backwards`; `eval_fwd` forwards for the eval (and ITM's mining)."""
+    from mmnas_tpu_torch.models.supernet import SPACES
 
     every = sum(result.net.n_nodes[c] * sum(op != "feed_forward" for op in SPACES[c])
                 for c in SPACES)
-    want = {"fused_attention_fwd": 0, "fused_attention_fwd_dropout": 0,
+    want = {"fused_attention_fwd": eval_fwd, "fused_attention_fwd_dropout": 0,
             "fused_attention_bwd": 0, "fused_attention_bwd_rel": 0}
     for kind, _, p in result.paths:
         if kind == "arch":
-            want["fused_attention_fwd_dropout"] += every
-            want["fused_attention_bwd"] += arch_backwards(p)
-            continue
-        for idx in p:
-            att, rel = attention_ops(idx)
-            want["fused_attention_fwd_dropout"] += att
-            want["fused_attention_bwd"] += att
-            want["fused_attention_bwd_rel"] += rel
-    want["fused_attention_fwd"] = eval_batches * attention_ops(
-        NetSearch.chosen_indices(alpha_host))[0]
+            want["fused_attention_fwd_dropout"] += forwards * every
+            want["fused_attention_bwd"] += forwards * arch_backwards(p)
+        elif kind == "weight":
+            for idx in p:
+                att, rel = attention_ops(idx)
+                want["fused_attention_fwd_dropout"] += forwards * att
+                want["fused_attention_bwd"] += forwards * att
+                want["fused_attention_bwd_rel"] += forwards * rel
     return want, every
+
+
+def path_ops(idx):
+    """(encoder attention ops, decoder attention ops) on the path idx."""
+    from mmnas_tpu_torch.models.supernet import SPACES
+
+    return tuple(int(sum(SPACES[c][int(i)] != "feed_forward" for i in idx[c])) for c in SPACES)
+
+
+def itm_sweep_launches(cfg, n_caps, enc_att, dec_att, kind):
+    """Forward launches of one ITM corpus sweep (engine/itm.py) over n_caps
+    captions of 5 per image: the text encoder over TEXT_ENC_CHUNK captions a
+    call, then one scorer call per tile, each running the decoder:
+    mining ("mine"), ceil(items / NEG_BATCHSIZE) tiles in each direction;
+    the eval ("eval"), ceil(n_imgs * n_caps / (EVAL_BATCH_SIZE * 2))."""
+    if cfg.TEXT_ENC_BLOCK:
+        raise AssertionError("the smoke counts whole-table sweeps (TEXT_ENC_BLOCK 0)")
+    n_imgs = n_caps // 5
+    chunks = math.ceil(n_caps / cfg.TEXT_ENC_CHUNK)
+    if kind == "mine":
+        group = max(1, cfg.NEG_BATCHSIZE)
+        tiles = math.ceil(n_imgs / group) + math.ceil(n_caps / group)
+    else:
+        tiles = math.ceil(n_imgs * n_caps / (cfg.EVAL_PAIRS or cfg.EVAL_BATCH_SIZE * 2))
+    return chunks * enc_att + tiles * dec_att
 
 
 def search_path(FA, dev, card, task, legs):
@@ -995,7 +1165,7 @@ def search_path(FA, dev, card, task, legs):
     times and device split. VQA's fp32 leg also resumes from its checkpoint
     and hands its genotype to a fixed net; its bf16 leg is held to fp32."""
     from mmnas_tpu_torch.models.convert import from_jax_params
-    from mmnas_tpu_torch.models.supernet import SPACES
+    from mmnas_tpu_torch.models.supernet import SPACES, NetSearch
     from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint
 
     _, engine, _, _ = engines(task)
@@ -1015,10 +1185,17 @@ def search_path(FA, dev, card, task, legs):
         launches = dict(FA.LAUNCHES)
         split = int(cfg.SYNTH_SIZE * cfg.SPLIT_PORTION)
         alpha_host = result.alpha_host
-        want, every = search_launches(result, math.ceil((cfg.SYNTH_SIZE - split) / batch),
-                                      alpha_host)
+        chosen = NetSearch.chosen_indices(alpha_host)
+        if task == "itm":      # the mining sweeps of the sampled paths, R@K of the argmax one
+            eval_fwd = sum(itm_sweep_launches(cfg, cfg.SYNTH_SIZE, *path_ops(p), "mine")
+                           for kind, _, p in result.paths if kind == "mine")
+            eval_fwd += itm_sweep_launches(cfg, max(20, cfg.SYNTH_SIZE // 4), *path_ops(chosen),
+                                           "eval")
+        else:
+            eval_fwd = math.ceil((cfg.SYNTH_SIZE - split) / batch) * attention_ops(chosen)[0]
+        want, every = search_launches(result, eval_fwd, 3 if task == "itm" else 1)
         kinds = [(k, step) for k, step, _ in result.paths]
-        want_kinds = []
+        want_kinds = [("mine", 0)] if task == "itm" else []
         for step in range(SEARCH_STEPS):
             want_kinds += [("weight", step)] + ([("arch", step)] * ((step + 1) % ALPHA_EVERY == 0))
         losses = result.step_losses
@@ -1054,8 +1231,9 @@ def search_path(FA, dev, card, task, legs):
             raise AssertionError(f"{name}: the epoch checkpoint does not reload")
         leg = {"launches": launches, "expected": want, "losses": losses, "seconds": seconds,
                "alpha_moved": moved, "genotype": genotype}
+        if task in ("vqa", "itm") and dtype == "float32":
+            leg["resume"] = search_resume(cfg, dev, arch_json, engine)
         if task == "vqa" and dtype == "float32":
-            leg["resume"] = search_resume(cfg, dev, arch_json)
             leg["fixed_net"] = fixed_net_from_genotype(FA, dev, arch_json)
         elif task == "vqa":
             leg["precision"] = search_precision(cfg, result, dev)
@@ -1066,29 +1244,31 @@ def search_path(FA, dev, card, task, legs):
     return out
 
 
-def search_resume(cfg, dev, arch_json):
-    """RESUME from the epoch-1 checkpoint for a second epoch: the global
-    steps, the archive and both optimizers' step counts continue."""
-    from mmnas_tpu_torch.engine.search import SearchExecution
+def search_resume(cfg, dev, arch_json, engine):
+    """RESUME from the epoch-1 checkpoint for a second epoch of the task's
+    SearchExecution `engine`: the global steps, the archive and both
+    optimizers' step counts continue (ITM mines again first)."""
     from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint
 
     cfg = cfg.replace(RESUME=True, CKPT_FILE_PATH=ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, 1),
                       MAX_EPOCH=2, EVAL_EVERY_EPOCH=False)
-    result = SearchExecution(cfg, dev).run()
+    result = engine(cfg, dev).run()
     torch.cuda.synchronize()
     with open(arch_json) as f:
         archive = json.load(f)
     ckpt = load_checkpoint(ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, 2))
     steps = (int(ckpt["net_optim"]["step"]), int(ckpt["alpha_optim"]["step"]))
-    print(f"search resume: from global step {result.paths[0][1]}, losses "
+    first = next(step for kind, step, _ in result.paths if kind == "weight")
+    mined = [step for kind, step, _ in result.paths if kind == "mine"]
+    print(f"search resume: from global step {first}, mining at epochs {mined}, losses "
           f"{[round(x, 3) for x in result.step_losses]}; archive {list(archive)}; optimizer "
           f"steps (net, alpha) {steps}", flush=True)
-    if (result.paths[0][1] != SEARCH_STEPS or list(archive) != ["epoch1", "epoch2"]
+    if (first != SEARCH_STEPS or list(archive) != ["epoch1", "epoch2"]
+            or mined != ([1] if cfg.TASK == "itm" else [])
             or ckpt["epoch"] != 2 or steps != (2 * SEARCH_STEPS, 2 * SEARCH_STEPS // ALPHA_EVERY)
             or not all(map(math.isfinite, result.step_losses))):
-        raise AssertionError(f"search resume: {result.paths[0][1]}, {list(archive)}, {steps}")
-    return {"first_step": result.paths[0][1], "losses": result.step_losses,
-            "optimizer_steps": steps}
+        raise AssertionError(f"search resume: {first}, {mined}, {list(archive)}, {steps}")
+    return {"first_step": first, "losses": result.step_losses, "optimizer_steps": steps}
 
 
 def fixed_net_from_genotype(FA, dev, arch_json):
@@ -1197,9 +1377,9 @@ def search_step_times(cfg, result, dev, card, engine):
     def loop():
         exe.steps(run, optim, aoptim, [wb] * SEARCH_STEPS, lambda: ab, 0, True, gen)
 
-    weight_ms = cuda_time_ms(weight, iters=10, warmup=2)
+    weight_ms = cuda_time_ms(weight, iters=5, warmup=1)
     arch_ms = cuda_time_ms(arch, iters=4, warmup=1)
-    loop_ms = cuda_time_ms(loop, iters=2, warmup=1)
+    loop_ms = cuda_time_ms(loop, iters=1, warmup=1)
     ex_s = SEARCH_STEPS * bs / loop_ms * 1000
     split_w, split_a = profile_step(weight), profile_step(arch)
     print(f"search {cfg.TASK} {cfg.DTYPE} BS {bs} KPATH {cfg.KPATH} on {card}: weight step "
@@ -1304,6 +1484,276 @@ def vgd_eval_path(FA, dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# image-text matching (ITM): arch/mmnas_itm.json, mining, train, R@K eval
+# ---------------------------------------------------------------------------
+
+def itm_path(FA, dev, card):
+    """`Execution.run()` of `--RUN train --SYNTH --ARCH_PATH
+    ./arch/mmnas_itm.json --BS 64 --SYNTH_SIZE 1000` at full width (HSIZE
+    512, 36 regions of 2048, 50-token captions), fp32 and bf16 on fp32
+    masters: hard-negative mining before the epoch (NEG_RANDSIZE 64,
+    NEG_HARDSIZE 5) over the corpus of 200 images, a triplet train step per
+    batch of 64 (three forwards, DROPOUT_R 0.1), then the R@K eval over the
+    full 200 x 1,000 score matrix; exact launches, finite losses, fp32
+    masters and Adam moments. Per leg then: the epoch checkpoint evaluated
+    again (`--RUN val --CKPT_PATH`, ITM_RELOAD_SIZE captions) with exact
+    launches, its score matrix's ITM_CORNER against the CPU's; the negatives
+    mined for the first ITM_MINE_CHECK items against the CPU's ranking of the
+    same candidates under the same initial net, equal away from ties (scores
+    closer than twice the card-vs-CPU difference); encode_text +
+    apply_decoder against forward on the card, bit for bit; the train step
+    (wall and device split), the mining, the text encoder and the scorer
+    timed. fp32 also runs `one_step_parity`."""
+    from mmnas_tpu_torch.data.loader import _stack
+    from mmnas_tpu_torch.engine import itm as ITM
+    from mmnas_tpu_torch.engine.vqa import batch_to_device
+    from mmnas_tpu_torch.models.net import INPUT_KEYS, compute_call, compute_dtype, compute_params
+    from mmnas_tpu_torch.train.checkpoint import ckpt_path
+    from mmnas_tpu_torch.train.optimizer import build_net_optimizer
+
+    engine, _, n_att, n_rsa = engines("itm")
+    enc_att, dec_att, _ = itm_genotype_ops()
+    cpu = torch.device("cpu")
+    steps = math.ceil(ITM_SIZE / BATCH)
+    legs = {}
+    for dtype in ("float32", "bfloat16"):
+        name = f"itm train {dtype}"
+        cfg = cfg_for("train", dtype, "itm", SYNTH_SIZE=ITM_SIZE, MAX_EPOCH=1,
+                      VERSION=f"smoke_itm_{dtype}")
+        if not (all(getattr(cfg, k) == v for k, v in ITM_CFG.items())
+                and cfg.EVAL_BATCH_SIZE * 2 == ITM_SCORER_B and cfg.NET_GRAD_CLIP > 0):
+            raise AssertionError(f"unexpected ITM config {cfg}")
+        exe = engine(cfg, dev)
+        mined, mine = [], exe.mine_hard_negatives
+
+        def recorded(net, dataset, epoch, mine=mine, mined=mined):
+            """The mining, timed, with the negatives it wrote and its scorer's
+            tiles (index arrays and device scores, in call order) kept."""
+            tiles, score = [], ITM.score_pairs
+
+            def kept(*args):
+                out = score(*args)
+                tiles.append((args[3], args[4], out))
+                return out
+
+            ITM.score_pairs = kept
+            t0 = time.perf_counter()
+            try:
+                mine(net, dataset, epoch)
+            finally:
+                ITM.score_pairs = score
+            torch.cuda.synchronize()
+            mined.append((dataset.neg_caps_idx_tensor.copy(), dataset.neg_imgs_idx_tensor.copy(),
+                          time.perf_counter() - t0, tiles))
+
+        exe.mine_hard_negatives = recorded
+        zero_launches(FA)
+        t0 = time.perf_counter()
+        result = exe.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, losses = dict(FA.LAUNCHES), result.step_losses
+        want = {"fused_attention_fwd": sum(itm_sweep_launches(cfg, ITM_SIZE, enc_att, dec_att, k)
+                                           for k in ("mine", "eval")),
+                "fused_attention_fwd_dropout": 3 * n_att * steps,
+                "fused_attention_bwd": 3 * n_att * steps,
+                "fused_attention_bwd_rel": 3 * n_rsa * steps}
+        print(f"{name}: mining {mined[0][2] if mined else 0:.2f} s, {steps} steps, losses per "
+              f"batch of {BATCH} {[round(x, 3) for x in losses]}; {launches} (expected {want}); "
+              f"{seconds:.1f} s with the mining, the loader and the eval on {card}", flush=True)
+        if launches != want:
+            raise AssertionError(f"{name}: kernel launches {launches}, expected {want}")
+        if len(mined) != 1 or len(losses) != steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{name}: {len(mined)} mining passes, losses {losses}")
+        kinds = {p.dtype for p in result.net.parameters()} | {
+            t.dtype for key in ("m", "v") for t in result.opt_state[key].values()}
+        if kinds != {torch.float32}:
+            raise AssertionError(f"{name}: masters or Adam moments in {kinds}")
+        leg = {"launches": launches, "losses": losses, "seconds": seconds,
+               "mining_s": mined[0][2]}
+        t_check = time.perf_counter()
+
+        # --RUN val on the epoch checkpoint; its score matrix's corner on the CPU
+        vcfg = cfg_for("val", dtype, "itm", SYNTH_SIZE=ITM_RELOAD_SIZE,
+                       CKPT_PATH=ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, 1))
+        zero_launches(FA)
+        reloaded = engine(vcfg, dev).run()
+        torch.cuda.synchronize()
+        want_val = {"fused_attention_fwd": itm_sweep_launches(vcfg, ITM_RELOAD_SIZE, enc_att,
+                                                              dec_att, "eval"),
+                    "fused_attention_fwd_dropout": 0, "fused_attention_bwd": 0,
+                    "fused_attention_bwd_rel": 0}
+        n_imgs = ITM_RELOAD_SIZE // 5
+        if (dict(FA.LAUNCHES) != want_val or reloaded.scores.shape != (n_imgs, ITM_RELOAD_SIZE)
+                or not np.isfinite(reloaded.scores).all()):
+            raise AssertionError(f"{name}: eval of the checkpoint: {FA.LAUNCHES}, expected "
+                                 f"{want_val}; scores {reloaded.scores.shape}")
+        vexe = engine(vcfg, cpu)
+        vds = vexe.build_dataset("val")
+        ni, nc = ITM_CORNER
+        with torch.inference_mode():
+            encode, decode = ITM.pair_fns(*cpu_reference(vexe.load_masters(vds), vcfg))
+            corpus = cpu_corpus(vds, vcfg)
+            te = ITM.encode_window(encode, corpus["caps"], 0, nc, vcfg.TEXT_ENC_CHUNK)
+            ii, cc = (a.reshape(-1) for a in np.meshgrid(np.arange(ni), np.arange(nc),
+                                                          indexing="ij"))
+            corner = np.asarray(ITM.score_pairs(decode, corpus, te, ii, cc)).reshape(ni, nc)
+        corner_diff = float(np.abs(reloaded.scores[:ni, :nc] - corner).max())
+        tol = LOGIT_TOL[dtype]
+        print(f"{name}: eval of the checkpoint over {n_imgs} x {ITM_RELOAD_SIZE}: R@1/5/10 i2t "
+              f"{[reloaded.stats[f'i2t_r{k}'] for k in (1, 5, 10)]} t2i "
+              f"{[reloaded.stats[f't2i_r{k}'] for k in (1, 5, 10)]}, "
+              f"{n_imgs * ITM_RELOAD_SIZE / reloaded.seconds:.1f} pairs/s end to end; scores card "
+              f"vs CPU on the {ni} x {nc} corner max abs diff {corner_diff:.3e} (tol {tol:g})",
+              flush=True)
+        if not corner_diff <= tol:
+            raise AssertionError(f"{name}: card scores differ from the CPU's by {corner_diff}")
+        leg.update(reload_stats=reloaded.stats, corner_diff=corner_diff,
+                   eval_pairs_per_s=n_imgs * ITM_RELOAD_SIZE / reloaded.seconds)
+        print(f"  ({time.perf_counter() - t_check:.1f} s)", flush=True)
+        t_check = time.perf_counter()
+
+        # the mined negatives of the first items, against the CPU's ranking
+        ds = exe.build_dataset("train")
+        leg["mined_vs_cpu"] = itm_mined_vs_cpu(engine, cfg, ds, mined[0], name)
+        print(f"  ({time.perf_counter() - t_check:.1f} s)", flush=True)
+        t_check = time.perf_counter()
+
+        # split trunk vs forward on the card; the train step, encoder and scorer timed
+        net = result.net
+        host = _stack([ds[i] for i in range(BATCH)])
+        keys = INPUT_KEYS + exe.TARGET_KEYS
+        batch = batch_to_device(host, dev, keys)
+        with torch.inference_mode():
+            cast = compute_params(net, cfg) if compute_dtype(cfg) != torch.float32 else None
+            full = compute_call(net, cfg, (batch,), params=cast)
+            encode, decode = ITM.pair_fns(net, cfg)
+            split = decode(*encode(batch["ques_ix"]), batch)
+            torch.cuda.synchronize()
+            if split.shape != (BATCH,) or not torch.equal(split, full):
+                raise AssertionError(f"{name}: encode_text + apply_decoder differ from forward "
+                                     f"by {(split - full).abs().max().item()}")
+            corpus = exe.device_corpus(ds)
+            enc_ms = cuda_time_ms(lambda: ITM.encode_window(
+                encode, corpus["caps"], 0, ITM_SIZE, cfg.TEXT_ENC_CHUNK), iters=3, warmup=1)
+            te = ITM.encode_window(encode, corpus["caps"], 0, ITM_SIZE, cfg.TEXT_ENC_CHUNK)
+            r = np.random.RandomState(0)
+            ii, cc = r.randint(0, ITM_SIZE // 5, ITM_SCORER_B), r.randint(0, ITM_SIZE,
+                                                                         ITM_SCORER_B)
+            tile_ms = cuda_time_ms(lambda: ITM.score_pairs(decode, corpus, te, ii, cc).scores)
+            tile_split = profile_step(lambda: ITM.score_pairs(decode, corpus, te, ii, cc).scores)
+        params = dict(net.named_parameters())
+        optim = build_net_optimizer(cfg, steps)
+        state = optim.init(params)
+        gen = torch.Generator(dev).manual_seed(3)
+        step_ms = cuda_time_ms(lambda: exe.train_step(net, optim, state, params, batch, gen),
+                               iters=5, warmup=1)
+        step_split = profile_step(lambda: exe.train_step(net, optim, state, params, batch, gen))
+        print(f"{name} on {card}: train step BS {BATCH} {step_ms:.2f} ms ({BATCH / step_ms * 1000:.1f}"
+              f" triplets/s), device split {step_split}; mining {mined[0][2]:.2f} s; text encoder "
+              f"{ITM_SIZE / enc_ms * 1000:.1f} captions/s; scorer {ITM_SCORER_B} pairs "
+              f"{tile_ms:.3f} ms = {ITM_SCORER_B / tile_ms * 1000:.1f} pairs/s, device split "
+              f"{tile_split}; split trunk equals forward", flush=True)
+        leg.update(step_ms=step_ms, step_device_split=step_split,
+                   text_captions_per_s=ITM_SIZE / enc_ms * 1000, tile_ms=tile_ms,
+                   tile_device_split=tile_split, scorer_pairs_per_s=ITM_SCORER_B / tile_ms * 1000)
+        del net, params, state, result
+        print(f"  ({time.perf_counter() - t_check:.1f} s)", flush=True)
+        if dtype == "float32":
+            leg.update(one_step_parity(engine, cfg.replace(DROPOUT_R=0.0), ds,
+                                       {k: v[:16] for k, v in host.items()}, keys, steps, n_rsa,
+                                       "itm", dev))
+        legs[dtype] = leg
+        torch.cuda.empty_cache()
+    return {"legs": legs}
+
+
+def cpu_reference(net, cfg):
+    """(net, cfg) of the CPU's reference for the card's scores: under
+    bf16 the net's parameters rounded to bf16 and computed on in fp32 (the
+    same numbers the card's bf16 path starts from, evaluated with less
+    rounding and without the CPU's slow bf16 products)."""
+    if cfg.DTYPE != "bfloat16":
+        return net, cfg
+    net = net.to(torch.bfloat16).float()
+    net.cfg = cfg = cfg.replace(DTYPE="float32")     # the net casts its inputs by its cfg
+    return net, cfg
+
+
+def cpu_corpus(dataset, cfg):
+    """The corpus on the CPU for `cpu_reference`: stored at the card's
+    compute dtype, computed on in fp32."""
+    from mmnas_tpu_torch.engine import itm as ITM
+    from mmnas_tpu_torch.models.net import compute_dtype
+
+    corpus = ITM.corpus_to_device(dataset, torch.device("cpu"), compute_dtype(cfg))
+    return {k: v.float() if v.is_floating_point() else v for k, v in corpus.items()}
+
+
+def itm_mined_vs_cpu(engine, cfg, dataset, mined, name):
+    """The epoch-0 negatives the card mined for the first ITM_MINE_CHECK
+    images and captions (`mined`: both sweeps' negatives, the seconds, the
+    scorer's tiles): the candidates drawn again from the mining's RNG stream
+    are the pairs of each sweep's first tile; the negatives are the top
+    NEG_HARDSIZE of the card's own scores of that tile; and against the
+    CPU's scores of the same pairs under the same seeded initial net (see
+    `cpu_reference`), with s_H the CPU's H-th best score and the band twice
+    the card-vs-CPU score difference, they hold every candidate scored above
+    s_H + band and none scored below s_H - band (the top H, equal away from
+    ties). The difference itself is held to LOGIT_TOL."""
+    from mmnas_tpu_torch.engine import itm as ITM
+
+    n_caps, R, Hn = len(dataset), cfg.NEG_RANDSIZE, cfg.NEG_HARDSIZE
+    n_imgs, group = n_caps // 5, max(1, cfg.NEG_BATCHSIZE)
+    rng = np.random.RandomState(cfg.SEED * 97)
+    cand = (ITM.draw_candidates(n_imgs, n_caps, True, 5, rng, R, group),
+            ITM.draw_candidates(n_caps, n_imgs, False, 5, rng, R, group))
+    tiles = mined[3]
+    card, pairs = [], []
+    # the caption sweep's ceil(n_imgs / group) tiles come first, then the image sweep's
+    for direction, (tile, n) in enumerate(zip((tiles[0], tiles[math.ceil(n_imgs / group)]),
+                                              ITM_MINE_CHECK)):
+        rows = np.repeat(np.arange(n), R)
+        want = ((rows, cand[0][:n].reshape(-1)) if direction == 0
+                else (cand[1][:n].reshape(-1), rows))
+        if not all(np.array_equal(np.asarray(a)[:n * R], w) for a, w in zip(tile[:2], want)):
+            raise AssertionError(f"{name}: the mining's tile {direction} is not the candidates "
+                                 "drawn again from its RNG stream")
+        card.append(np.asarray(tile[2])[:n * R].reshape(n, R))
+        pairs.append(want)
+    net, rcfg = cpu_reference(engine(cfg, torch.device("cpu")).build_net(dataset), cfg)
+    corpus = cpu_corpus(dataset, cfg)
+    cpu = []
+    with torch.inference_mode():
+        encode, decode = ITM.pair_fns(net, rcfg)
+        for (ii, cc), n in zip(pairs, ITM_MINE_CHECK):
+            x, mask = encode(corpus["caps"][torch.from_numpy(np.unique(cc))])
+            rel = np.searchsorted(np.unique(cc), cc)
+            cpu.append(np.asarray(ITM.score_pairs(decode, corpus, {"x": x, "mask": mask}, ii,
+                                                  rel)).reshape(n, R))
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu))
+    tol = LOGIT_TOL[cfg.DTYPE]
+    exact = 0
+    for direction, (s_card, s_cpu) in enumerate(zip(card, cpu)):
+        for item in range(len(s_cpu)):
+            ids, got = cand[direction][item], set(mined[direction][item].tolist())
+            for row, band, whose in ((s_card[item], 0.0, "card's"),
+                                     (s_cpu[item], 2 * diff, "CPU's")):
+                s_h = np.sort(row)[::-1][Hn - 1]
+                must, may = set(ids[row > s_h + band]), set(ids[row >= s_h - band])
+                if not must <= got <= may:
+                    raise AssertionError(f"{name}: item {item} of sweep {direction} mined {got}; "
+                                         f"the {whose} top {Hn}: all of {must}, within {may}")
+            exact += got == may            # nothing of the CPU's band left out: no tie
+    print(f"{name}: mined negatives of {sum(ITM_MINE_CHECK)} items equal the CPU's top "
+          f"{Hn} away from ties ({exact} with no tie); their scores card vs CPU max abs diff "
+          f"{diff:.3e} (tol {tol:g})", flush=True)
+    if not diff <= tol:
+        raise AssertionError(f"{name}: mining scores card vs CPU differ by {diff}")
+    return {"items": sum(ITM_MINE_CHECK), "no_tie": int(exact), "score_diff": diff}
+
+
 def one_step_parity(engine, cfg0, dataset, small, keys, steps, n_rsa, label, dev="cuda"):
     """One train step at DROPOUT_R 0 from one seeded init: on the card with
     the kernels, on the card with the plain versions in their place, on the
@@ -1376,8 +1826,9 @@ def plain_attention(q, k, v, mask=None, log_bias=None, *, rel=None, dropout_r=0.
 
 
 def profile_step(step):
-    """Device time of one train step by kind of kernel, from torch.profiler:
-    the port's kernels, cuBLAS/CUTLASS products, everything else."""
+    """Device time of one call of `step` (a train step, a scorer tile) by
+    kind of kernel, from torch.profiler: the port's kernels, cuBLAS/CUTLASS
+    products, everything else."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -1477,6 +1928,20 @@ def main() -> int:
     phase("VGD train")
     vgd["search"] = search_path(FA, dev, card, "vgd", VGD_SEARCH_LEGS)
     phase("VGD search")
+    itm_fwd = kernel_cases(FA, dev, B, H, ITM_CASES)
+    itm_train_cases = train_kernel_cases(FA, dev, B, H, ITM_CASES)
+    itm_fwd += kernel_cases(FA, dev, ITM_SCORER_B, H, ITM_CASES)
+    itm_fwd += kernel_cases(FA, dev, SEARCH_B, SEARCH_H, ITM_CASES)
+    itm_train_cases += train_kernel_cases(FA, dev, SEARCH_B, SEARCH_H, ITM_CASES)
+    for c in (cfg_for("train", "float32", "itm"),
+              search_cfg(*ITM_SEARCH_LEGS[0], task="itm")):       # the mining's tiles
+        itm_fwd += kernel_cases(FA, dev, c.NEG_BATCHSIZE * c.NEG_RANDSIZE, c.HSIZE // D,
+                                ITM_DECODER_CASES)
+    phase("kernels at the ITM net's, scorer's, mining's and search's shapes")
+    itm = itm_path(FA, dev, card)
+    phase("ITM mining, train and eval")
+    itm["search"] = search_path(FA, dev, card, "itm", ITM_SEARCH_LEGS)
+    phase("ITM search")
 
     def pick(rows, Lq, Lk, kind):
         return next(r for r in rows if r["dtype"] == "float32" and (r["Lq"], r["Lk"],
@@ -1487,62 +1952,73 @@ def main() -> int:
         return {"shape": f"B{SEARCH_B} H{SEARCH_H} (100,100) {kind} fp32",
                 **{k: r[v] for k, v in keys.items()}}
 
-    def at_vgd_shapes(rows, keys):
-        """A VGD path's two attention shapes, fp32 and bf16."""
-        return [{"shape": f"B{r['B']} H{r['H']} ({r['Lq']},{r['Lk']}) mask {r['dtype']}",
-                 **{k: r[v] for k, v in keys.items()}} for r in rows]
+    def at_shapes(rows, keys, rel=None):
+        """A path's attention shapes, fp32 and bf16 (with rel True or False,
+        only the cases with or without the RSA chain)."""
+        return [{"shape": f"B{r['B']} H{r['H']} ({r['Lq']},{r['Lk']}) {r['operands']} {r['dtype']}",
+                 **{k: r[v] for k, v in keys.items()}} for r in rows
+                if rel is None or ("rel" in r["operands"]) == rel]
 
     fwd, drop = pick(fwd_cases, 100, 100, "mask"), pick(train_cases, 100, 100, "mask")
     rel = pick(train_cases, 100, 100, "mask+rel")
     fp32_train = [r for r in train_cases if r["dtype"] == "float32"]
-    fwd_keys = {"ms": "ms", "plain_ms": "plain_ms", "bound_ms": "bound_ms",
-                "bound_by": "bound_by", "library_ms": "library_ms", "device_ms": "device_ms",
-                "library_device_ms": "library_device_ms"}
-    drop_keys = {"ms": "fwd_ms", "plain_ms": "plain_fwd_ms", "bound_ms": "fwd_bound_ms",
-                 "bound_by": "fwd_bound_by", "library_ms": "sdpa_fwd_ms",
-                 "device_ms": "fwd_device_ms", "library_device_ms": "sdpa_fwd_device_ms"}
-    bwd_keys = {"ms": "bwd_ms", "plain_ms": "plain_bwd_ms", "bound_ms": "bwd_bound_ms",
-                "bound_by": "bwd_bound_by", "library_ms": "sdpa_bwd_ms",
-                "device_ms": "bwd_device_ms", "library_device_ms": "sdpa_bwd_device_ms"}
-    rel_keys = {"ms": "rel_ms", "plain_ms": "rel_plain_ms", "bound_ms": "rel_bound_ms",
-                "bound_by": "rel_bound_by", "device_ms": "rel_device_ms"}
+    def with_by(keys):
+        """The key map with each device reading's `_by` beside it."""
+        return {**keys, **{f"{k}_by": f"{v}_by" for k, v in keys.items() if "device" in k}}
+
+    fwd_keys = with_by({"ms": "ms", "plain_ms": "plain_ms", "bound_ms": "bound_ms",
+                        "bound_by": "bound_by", "library_ms": "library_ms",
+                        "device_ms": "device_ms", "library_device_ms": "library_device_ms"})
+    drop_keys = with_by({"ms": "fwd_ms", "plain_ms": "plain_fwd_ms", "bound_ms": "fwd_bound_ms",
+                         "bound_by": "fwd_bound_by", "library_ms": "sdpa_fwd_ms",
+                         "device_ms": "fwd_device_ms", "library_device_ms": "sdpa_fwd_device_ms"})
+    bwd_keys = with_by({"ms": "bwd_ms", "plain_ms": "plain_bwd_ms", "bound_ms": "bwd_bound_ms",
+                        "bound_by": "bwd_bound_by", "library_ms": "sdpa_bwd_ms",
+                        "device_ms": "bwd_device_ms", "library_device_ms": "sdpa_bwd_device_ms"})
+    rel_keys = with_by({"ms": "rel_ms", "plain_ms": "rel_plain_ms", "bound_ms": "rel_bound_ms",
+                        "bound_by": "rel_bound_by", "device_ms": "rel_device_ms"})
     rows = [
         {"name": "fused_attention_fwd", "max_abs_err": max(
             c["max_abs_err"] for c in fwd_cases if c["dtype"] == "float32"),
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
-         "device_ms": fwd["device_ms"], "library_device_ms": fwd["library_device_ms"],
+         **{k: fwd[v] for k, v in fwd_keys.items() if "device" in k},
          "shape": "B64 H8 (100,100) mask fp32",
          "search_shape": at_search_shape(search_fwd, "mask", fwd_keys),
-         "vgd_shapes": at_vgd_shapes(vgd_fwd, fwd_keys),
-         "vgd_search_shapes": at_vgd_shapes(vgd_search_fwd, fwd_keys)},
+         "vgd_shapes": at_shapes(vgd_fwd, fwd_keys),
+         "vgd_search_shapes": at_shapes(vgd_search_fwd, fwd_keys),
+         "itm_shapes": at_shapes(itm_fwd, fwd_keys)},
         {"name": "fused_attention_fwd_dropout",
          "max_abs_err": max(c["fwd_err"] for c in fp32_train),
          "ms": drop["fwd_ms"], "plain_ms": drop["plain_fwd_ms"], "bound_ms": drop["fwd_bound_ms"],
          "bound_by": drop["fwd_bound_by"], "library_ms": drop["sdpa_fwd_ms"],
-         "device_ms": drop["fwd_device_ms"], "library_device_ms": drop["sdpa_fwd_device_ms"],
+         **{k: drop[v] for k, v in drop_keys.items() if "device" in k},
          "shape": "B64 H8 (100,100) mask fp32 r 0.1",
          "search_shape": at_search_shape(search_train, "mask", drop_keys),
-         "vgd_shapes": at_vgd_shapes(vgd_train_cases, drop_keys),
-         "vgd_search_shapes": at_vgd_shapes(vgd_search_train, drop_keys)},
+         "vgd_shapes": at_shapes(vgd_train_cases, drop_keys),
+         "vgd_search_shapes": at_shapes(vgd_search_train, drop_keys),
+         "itm_shapes": at_shapes(itm_train_cases, drop_keys)},
         {"name": "fused_attention_bwd", "max_abs_err": max(c["grad_abs_err"] for c in fp32_train),
          "ms": drop["bwd_ms"], "plain_ms": drop["plain_bwd_ms"], "bound_ms": drop["bwd_bound_ms"],
          "bound_by": drop["bwd_bound_by"], "library_ms": drop["sdpa_bwd_ms"],
-         "device_ms": drop["bwd_device_ms"], "library_device_ms": drop["sdpa_bwd_device_ms"],
+         **{k: drop[v] for k, v in bwd_keys.items() if "device" in k},
          "shape": "B64 H8 (100,100) mask fp32 r 0.1",
          "search_shape": at_search_shape(search_train, "mask", bwd_keys),
-         "vgd_shapes": at_vgd_shapes(vgd_train_cases, bwd_keys),
-         "vgd_search_shapes": at_vgd_shapes(vgd_search_train, bwd_keys)},
+         "vgd_shapes": at_shapes(vgd_train_cases, bwd_keys),
+         "vgd_search_shapes": at_shapes(vgd_search_train, bwd_keys),
+         "itm_shapes": at_shapes(itm_train_cases, bwd_keys)},
         {"name": "fused_attention_bwd_rel", "max_abs_err": rel["rel_abs_err"],
          "ms": rel["rel_ms"], "plain_ms": rel["rel_plain_ms"], "bound_ms": rel["rel_bound_ms"],
          "bound_by": rel["rel_bound_by"], "library_ms": None,
-         "device_ms": rel["rel_device_ms"], "library_device_ms": None,
+         **{k: rel[v] for k, v in rel_keys.items() if "device" in k}, "library_device_ms": None,
          "shape": "B64 H8 (100,100) Rr4 R64 fp32",
-         "search_shape": at_search_shape(search_train, "mask+rel", rel_keys)},
+         "search_shape": at_search_shape(search_train, "mask+rel", rel_keys),
+         "itm_shapes": at_shapes(itm_train_cases, rel_keys, rel=True)},
     ]
-    # the attention kernels' launches on this slice's main path, the VGD
-    # search (fp32, BS 128, KPATH 1); each path's own counts beside them
-    main_path = vgd["search"]["float32_bs128_k1"]["launches"]
+    # the attention kernels' launches on this slice's main path, the ITM
+    # fixed net's fp32 run (mining, 16 triplet steps, the R@K eval); each
+    # path's own counts beside them
+    main_path = itm["legs"]["float32"]["launches"]
     for row in rows:
         fwd_only = row["name"] == "fused_attention_fwd"
         row["launches"] = main_path[row["name"]]
@@ -1553,7 +2029,9 @@ def main() -> int:
             "vgd_eval_fp32": vgd["eval"]["float32"]["launches"] if fwd_only else 0,
             **{f"vgd_train_{dt}": leg["launches"][row["name"]]
                for dt, leg in vgd["train"]["legs"].items()},
-            "vgd_search_fp32": main_path[row["name"]]}
+            "vgd_search_fp32": vgd["search"]["float32_bs128_k1"]["launches"][row["name"]],
+            **{f"itm_train_{dt}": leg["launches"][row["name"]] for dt, leg in itm["legs"].items()},
+            "itm_search_fp32": itm["search"]["float32_bs128_k1"]["launches"][row["name"]]}
     rows += [{"name": name, **row} for name, row in probes["rows"].items()]
     for row in rows:
         source, replaces = KERNELS[row["name"]]
@@ -1564,12 +2042,12 @@ def main() -> int:
     details = os.path.join(WORK, "kernel_cases.json")
     with open(details, "w") as f:
         json.dump({"fwd": fwd_cases, "train": train_cases, "search_fwd": search_fwd,
-                   "search_train": search_train, "vgd_fwd": vgd_fwd,
-                   "vgd_train": vgd_train_cases, "vgd_search_fwd": vgd_search_fwd,
-                   "vgd_search_train": vgd_search_train}, f)
+                   "search_train": search_train, "vgd_fwd": vgd_fwd, "vgd_train": vgd_train_cases,
+                   "vgd_search_fwd": vgd_search_fwd, "vgd_search_train": vgd_search_train,
+                   "itm_fwd": itm_fwd, "itm_train": itm_train_cases}, f)
     print(f"kernel cases: {os.path.relpath(details, HERE)}")
     print(json.dumps({"kernels": rows, "probes": {k: v for k, v in probes.items() if k != "rows"},
-                      "eval": evals, "train": train, "search": search, "vgd": vgd}))
+                      "eval": evals, "train": train, "search": search, "vgd": vgd, "itm": itm}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

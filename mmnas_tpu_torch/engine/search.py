@@ -92,8 +92,8 @@ class SearchResult:
     alpha_state: Dict                    # the alpha optimizer's state
     epoch_losses: List[float] = field(default_factory=list)  # summed loss / examples
     step_losses: List[float] = field(default_factory=list)   # per weight step, summed
-    # the sampled paths in order: ("weight", global step, [one idx per path])
-    # and ("arch", global step, idx)
+    # the sampled paths in order: ("weight", global step, [one idx per path]),
+    # ("arch", global step, idx) and ITM's ("mine", epoch, idx)
     paths: List[Tuple[str, int, object]] = field(default_factory=list)
     # the host copy of alpha that sampling reads, renewed after each arch step
     alpha_host: Dict[str, np.ndarray] = field(default_factory=dict)
@@ -146,6 +146,18 @@ class SearchExecution:
         """BCEWithLogits sum (search_vqa.py:211,282)."""
         return bce_with_logits_sum(pred, batch["ans"])
 
+    def forward_loss(self, run, batch):
+        """The loss of one step's batch: `run(b)` is the supernet's train-mode
+        forward on a batch `b` with the step's parameters, path, mode and
+        generator. One forward and `self.loss` (mmnas_tpu/engine/search.py:73);
+        ITM runs three (engine/search_itm.py)."""
+        return self.loss(run(batch), batch)
+
+    def on_epoch_start(self, result: SearchResult, dataset, epoch: int) -> None:
+        """Per-epoch task hook, before the epoch's loaders start (ITM's
+        hard-negative mining, mmnas_tpu/engine/search.py:80); none for VQA
+        and VGD."""
+
     def weight_step(self, net: NetSearch, optim, opt_state: Dict,
                     masters: Mapping[str, torch.nn.Parameter], batch: Dict[str, torch.Tensor],
                     idxs: Sequence[Mapping[str, np.ndarray]], generator: torch.Generator):
@@ -162,9 +174,10 @@ class SearchExecution:
         for k, idx in enumerate(idxs):
             # a stride slice is a view; the kernels take contiguous tensors
             sl = batch if K == 1 else {key: v[k::K].contiguous() for key, v in batch.items()}
-            pred = compute_call(net, cfg, (sl, None, idx),
-                                {"mode": "sampled", "train": True, "generator": generator}, params)
-            loss = loss + self.loss(pred, sl)
+            loss = loss + self.forward_loss(
+                lambda b, idx=idx: compute_call(
+                    net, cfg, (b, None, idx),
+                    {"mode": "sampled", "train": True, "generator": generator}, params), sl)
         grads = torch.autograd.grad(loss, [masters[n] for n in names], allow_unused=True)
         # a selected parameter the loss does not reach (the text-relation
         # stem) has a zero gradient, as in JAX: Adam still counts its step
@@ -184,10 +197,10 @@ class SearchExecution:
         with torch.no_grad():
             params = {n: p.detach() for n, p in compute_params(net, self.cfg).items()}
         leaves = {c: alpha[c].detach().requires_grad_() for c in CELLS}
-        pred = functional_call(net, params, (batch, leaves, idx),
-                               {"mode": mode, "train": True, "generator": generator},
-                               tie_weights=False)
-        loss = self.loss(pred, batch)
+        loss = self.forward_loss(
+            lambda b: functional_call(net, params, (b, leaves, idx),
+                                      {"mode": mode, "train": True, "generator": generator},
+                                      tie_weights=False), batch)
         grads = torch.autograd.grad(loss, [leaves[c] for c in CELLS])
         alpha_old = {c: a.clone() for c, a in alpha.items()} if mode == "two" else None
         alpha_optim.step(alpha_state, alpha, dict(zip(CELLS, grads)))
@@ -277,6 +290,7 @@ class SearchExecution:
 
         for epoch in range(start_epoch, cfg.MAX_EPOCH):
             self.logger.stamp()
+            self.on_epoch_start(result, train_loader.dataset, epoch)
             train_loader.sampler.set_epoch(epoch)
             eval_loader.sampler.set_epoch(epoch)
             eval_loader.sampler.set_shuffle(True)

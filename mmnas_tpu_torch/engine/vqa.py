@@ -139,17 +139,29 @@ class Execution:
         """The summed BCE-with-logits loss of the logits `pred` (train_vqa.py:237)."""
         return bce_with_logits_sum(pred, batch["ans"])
 
+    def forward_loss(self, run, batch: Dict[str, torch.Tensor]):
+        """The loss of one step's batch: `run(b)` is the net's train-mode
+        forward on a batch `b` with the step's parameters and generator. One
+        forward and `self.loss`; ITM runs three forwards (engine/itm.py)."""
+        return self.loss(run(batch), batch)
+
+    def on_epoch_start(self, net: NetFull, dataset, epoch: int) -> None:
+        """Per-epoch task hook, before the epoch's loader starts (ITM's
+        hard-negative mining); none for VQA and VGD."""
+
     def train_step(self, net: NetFull, optim, opt_state: Dict,
                    params: Dict[str, torch.nn.Parameter], batch: Dict[str, torch.Tensor],
                    generator: torch.Generator):
         """One optimizer step on one device batch (mmnas_tpu/engine/vqa.py:115-126):
         the forward computes with `compute_params` (bf16 casts of the fp32
-        masters under --DTYPE bfloat16), so the gradients, the clip and Adam
-        are fp32; `self.loss` is the task's loss. Returns (loss, lr); the loss
-        stays on the device."""
+        masters under --DTYPE bfloat16, cast once per step), so the gradients,
+        the clip and Adam are fp32; `self.forward_loss` is the task's loss.
+        Returns (loss, lr); the loss stays on the device."""
         cfg = self.cfg
-        pred = compute_call(net, cfg, (batch,), {"train": True, "generator": generator})
-        loss = self.loss(pred, batch)
+        cast = compute_params(net, cfg) if compute_dtype(cfg) != torch.float32 else None
+        loss = self.forward_loss(
+            lambda b: compute_call(net, cfg, (b,), {"train": True, "generator": generator}, cast),
+            batch)
         names = list(params)
         grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
         # a parameter the loss does not reach has a zero gradient, as in JAX
@@ -181,6 +193,7 @@ class Execution:
         global_step = start_epoch * epoch_steps
         epoch_losses, step_losses = [], []
         for epoch in range(start_epoch, cfg.MAX_EPOCH):
+            self.on_epoch_start(net, train_loader.dataset, epoch)
             train_loader.sampler.set_epoch(epoch)
             opt_state = optim.epoch_hook(opt_state, epoch)
             # losses stay on the device until the epoch ends: reading one per

@@ -1,15 +1,23 @@
-"""Fixed-architecture nets for VQA and VGD (counterpart of
+"""Fixed-architecture nets for VQA, VGD and ITM (counterpart of
 mmnas_tpu/models/net.py).
 
 GloVe embedding -> LSTM text encoder, image-feature projection, the
 geometry-relation stem, genotype-defined encoder/decoder cells, and a task
-head (the two tasks share the whole trunk, full_vgd.py:76-114):
+head (the tasks share the whole trunk, full_vgd.py:76-114):
 
   vqa: AttFlat(x) + AttFlat(y) -> LN -> proj[ans_size] logits
        (full_vqa.py:85-111);
   vgd: AttFlat(x)[:, None] + attfc_y(y) -> LN -> per region proj_scores[1]
        (log_softmax over all FRCNFEAT_LEN regions, pads included, when
-       SCORES_LOSS is 'kld') and proj_reg[4] box deltas (full_vgd.py:104-114).
+       SCORES_LOSS is 'kld') and proj_reg[4] box deltas (full_vgd.py:104-114);
+  itm: AttFlat(x) + AttFlat(y) -> LN -> proj[1] -> sigmoid in fp32, the
+       match probability [B] (full_itm.py:111).
+
+The encoder side (text stem + enc cells) never sees the image, so the net
+splits into `encode_text` and `apply_decoder` (the image stem, dec cells and
+head against a text encoding); `forward` is the two in a row. ITM's mining
+and R@K sweeps encode each caption once and score every (image, caption)
+pair with `apply_decoder` alone (mmnas_tpu/models/net.py:305-357).
 
 Module and parameter names mirror the JAX pytree, so models/convert.py
 moves weights between the two packages by name. The stem
@@ -24,7 +32,8 @@ step on `compute_params(net, cfg)`, their bf16 casts, through
 `torch.func.functional_call` (`compute_call`), so the gradients arrive in
 fp32 on the masters (the JAX package's `cast_for_compute`, net.py:44-63). LN
 statistics and the attention softmax stay fp32 either way, and the heads'
-outputs leave in fp32.
+outputs leave in fp32 (ITM's sigmoid is taken in fp32: a bf16 sigmoid
+rounds every logit above ~5.5 to exactly 1.0).
 
 Batch dict keys (fixed shapes, as the JAX package's loaders give them):
   frcn_feat [B, FRCNFEAT_LEN, FRCNFEAT_SIZE]  region features
@@ -33,7 +42,8 @@ Batch dict keys (fixed shapes, as the JAX package's loaders give them):
   ques_ix   [B, MAX_TOKEN] int64              token ids (0 = PAD); VGD's
                                               query is MAX_TOKEN + 1 = 15 long
                                               (load_data_vgd.py:190)
-VGD batches also carry the supervision and eval keys of `VGD_KEYS`.
+VGD batches also carry the supervision and eval keys of `VGD_KEYS`, ITM
+train batches the hard negatives of `ITM_NEG_KEYS`.
 """
 
 from __future__ import annotations
@@ -55,7 +65,10 @@ INPUT_KEYS = ("frcn_feat", "bbox_feat", "rel_img", "ques_ix")
 # and the image's (H, W)
 VGD_KEYS = ("scores", "scores_mask", "transformed_bbox", "bbox_mask", "gt_bbox", "bbox",
             "img_shape")
-TASKS = ("vqa", "vgd")
+# an ITM train batch's hard-negative caption and image (mmnas_tpu/data/itm.py);
+# their text relation is always zeros and read by no op
+ITM_NEG_KEYS = ("neg_ques_ix", "neg_frcn_feat", "neg_bbox_feat", "neg_rel_img")
+TASKS = ("vqa", "vgd", "itm")
 _FLOAT_INPUTS = ("frcn_feat", "bbox_feat", "rel_img")
 
 
@@ -92,24 +105,42 @@ def compute_params(module: nn.Module, cfg, names: Optional[Iterable[str]] = None
     return {n: p.to(dt) if p.is_floating_point() else p for n, p in params.items()}
 
 
+class _Method(nn.Module):
+    """`inner.<method>(...)` as a module's forward, so that `functional_call`
+    runs a method other than forward on substituted parameters (their names
+    gain the prefix `inner.`)."""
+
+    def __init__(self, inner: nn.Module, method: str):
+        super().__init__()
+        self.inner = inner
+        self.method = method
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.inner, self.method)(*args, **kwargs)
+
+
 def compute_call(module: nn.Module, cfg, args, kwargs=None,
-                 params: Optional[Dict[str, torch.Tensor]] = None):
-    """`module(*args, **kwargs)` computing with `compute_params(module, cfg)`,
-    or with `params`, taken from it once by a caller that calls more than
-    once. Under float32 those are the module's own parameters, so this is
-    the plain call; under bfloat16 it runs `functional_call` on the casts,
-    so the gradients reach the fp32 masters."""
+                 params: Optional[Dict[str, torch.Tensor]] = None, method: str = "forward"):
+    """`module.<method>(*args, **kwargs)` (its forward by default) computing
+    with `compute_params(module, cfg)`, or with `params`, taken from it once
+    by a caller that calls more than once. Under float32 those are the
+    module's own parameters, so this is the plain call; under bfloat16 it
+    runs `functional_call` on the casts, so the gradients reach the fp32
+    masters."""
     kwargs = kwargs or {}
     if compute_dtype(cfg) == torch.float32:
-        return module(*args, **kwargs)
+        return getattr(module, method)(*args, **kwargs)
     if params is None:
         params = compute_params(module, cfg)
-    return functional_call(module, params, args, kwargs, tie_weights=False)
+    if method == "forward":
+        return functional_call(module, params, args, kwargs, tie_weights=False)
+    return functional_call(_Method(module, method), {f"inner.{n}": p for n, p in params.items()},
+                           args, kwargs, tie_weights=False)
 
 
 def cast_output(cfg, out):
-    """Heads leave in fp32 (net.py:66-71): the VQA logits, or both of the VGD
-    head's (scores, reg)."""
+    """Heads leave in fp32 (net.py:66-71): the VQA logits, both of the VGD
+    head's (scores, reg), the ITM probabilities (fp32 already)."""
     if cfg.DTYPE != "bfloat16":
         return out
     if isinstance(out, tuple):
@@ -156,32 +187,44 @@ def init_stem(net: nn.Module, cfg, token_size: int, with_x_rel: bool) -> None:
         net.linear_x_rel = nn.Linear(3, cfg.REL_SIZE)
 
 
-def apply_stem(net: nn.Module, cfg, batch):
-    """Masks + text/image/relation stems (full_vqa.py:88-103).
-    Returns (x, y, x_mask, y_mask, y_rel); the encoders take no relation."""
-    ques_ix = batch["ques_ix"]
-    frcn_feat = batch["frcn_feat"]
+def text_stem(net: nn.Module, ques_ix):
+    """The text mask and the LSTM over the embedded tokens (full_vqa.py:88-95):
+    (x, x_mask)."""
     x_mask = P.make_mask(ques_ix.unsqueeze(2).float())
+    return net.lstm(net.embedding(ques_ix)), x_mask
+
+
+def image_stem(net: nn.Module, cfg, batch):
+    """The region mask (all-zero feature rows are pads), the image linear
+    (after the box embedding with BBOX_FEATURE) and the relation bundle
+    (full_vqa.py:96-103): (y, y_mask, y_rel)."""
+    frcn_feat = batch["frcn_feat"]
     y_mask = P.make_mask(frcn_feat)
-    x = net.lstm(net.embedding(ques_ix))
     if cfg.BBOX_FEATURE:
         bb = net.bboxfeat_linear(batch["bbox_feat"])
         frcn_feat = torch.cat((frcn_feat, bb), dim=-1)
     y = net.imgfeat_linear(frcn_feat)
-    y_rel = rel_pack(net.linear_y_rel, batch["rel_img"])
+    return y, y_mask, rel_pack(net.linear_y_rel, batch["rel_img"])
+
+
+def apply_stem(net: nn.Module, cfg, batch):
+    """Masks + text/image/relation stems (full_vqa.py:88-103).
+    Returns (x, y, x_mask, y_mask, y_rel); the encoders take no relation."""
+    x, x_mask = text_stem(net, batch["ques_ix"])
+    y, y_mask, y_rel = image_stem(net, cfg, batch)
     return x, y, x_mask, y_mask, y_rel
 
 
 def check_task(task: str, what: str) -> None:
-    """Raise for a task whose head the port does not have yet."""
+    """Raise for a task the port has no head for."""
     if task not in TASKS:
-        raise NotImplementedError(
-            f"task '{task}': the {what} is not ported yet (ROADMAP.md, queue 1: ITM)")
+        raise ValueError(f"task '{task}': the {what} has no such task (one of {TASKS})")
 
 
 def init_heads(net: nn.Module, cfg, ocfg: OpCfg, ans_size: int, task: str = "vqa") -> None:
-    """The task's head (net.py:162-176): VQA's AttFlat pair and proj, or
-    VGD's AttFlat(x), attfc_y and the per-region proj_scores and proj_reg."""
+    """The task's head (net.py:162-176): VQA's AttFlat pair and proj, VGD's
+    AttFlat(x), attfc_y and the per-region proj_scores and proj_reg, or
+    ITM's AttFlat pair and a proj with one output."""
     net.attflat_x = AttFlat(ocfg)
     if task == "vgd":      # per-region resolution on the image side (full_vgd.py:77)
         net.attfc_y = nn.Linear(cfg.HSIZE, cfg.ATTFLAT_OUT_SIZE)
@@ -192,7 +235,7 @@ def init_heads(net: nn.Module, cfg, ocfg: OpCfg, ans_size: int, task: str = "vqa
         net.proj_scores = nn.Linear(cfg.ATTFLAT_OUT_SIZE, 1)
         net.proj_reg = nn.Linear(cfg.ATTFLAT_OUT_SIZE, 4)
     else:
-        net.proj = nn.Linear(cfg.ATTFLAT_OUT_SIZE, ans_size)
+        net.proj = nn.Linear(cfg.ATTFLAT_OUT_SIZE, ans_size if task == "vqa" else 1)
 
 
 def apply_heads(net: nn.Module, x, y, x_mask, y_mask, train: bool = False,
@@ -200,7 +243,8 @@ def apply_heads(net: nn.Module, x, y, x_mask, y_mask, train: bool = False,
     """The head of `net.task`. VQA: AttFlat(x) + AttFlat(y) -> LN -> proj,
     the logits [B, ans_size]. VGD: AttFlat(x)[:, None] + attfc_y(y) -> LN ->
     (scores [B, L], reg [B, L, 4]), the scores log-softmaxed over all L
-    regions under SCORES_LOSS 'kld' (net.py:179-193)."""
+    regions under SCORES_LOSS 'kld' (net.py:179-193). ITM: as VQA with one
+    logit, its sigmoid taken in fp32, the probabilities [B] (net.py:194-201)."""
     xf = net.attflat_x(x, x_mask, train, generator)
     if net.task == "vgd":
         xy = net.proj_norm(xf[:, None, :] + net.attfc_y(y))
@@ -209,11 +253,22 @@ def apply_heads(net: nn.Module, x, y, x_mask, y_mask, train: bool = False,
             scores = torch.log_softmax(scores, dim=-1)
         return scores, net.proj_reg(xy)
     yf = net.attflat_y(y, y_mask, train, generator)
-    return net.proj(net.proj_norm(xf + yf))
+    out = net.proj(net.proj_norm(xf + yf))
+    if net.task == "itm":
+        return torch.sigmoid(out[..., 0].float())
+    return out
+
+
+def run_cell(cell, s, pre, s_mask, pre_mask, rel, train, generator):
+    """A genotype cell: the ops of a node are summed (full_vqa.py:24-28)."""
+    for node in cell:
+        s = sum(op(s, pre, s_mask, pre_mask, rel, train, generator) for op in node)
+    return s
 
 
 class NetFull(nn.Module):
-    """Genotype-defined multimodal encoder-decoder net, task 'vqa' or 'vgd'."""
+    """Genotype-defined multimodal encoder-decoder net, task 'vqa', 'vgd' or
+    'itm'."""
 
     def __init__(self, cfg, genotype: Genotype, init_dict: Dict, task: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
@@ -259,24 +314,27 @@ class NetFull(nn.Module):
 
     # -- forward ------------------------------------------------------------
 
-    def trunk(self, batch, train: bool = False, generator: Optional[torch.Generator] = None):
-        """Stem + cells; returns (x_out, y_out, x_mask, y_mask). The ops of
-        a node are summed (full_vqa.py:24-28)."""
-        x, y, x_mask, y_mask, y_rel = apply_stem(self, self.cfg, batch)
-
-        def run_cell(cell, s, pre, s_mask, pre_mask, rel):
-            for node in cell:
-                s = sum(op(s, pre, s_mask, pre_mask, rel, train, generator) for op in node)
-            return s
-
-        # the encoder has no rel op (checked above), so it gets no relation
+    def encode_text(self, ques_ix, train: bool = False,
+                    generator: Optional[torch.Generator] = None):
+        """Text stem + enc cells: (x_out [B, T, HSIZE], x_mask [B, 1, 1, T]).
+        The encoder has no rel op (checked above), so it gets no relation."""
+        x, x_mask = text_stem(self, ques_ix)
         for cell in self.enc:
-            x = run_cell(cell, x, None, x_mask, None, None)
+            x = run_cell(cell, x, None, x_mask, None, None, train, generator)
+        return x, x_mask
+
+    def apply_decoder(self, x_out, x_mask, batch, train: bool = False,
+                      generator: Optional[torch.Generator] = None):
+        """Image stem + dec cells + head against the text encoding (x_out,
+        x_mask) of `encode_text`: with the encoding of batch["ques_ix"],
+        `forward`'s output."""
+        batch = cast_for_compute(self.cfg, batch)
+        y, y_mask, y_rel = image_stem(self, self.cfg, batch)
         for cell in self.dec:
-            y = run_cell(cell, y, x, y_mask, x_mask, y_rel)
-        return x, y, x_mask, y_mask
+            y = run_cell(cell, y, x_out, y_mask, x_mask, y_rel, train, generator)
+        out = apply_heads(self, x_out, y, x_mask, y_mask, train, generator)
+        return cast_output(self.cfg, out)
 
     def forward(self, batch, train: bool = False, generator: Optional[torch.Generator] = None):
-        batch = cast_for_compute(self.cfg, batch)
-        x, y, x_mask, y_mask = self.trunk(batch, train, generator)
-        return cast_output(self.cfg, apply_heads(self, x, y, x_mask, y_mask, train, generator))
+        x_out, x_mask = self.encode_text(batch["ques_ix"], train, generator)
+        return self.apply_decoder(x_out, x_mask, batch, train, generator)

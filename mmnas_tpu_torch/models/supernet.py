@@ -1,4 +1,4 @@
-"""Weight-sharing search supernet for VQA and VGD (counterpart of
+"""Weight-sharing search supernet for VQA, VGD and ITM (counterpart of
 mmnas_tpu/models/supernet.py).
 
 Every node of the 12-node encoder and the 18-node decoder holds one op of
@@ -23,9 +23,11 @@ them. Forward modes:
 - "two": the two indexed ops ([n, 2]: active, inactive) under gates built
   from the softmax over the pair's logits (mixed.py:136-148).
 
+As the fixed net, the sampled path splits into `encode_text` and
+`apply_decoder` for ITM's mining and R@K sweeps (supernet.py:333-378).
+
 The JAX package's `unified`/`hybrid` modes, its dense weight step and
-REMAT are not ported (ROADMAP.md, "Not ported"); `encode_text` and
-`apply_decoder` wait for ITM (ROADMAP.md, queue 1: ITM).
+REMAT are not ported (ROADMAP.md, "Not ported").
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ import torch
 from torch import nn
 
 from mmnas_tpu_torch.models.net import (
-    apply_heads, apply_stem, cast_for_compute, cast_output, check_task, init_heads, init_stem,
-    op_cfg_from,
+    apply_heads, apply_stem, cast_for_compute, cast_output, check_task, image_stem, init_heads,
+    init_stem, op_cfg_from, text_stem,
 )
 from mmnas_tpu_torch.ops import primitives as P
 from mmnas_tpu_torch.ops.registry import make_op
@@ -188,7 +190,7 @@ class NetSearch(nn.Module):
                 idx: Mapping[str, np.ndarray], mode: str = "sampled", train: bool = False,
                 generator: Optional[torch.Generator] = None):
         """The head's output in fp32: VQA logits [B, ans_size], VGD (scores
-        [B, L], reg [B, L, 4]). idx: host indices, [n] per cell type
+        [B, L], reg [B, L, 4]), ITM probabilities [B]. idx: host indices, [n] per cell type
         ('sampled', 'full') or [n, 2] ('two'); alpha: fp32 device tensors,
         read by 'full' and 'two'."""
         if mode in ("unified", "hybrid"):
@@ -203,6 +205,26 @@ class NetSearch(nn.Module):
         x = run(self.enc, idx["enc"], a["enc"], x, None, x_mask, None, None, train, generator)
         y = run(self.dec, idx["dec"], a["dec"], y, x, y_mask, x_mask, y_rel, train, generator)
         return cast_output(self.cfg, apply_heads(self, x, y, x_mask, y_mask, train, generator))
+
+    # -- split application (ITM pair scoring), the sampled path -------------------
+
+    def encode_text(self, ques_ix, idx: Mapping[str, np.ndarray], train: bool = False,
+                    generator: Optional[torch.Generator] = None):
+        """Text stem + the sampled enc path: (x_out [B, T, HSIZE], x_mask)."""
+        x, x_mask = text_stem(self, ques_ix)
+        x = self._run_sampled(self.enc, idx["enc"], None, x, None, x_mask, None, None, train,
+                              generator)
+        return x, x_mask
+
+    def apply_decoder(self, x_out, x_mask, batch, idx: Mapping[str, np.ndarray],
+                      train: bool = False, generator: Optional[torch.Generator] = None):
+        """Image stem + the sampled dec path + head against the text encoding
+        of `encode_text`: `forward(batch, None, idx)`'s output."""
+        batch = cast_for_compute(self.cfg, batch)
+        y, y_mask, y_rel = image_stem(self, self.cfg, batch)
+        y = self._run_sampled(self.dec, idx["dec"], None, y, x_out, y_mask, x_mask, y_rel, train,
+                              generator)
+        return cast_output(self.cfg, apply_heads(self, x_out, y, x_mask, y_mask, train, generator))
 
     @staticmethod
     def _run_sampled(nodes, idx, alpha, s, pre, s_mask, pre_mask, rel, train, generator):

@@ -225,3 +225,21 @@ def test_plain_backward_matches_pallas_bwd(interpret, name, kind, Lq, Lk):
     twin = FA.relation_bwd_reference(raw, w1, b1, wr, br, dpre, need_draw=True)
     for g, w in zip(twin, want[-5:]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL, atol=TOL)
+
+
+def test_rsa_conditioning_tool_on_cpu():
+    """tools/rsa_conditioning.py on CPU tensors: the wrapper takes the plain
+    version, so kernel and plain agree bit for bit, on the plain chain and
+    on the 'kernel's' pre alike; at this small size both sit within 1e-5 of
+    the fp64 chain and attention."""
+    from mmnas_tpu_torch.tools import rsa_conditioning as RC
+
+    g = torch.Generator().manual_seed(0)
+    _, _, _, mask, rel = RC.make_inputs(g, 16, 2, 12)
+    valid = (~mask).sum(-1).flatten()
+    assert int(valid.min()) >= 8 and bool((~mask[..., 0]).all())
+    assert [tuple(t.shape) for t in rel] == [(16, 12, 12, 4), (64, 4), (64,), (2, 64), (2,)]
+    (row,) = RC.main(["--device", "cpu", "--B", "4", "--H", "2", "--L", "12"])
+    assert row["kernel_vs_plain"] == 0.0 and row["kernel_vs_plain_on_kernel_pre"] == 0.0
+    assert row["kernel_vs_fp64"] <= TOL and row["plain_vs_fp64"] <= TOL
+    assert row["kernel_pre_vs_fp64"] <= 1e-6 and row["plain_pre_vs_fp64"] <= 1e-6

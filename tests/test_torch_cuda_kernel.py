@@ -16,9 +16,13 @@ input checks and launch counters.
   serves), a fully padded row, D 32 and 128, the search's B 32 H 4 with the
   relation chain and its `pre` residual against the plain chain;
 - the VGD net's shapes (B 64, H 8: SA 15x15, GA 100x15);
-- the relation pass on random inputs at the search's B 128, H 4, with the
-  live-mask flips between the kernel and the plain version counted and
-  their contribution bounded.
+- the ITM net's shapes (text SA 50x50, region SA and RSA 36x36, GA 36x50,
+  each row's keys a valid prefix and a pad tail, as the loaders give them)
+  at the train step's B 64 H 8, the eval scorer's 256 pairs (forward only)
+  and the search's B 128 H 4;
+- the relation pass on random inputs at the search's B 128, H 4 (100x100)
+  and at the ITM shapes' (36x36), with the live-mask flips between the
+  kernel and the plain version counted and their contribution bounded.
 
 Needs a CUDA GPU and nvcc; skipped elsewhere. This file imports no JAX, so
 on a machine without it run it as
@@ -672,8 +676,63 @@ def test_vgd_shapes_match_plain_version(dev, B, H, Lq, Lk, dt):
     check_backward(args, m, None, None, keep, None, RATE, do, dt)
 
 
+# The ITM net's attention shapes (arch/mmnas_itm.json): 50-token captions of
+# 3 to 12 words and 36 regions of 8 to 36 objects, so the text SA is 50x50,
+# the region SA and RSA 36x36 and the GA 36x50, every row's keys a valid
+# prefix and a pad tail; at the train step's B 64 H 8, the eval scorer's 256
+# pairs (EVAL_BATCH_SIZE * 2, forward only) and the search's B 128 H 4.
+ITM_SHAPES = [(50, 50, "mask"), (36, 36, "mask"), (36, 36, "mask+rel"), (36, 50, "mask")]
+PAD_VALID = {50: (3, 12), 36: (8, 36)}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Lq,Lk,kind", ITM_SHAPES)
+@pytest.mark.parametrize("B,H,train", [(64, 8, True), (256, 8, False), (128, 4, True)])
+def test_itm_shapes_match_plain_version(dev, B, H, train, Lq, Lk, kind, dt):
+    """The forward and, at the train shapes, the dropout forward (its keep
+    mask the Philox bits of `keep_mask_reference`) and the backward on that
+    mask (with the RSA chain its relation pass too, on binary-fraction
+    relation inputs, see make_rel), against the plain version."""
+    q, k, v, _, _, _ = make(B, H, Lq, Lk, 64, "plain", seed=Lq * Lk + B)
+    lo, hi = PAD_VALID[Lk]
+    valid = torch.randint(lo, hi + 1, (B, 1, 1, 1), generator=torch.Generator().manual_seed(B))
+    mask = torch.arange(Lk).view(1, 1, 1, Lk) >= valid
+    args, m, _, _ = on(dev, dt, q, k, v, mask, None, None)
+    r = make_rel(B, H, Lq, Lk, 4, 64, dt, dev, seed=Lq + B)[0] if "rel" in kind else None
+    f32_rel = None if r is None else tuple(map(f32, r))
+    tol = 5e-2 if dt == torch.bfloat16 else (1e-3 if r is not None else 1e-4)
+    got = FA.fused_attention(*args, m, rel=r)
+    want = FA.fused_attention_reference(*[t.float() for t in args], m, rel=f32_rel)
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+    if not train:
+        return
+    out, keep, pre = FA.attention_fwd(*args, m, None, r, dropout_r=RATE, seed=91 + Lk,
+                                      want_pre=r is not None)
+    assert torch.equal(keep.cpu().bool(), FA.keep_mask_reference(91 + Lk, B, H, Lq, Lk, RATE))
+    want = FA.fused_attention_reference(*[t.float() for t in args], m, rel=f32_rel, keep=keep,
+                                        dropout_r=RATE)
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=tol)
+    do = torch.randn(B, H, Lq, 64, generator=torch.Generator().manual_seed(Lq)).to(dev, dt)
+    assert bwd_fits(Lq, Lk, 64, dt)
+    before = FA.LAUNCHES["fused_attention_bwd_rel"]
+    check_backward(args, m, None, r, keep, pre, RATE, do, dt)
+    assert FA.LAUNCHES["fused_attention_bwd_rel"] == before + (r is not None)
+
+
 def test_relation_pass_live_mask_flips_on_random_inputs(dev):
-    """B 128, H 4, (100, 100), Rr 4, R 64, fp32 on random (not grid) inputs:
+    """B 128, H 4, (100, 100): see `check_live_mask_flips`."""
+    check_live_mask_flips(dev, 128, 4, 100, seed=21)
+
+
+@pytest.mark.parametrize("B,H", [(64, 8), (128, 4)])
+def test_itm_relation_pass_live_mask_flips_on_random_inputs(dev, B, H):
+    """The ITM net's RSA, (36, 36), at the train step's and the search's
+    batch and heads: see `check_live_mask_flips`."""
+    check_live_mask_flips(dev, B, H, 36, seed=22)
+
+
+def check_live_mask_flips(dev, B, H, L, seed):
+    """(L, L), Rr 4, R 64, fp32 on random (not grid) inputs:
     where u = raw W1^T + b1 lies within rounding of 0 the kernel's FMA chain
     (u = fma(raw_c, W1[r, c], u) from b1, c = 0..Rr-1) and the plain
     version's matmul may disagree on relu's live mask. The test computes the
@@ -683,8 +742,8 @@ def test_relation_pass_live_mask_flips_on_random_inputs(dev):
     1e-4 of the largest (the sums' order, as the grid cases) plus those
     elements' whole contribution: |du| |raw_c| to dW1, |du| to db1,
     |du| |W1[r, c]| to draw, |u| |dpre| to dWr."""
-    B, H, L, Rr, R = 128, 4, 100, 4, 64
-    rel, dpre = make_rel(B, H, L, L, Rr, R, torch.float32, dev, seed=21, exact=False)
+    Rr, R = 4, 64
+    rel, dpre = make_rel(B, H, L, L, Rr, R, torch.float32, dev, seed=seed, exact=False)
     got = FA.relation_bwd(*rel, dpre, need_draw=True)
     want = FA.relation_bwd_reference(*rel, dpre, need_draw=True)
     raw, w1, b1, wr, _ = rel
@@ -705,7 +764,7 @@ def test_relation_pass_live_mask_flips_on_random_inputs(dev):
         slack = d - extra - 1e-4 * w.abs().max()
         diffs[name] = (d.max().item(), extra.max().item(), w.abs().max().item())
         assert slack.max().item() <= 0, (name, diffs[name])
-    print(f"relation pass B{B} H{H} (100,100) random inputs: {int(flip.sum())} of {flip.numel()} "
+    print(f"relation pass B{B} H{H} ({L},{L}) random inputs: {int(flip.sum())} of {flip.numel()} "
           f"live-mask flips (|u| <= {u_plain.abs()[flip].max().item() if flip.any() else 0:.2e});"
           " max |kernel - plain|, flip contribution, max |plain|: "
           + "; ".join(f"{n} {a:.3e} {b:.3e} {c:.3e}" for n, (a, b, c) in diffs.items()))

@@ -4,14 +4,17 @@ copies of the JAX package's numpy-only modules have not drifted.
 (a) An AST scan of every module of mmnas_tpu_torch/ and of chip_smoke.py
 finds no import of `mmnas_tpu`, `mmnas_tpu.*` or `jax`.
 (c) Every function and class the port copied (config, genotype, data,
-utils) is the same code as its namesake in the JAX package, up to the
-package name in imports and the module docstring; the one deliberate
-difference is `cfg_from_args`, whose --MULTIHOST raises in the port. The
+utils, and the host-side mining and recall functions of the ITM engine,
+these up to their docstrings) is the same code as its namesake in the JAX
+package, up to the package name in imports and the module docstring; the
+one deliberate difference is
+`cfg_from_args`, whose --MULTIHOST raises in the port. The
 box helpers' jnp versions are torch twins in the port (held to them in
 tests/test_torch_vgd.py), and the native C++ IoU is the same file byte for
 byte. The two `Cfg`s agree field for field, and the two packages'
-`SynthVqaDataset`s and `SynthVgdDataset`s give identical items for one
-seed. Exact comparisons: these are copies."""
+`SynthVqaDataset`s, `SynthVgdDataset`s and `SynthItmDataset`s give
+identical items for one seed (ITM's train items with their negatives, after
+the epoch's draw). Exact comparisons: these are copies."""
 
 import ast
 import dataclasses
@@ -21,18 +24,24 @@ import numpy as np
 import pytest
 
 import mmnas_tpu.config as jax_config
+from mmnas_tpu.data.synth import SynthItmDataset as JaxSynthItmDataset
 from mmnas_tpu.data.synth import SynthVgdDataset as JaxSynthVgdDataset
 from mmnas_tpu.data.synth import SynthVqaDataset as JaxSynthVqaDataset
 import mmnas_tpu_torch.config as port_config
-from mmnas_tpu_torch.data.synth import SynthVgdDataset, SynthVqaDataset
+from mmnas_tpu_torch.data.synth import SynthItmDataset, SynthVgdDataset, SynthVqaDataset
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mmnas_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 COPIES = ["config.py", "genotype.py", "data/sampler.py", "data/loader.py", "data/synth.py",
           "data/vqa.py", "data/vocab.py", "data/paths.py", "data/packed.py",
-          "data/relations.py", "data/vgd.py", "utils/answer_norm.py", "utils/vqa_eval.py",
-          "utils/bbox.py", "utils/bbox_transform.py"]
+          "data/relations.py", "data/vgd.py", "data/itm.py", "utils/answer_norm.py",
+          "utils/vqa_eval.py", "utils/bbox.py", "utils/bbox_transform.py"]
+# modules of which the port copied some functions, beside its own code
+PARTIAL_COPIES = {"engine/itm.py": [
+    "draw_candidates", "_semihard_mask", "mine_sweep", "mine_sweep_blocked", "_noise_suspects",
+    "_randomize_suspect_negs", "run_mine_sweeps", "positive_scores", "positive_scores_blocked",
+    "score_matrix_sweep", "recall_metrics"]}
 CHANGED = {("config.py", "cfg_from_args")}
 # the port's torch versions in place of the JAX package's jnp ones
 TWINS = {("utils/bbox.py", "bbox_overlaps_torch"): "bbox_overlaps_jnp",
@@ -76,6 +85,28 @@ def test_copied_code_has_not_drifted(rel):
             assert code == ref.get(name), f"{rel}: {name} differs from the JAX package's"
 
 
+def code_without_docstrings(path):
+    """Top-level function name -> its AST dump with every docstring removed."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.FunctionDef, ast.ClassDef)) and body
+                and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return {n.name: ast.dump(n) for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+
+@pytest.mark.parametrize("rel", sorted(PARTIAL_COPIES))
+def test_partly_copied_code_has_not_drifted(rel):
+    """The code of each copied function is its original's (its docstring
+    may say where it sits in the port)."""
+    port = code_without_docstrings(ROOT / "mmnas_tpu_torch" / rel)
+    ref = code_without_docstrings(ROOT / "mmnas_tpu" / rel)
+    for name in PARTIAL_COPIES[rel]:
+        assert name in port and port[name] == ref[name], f"{rel}: {name} differs"
+
+
 def test_native_iou_source_is_the_jax_packages():
     assert ((ROOT / "mmnas_tpu_torch" / "native" / "bbox.cpp").read_bytes()
             == (ROOT / "mmnas_tpu" / "native" / "bbox.cpp").read_bytes())
@@ -96,8 +127,16 @@ def test_cfg_and_synthetic_data_match_the_jax_package():
 
     cfg = port_config.Cfg(FRCNFEAT_LEN=12, FRCNFEAT_SIZE=16, WORD_EMBED_SIZE=8, MAX_TOKEN=6)
     for port_cls, jax_cls in ((SynthVqaDataset, JaxSynthVqaDataset),
-                              (SynthVgdDataset, JaxSynthVgdDataset)):
+                              (SynthVgdDataset, JaxSynthVgdDataset),
+                              (SynthItmDataset, JaxSynthItmDataset)):
         port_ds, jax_ds = port_cls(cfg, size=5, seed=7), jax_cls(cfg, size=5, seed=7)
+        if port_cls is SynthItmDataset:
+            for ds in (port_ds, jax_ds):     # the epoch folds into the negatives' draw
+                ds.set_epoch(2)
+                ds.shuffle_neg_idx()
+            np.testing.assert_array_equal(port_ds.neg_imgs_idx_tensor, jax_ds.neg_imgs_idx_tensor)
+            for got, want in zip(port_ds.get_all_imgs(), jax_ds.get_all_imgs()):
+                np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(port_ds.pretrained_emb, jax_ds.pretrained_emb)
         for i in range(len(port_ds)):
             a, b = port_ds[i], jax_ds[i]
@@ -108,10 +147,12 @@ def test_cfg_and_synthetic_data_match_the_jax_package():
 
 @pytest.mark.parametrize("rel", ["models/supernet.py", "engine/search.py", "search_vqa.py",
                                  "tools/probes.py", "engine/vgd.py", "engine/search_vgd.py",
-                                 "train_vgd.py", "search_vgd.py", "native/build.py"])
+                                 "train_vgd.py", "search_vgd.py", "native/build.py",
+                                 "engine/itm.py", "engine/search_itm.py", "train_itm.py",
+                                 "search_itm.py", "utils/itm_loss.py", "data/itm.py"])
 def test_search_and_probe_modules_are_scanned(rel):
-    """The search, probe and VGD slices' modules are among the scanned files
-    and import neither package of JAX."""
+    """The search, probe, VGD and ITM slices' modules are among the scanned
+    files and import neither package of JAX."""
     path = ROOT / "mmnas_tpu_torch" / rel
     assert path in PORT_FILES
     assert not [m for m in imported_modules(path) if m.split(".")[0] in ("mmnas_tpu", "jax")]

@@ -79,10 +79,18 @@ def jnp_idx(idx):
 def run_jax_replaying(cfg, paths, monkeypatch, engine=JaxSearchExecution):
     """JAX `engine`(cfg).run() (the VQA SearchExecution or a subclass) with
     the sampled indices taken from the port's recorded `paths` ((kind, global
-    step, indices), in order)."""
+    step, indices), in order; ITM's ("mine", epoch, idx) are handed to the
+    engine's mining at the start of that epoch)."""
     queues = {"weight": [p for kind, _, p in paths if kind == "weight"],
-              "arch": [[p] for kind, _, p in paths if kind == "arch"]}
+              "arch": [[p] for kind, _, p in paths if kind == "arch"],
+              "mine": [(epoch, p) for kind, epoch, p in paths if kind == "mine"]}
     pending = []
+    epoch_start = engine.on_epoch_start
+
+    def on_epoch_start(self, net, params, alpha, dataset, epoch):
+        if queues["mine"] and queues["mine"][0][0] == epoch:
+            pending[:] = [jnp_idx(queues["mine"].pop(0)[1])]
+        return epoch_start(self, net, params, alpha, dataset, epoch)
 
     def replayed(self, rng, alpha):
         return pending.pop(0)
@@ -103,8 +111,9 @@ def run_jax_replaying(cfg, paths, monkeypatch, engine=JaxSearchExecution):
                   lambda self, net, optim: jitted(self.weight_body(net, optim), "weight"))
         m.setattr(JaxSearchExecution, "make_arch_step",
                   lambda self, net, aoptim: jitted(self.arch_body(net, aoptim), "arch"))
+        m.setattr(engine, "on_epoch_start", on_epoch_start)
         engine(cfg).run()
-    assert queues == {"weight": [], "arch": []}
+    assert queues == {"weight": [], "arch": [], "mine": []}
 
 
 def run_logged(fn):
