@@ -14,8 +14,13 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    five Pallas debug probes of tools/debug/ as CUDA kernels) with exact
    launch counts, holds the bias probes' output against the fp64 numpy
    chain, holds each probe kernel against its plain version (the two bias
-   kernels also against each other, bit for bit) and times them and their
-   library calls, eager and on the device;
+   kernels also against each other and against log(max(pre, 1e-6)) of the
+   RSA attention forward's pre, bit for bit) and times them and their
+   library calls, eager and on the device; prints the bias kernels'
+   registers and spills (their fixed instances must not spill, and
+   probe_bias2's head loop must hold every feature FMA in the SASS), holds and
+   times them at their other instances (Rr 4 H 4, the generic one at Rr 3
+   H 5 R 40, and H 8 at the ITM mining's B 3,200 L 36) on the device;
 3. holds the forward kernel (no dropout) against its plain PyTorch version
    at the shapes of the searched VQA net (B 64, 8 heads of 64: 14x14,
    100x100, 100x14 with the pad mask, 100x100 with mask + RSA geometry
@@ -204,6 +209,11 @@ ITM_CFG = {"HSIZE": 512, "MAX_TOKEN": 50, "FRCNFEAT_LEN": 36, "NEG_RANDSIZE": 64
 # bf16, the two wrblock layouts
 PROBE_LAUNCHES = {"probe_bias": 1, "probe_bias2": 1, "probe_slice": 2, "probe_outer": 2,
                   "probe_wrblock_a": 1, "probe_wrblock_b": 1}
+# the bias kernels' other instances the smoke runs (B, H, L, Rr, R): the
+# fixed one at 4 heads, the generic one at an odd shape, and the fixed one at
+# the ITM mining's tiles (3,200 pairs of 36 regions, 8 heads), where the RSA
+# forward computes this chain
+BIAS_INSTANCES = ((8, 4, 100, 4, 64), (8, 5, 100, 3, 40), (3200, 8, 36, 4, 64))
 # the bias probes against the plain version and the fp64 chain: on
 # exp(bias) = max(pre, 1e-6), absolute, and on the bias itself where
 # pre > 0.1 (the log turns pre's fp32 rounding, sums of 64 terms of size
@@ -265,6 +275,26 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
+def ptxas_report(report):
+    """Per kernel in nvcc's `-Xptxas -v` report: registers and spill store
+    bytes."""
+    import re
+
+    rows, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            rows.setdefault(fn, {"registers": None, "spill_bytes": 0})
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            rows[fn]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            rows[fn]["registers"] = int(m.group(1))
+    return rows
+
+
 def sass_report(built):
     """Per attention kernel instantiation: (registers, spill store bytes)
     from ptxas's report and the count of HMMA (mma.sync) and HGMMA (wgmma)
@@ -278,18 +308,8 @@ def sass_report(built):
     for lib, report in built:
         if "fused_attention" not in os.path.basename(lib):
             continue
-        fn = None
-        for line in report.splitlines():
-            m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
-            if m:
-                fn = m.group(1)
-                rows.setdefault(fn, {"registers": None, "spill_bytes": 0, "hmma": 0})
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m and fn:
-                rows[fn]["spill_bytes"] = int(m.group(1))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and fn:
-                rows[fn]["registers"] = int(m.group(1))
+        for fn, r in ptxas_report(report).items():
+            rows[fn] = {**r, "hmma": 0}
         sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                               check=True).stdout
         fn = None
@@ -301,6 +321,73 @@ def sass_report(built):
             elif fn and ("HMMA" in line or "HGMMA" in line):
                 rows[fn]["hmma"] += 1
     return {fn: r for fn, r in rows.items() if "fused_attention" in fn}
+
+
+def bias_kernel_report(built):
+    """The bias probes' instances in the build of csrc/probes.cu, as
+    {"probe_bias[2] Rr4 H8 R64 E2": {registers, spill_bytes}} (Rr, H, R 0:
+    the generic instance); prints one line each. The fixed instances (the
+    tasks' and the probes' shapes) must not spill, and probe_bias2's must
+    hold every feature FMA inside their head loop (`bias2_head_loop_ffma`)."""
+    import re
+
+    rows = {}
+    for lib, report in built:
+        if "probes" not in os.path.basename(lib):
+            continue
+        for fn, r in sorted(ptxas_report(report).items()):
+            m = re.search(r"(probe_bias2?)_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
+            if m:
+                name, rr, h, rn, e = m.groups()
+                shape = "generic" if rr == "0" else f"Rr{rr} H{h} R{rn}"
+                rows[f"{name} {shape} E{e}"] = r
+        for key, loop_ffma in bias2_head_loop_ffma(lib).items():
+            rows[key]["head_loop_ffma"] = loop_ffma
+    for key, r in rows.items():
+        print(f"  {key}: {r['registers']} registers, {r['spill_bytes']} bytes spilled"
+              + (f", {r['head_loop_ffma']} FFMA in the head loop" if "head_loop_ffma" in r else ""))
+    spilled = [k for k, r in rows.items() if "generic" not in k and r["spill_bytes"]]
+    if not rows or spilled:
+        raise AssertionError(f"bias probes: {len(rows)} instances in the build; fixed instances "
+                             f"that spill: {spilled}")
+    # probe_bias2 computes every feature again for each head: its head loop
+    # holds E R (Rr + 1) FMAs (E R Rr of raw W1^T + b1, E R of the head's sum)
+    hoisted = {}
+    for key, r in rows.items():
+        m = re.fullmatch(r"probe_bias2 Rr(\d+) H\d+ R(\d+) E(\d+)", key)
+        if m:
+            rr, rn, e = map(int, m.groups())
+            if r.get("head_loop_ffma", 0) < e * rn * (rr + 1):
+                hoisted[key] = r.get("head_loop_ffma")
+    if hoisted:
+        raise AssertionError(f"probe_bias2 computes its features outside the head loop: {hoisted}")
+    return rows
+
+
+def bias2_head_loop_ffma(lib):
+    """FFMA instructions inside each fixed probe_bias2 instance's head loop
+    (from a backward branch's target to the branch) in the library's SASS
+    (`cuobjdump -sass`), by the names of `bias_kernel_report`."""
+    import re
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"probe_bias2_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                      body.split("\n", 1)[0])
+        if not m or m.group(1) == "0":
+            continue
+        code = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+        loops = [(int(t.group(1), 16), a) for a, op in code if "BRA" in op
+                 for t in [re.search(r"0x([0-9a-f]+)", op)] if t and int(t.group(1), 16) < a]
+        rr, h, rn, e = m.groups()
+        out[f"probe_bias2 Rr{rr} H{h} R{rn} E{e}"] = max(
+            (sum("FFMA" in op for a, op in code if lo <= a <= hi) for lo, hi in loops), default=0)
+    return out
 
 
 def relation_kernel_report(sass):
@@ -955,9 +1042,78 @@ def bias_errs(got, want):
             (got - want)[away].abs().max().item())
 
 
-def probe_path(PR, dev):
+def bias_case_inputs(Bn, Hn, L, Rr, Rn, seed):
+    """raw, W1, b1, Wr, br (numpy fp32, port layouts) at a bias-probe shape,
+    drawn as the probes' own (`bias_inputs`) are."""
+    r = np.random.RandomState(seed)
+    return (np.abs(r.randn(Bn, L, L, Rr)).astype(np.float32),
+            (r.randn(Rn, Rr) * 0.5).astype(np.float32), (r.randn(Rn) * 0.1).astype(np.float32),
+            (r.randn(Hn, Rn) * 0.3).astype(np.float32), (r.randn(Hn) * 0.1).astype(np.float32))
+
+
+def bias_from_attention(FA, rel, seed=0):
+    """log(max(pre, 1e-6)) of the `pre` that the RSA attention forward writes
+    for the chain `rel` (q, k, v random at D 64): the bits the bias probes
+    must give."""
+    raw, wr = rel[0], rel[3]
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(raw.shape[0], wr.shape[0], raw.shape[1], D, generator=g).to(raw.device)
+               for _ in range(3))
+    _, _, pre = FA.attention_fwd(q, k, v, None, None, tuple(rel), want_pre=True)
+    return torch.log(torch.clamp(pre, min=1e-6))
+
+
+def bias_bytes_ops(Bn, Hn, L, Rr, Rn, live=1.0):
+    """The bias probes' least work: raw in, [B, H, L, L] out; raw W1^T once
+    per (b, i, j) and the H head projections of the live features, in fp32;
+    and probe_bias2's own-work floor in ms, the FMAs its definition asks for
+    (the features again for every head: B L L H (2 R Rr + 2 R))."""
+    n = Bn * L * L
+    floor_ms = n * Hn * (2 * Rn * Rr + 2 * Rn) / PEAK_OPS[torch.float32] * 1e3
+    return n * (Rr + Hn) * 4, {torch.float32: n * (2 * Rn * Rr + 2 * Hn * Rn * live)}, floor_ms
+
+
+def bias_instances(PR, FA, dev):
+    """The bias kernels at each (Rr, H) instance the smoke runs besides the
+    probes' own (Rr 4, H 8): the fixed Rr 4 H 4, the generic instance at Rr
+    3 H 5 R 40, and Rr 4 H 8 at the ITM mining's B 3,200 L 36
+    (BIAS_INSTANCES). Each held to the plain version (PROBE_BIAS_TOL), the two
+    kernels to each other and to the attention forward's pre, bit for bit;
+    each timed on the device beside its bound."""
+    out = {}
+    for Bn, Hn, L, Rr, Rn in BIAS_INSTANCES:
+        args = [torch.from_numpy(a).to(dev) for a in bias_case_inputs(Bn, Hn, L, Rr, Rn, Hn)]
+        once, fresh = PR.probe_bias(*args), PR.probe_bias(*args, fresh=True)
+        plain, att = PR.bias_reference(*args), bias_from_attention(FA, args)
+        torch.cuda.synchronize()
+        key = f"B{Bn} H{Hn} L{L} Rr{Rr} R{Rn}"
+        errs = [bias_errs(got, plain) for got in (once, fresh)]
+        if not (torch.equal(once, fresh) and torch.equal(once, att)
+                and max(max(e) for e in errs) <= PROBE_BIAS_TOL):
+            raise AssertionError(f"bias probes at {key}: bits equal {torch.equal(once, fresh)}, "
+                                 f"vs the attention's pre {torch.equal(once, att)}; vs plain "
+                                 f"{errs}")
+        nbytes, ops, floor_ms = bias_bytes_ops(Bn, Hn, L, Rr, Rn, live_share(args[:3]))
+        bound_ms, bound_by = bound(nbytes, ops)
+        out[key] = {"max_abs_err": max(e[0] for e in errs), "bound_ms": bound_ms,
+                    "bound_by": bound_by, "own_work_floor_ms_bias2": floor_ms}
+        for name, fresh_ in (("probe_bias", False), ("probe_bias2", True)):
+            ms, by = device_time_ms(lambda: PR.probe_bias(*args, fresh=fresh_))
+            out[key][f"{name}_device_ms"], out[key][f"{name}_device_ms_by"] = ms, by
+        ms = {n: fmt(out[key][f"{n}_device_ms"], out[key][f"{n}_device_ms_by"])
+              for n in ("probe_bias", "probe_bias2")}
+        print(f"probe   bias instance {key}: device ms probe_bias {ms['probe_bias']}, probe_bias2 "
+              f"{ms['probe_bias2']}; bound {bound_ms:.5f} ms, probe_bias2's own-work floor "
+              f"{floor_ms:.5f} ms", flush=True)
+    return out
+
+
+def probe_path(PR, FA, dev, bias_regs):
     """The probe CLI on the card with its launch counts, then every probe
-    kernel against its plain version on the probes' inputs, and its times."""
+    kernel against its plain version on the probes' inputs, and its times;
+    the bias kernels also against the RSA attention forward's pre, at each
+    instance, with their registers and spills from the build
+    (`bias_kernel_report`)."""
     zero_launches(PR)
     results = PR.main([])                    # python -m mmnas_tpu_torch.tools.probes
     torch.cuda.synchronize()
@@ -1004,21 +1160,29 @@ def probe_path(PR, dev):
     torch.cuda.synchronize()
     if not torch.equal(once, fresh):
         raise AssertionError("probe_bias and probe_bias2 differ in their bits")
+    # the bits the probes exist to show: those of the RSA attention forward
+    if not torch.equal(once, bias_from_attention(FA, args)):
+        raise AssertionError("the bias probes differ from log(max(pre, 1e-6)) of the RSA "
+                             "attention forward's pre")
     Bn, L, Rr = raw.shape[0], raw.shape[1], raw.shape[3]
     Rn, Hn = w1.shape[0], wr.shape[0]
     live = live_share(args[:3])
-    # the function's least work: raw in, [B, H, L, L] out; raw W1^T once per
-    # (b, i, j) and the H head projections of the live features, in fp32
-    nbytes = Bn * L * L * (Rr + Hn) * 4
-    ops = {torch.float32: Bn * L * L * (2 * Rn * Rr + 2 * Hn * Rn * live)}
+    nbytes, ops, floor_ms = bias_bytes_ops(Bn, Hn, L, Rr, Rn, live)
     for name, got, fresh_ in (("probe_bias", once, False), ("probe_bias2", fresh, True)):
         exp_err, log_err = bias_errs(got, plain)
         if not max(exp_err, log_err) <= PROBE_BIAS_TOL:
             raise AssertionError(f"{name} against its plain version: {exp_err}, {log_err}")
+        extra = {"own_work_floor_ms": floor_ms} if fresh_ else {}
         record(name, exp_err, lambda: PR.probe_bias(*args, fresh=fresh_),
                lambda: PR.bias_reference(*args), nbytes, ops,
                log_err_where_pre_over_0_1=log_err, vs_fp64=vs_fp64["bias2" if fresh_ else "bias"],
-               live_share=live, shape=f"B{Bn} H{Hn} L{L} Rr{Rr} R{Rn} fp32")
+               live_share=live, shape=f"B{Bn} H{Hn} L{L} Rr{Rr} R{Rn} fp32",
+               registers={k: r for k, r in bias_regs.items() if k.split()[0] == name}, **extra)
+    print(f"probe   probe_bias2 own-work floor {floor_ms:.5f} ms (its definition's FMAs) beside "
+          f"the function's bound {rows['probe_bias2']['bound_ms']:.5f} ms", flush=True)
+    instances = bias_instances(PR, FA, dev)
+    for name in ("probe_bias", "probe_bias2"):
+        rows[name]["instances"] = instances
 
     # row 7: 2 plane in fp32, four row chunks, from f32 and bf16 planes
     cases = {}
@@ -1885,6 +2049,7 @@ def main() -> int:
     if not sass or no_mma:
         raise AssertionError(f"bf16 attention kernels without tensor-core instructions: "
                              f"{no_mma or 'no kernel found in the SASS'}")
+    bias_regs = bias_kernel_report(built)
     rel_sass = relation_kernel_report(sass)
     spilled = [fn for fn, (_, heads, _, r) in rel_sass.items() if heads <= 8 and r["spill_bytes"]]
     if len(rel_sass) != 12 or spilled:
@@ -1900,7 +2065,7 @@ def main() -> int:
         print(f"-- {label} done in {now - t_phase:.1f} s", flush=True)
         t_phase = now
 
-    probes = probe_path(PR, dev)
+    probes = probe_path(PR, FA, dev, bias_regs)
     phase("probes")
     fwd_cases = kernel_cases(FA, dev)
     train_cases = train_kernel_cases(FA, dev)

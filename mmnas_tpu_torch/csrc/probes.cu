@@ -8,15 +8,53 @@
 //      bias[b, h, i, j] = log(max(sum_r relu(raw[b,i,j] W1[r]^T + b1[r]) Wr[h, r] + br[h], 1e-6))
 //    The TPU kernel computed the relation features once per batch row
 //    (`h == 0` guard) and carried them across the head programs in VMEM.
-//    Here one block per (b, chunk of query rows) computes each element's
-//    features once and all H heads from them, in registers.
+//    Here a thread computes each of its elements' features once and all H
+//    heads' sums from them, in registers.
 // 2. probe_bias2 (`kernel`, _probe_bias2.py:13): the same chain with the
-//    features recomputed per head. One block per (b, h, chunk of rows)
-//    calls `relation_pre`, the per-head form of the chain.
-//    Both kernels build the chain from attention_common.cuh's
-//    `relation_feature`, with the same operations in the same order per
-//    head, so they give equal bits, and the attention kernels' scores carry
-//    the same bias bits. That is what the probes check.
+//    features computed again for every head, as the TPU probe does: a
+//    thread keeps its elements' raw channels in registers and, head after
+//    head, computes all R features and that head's sum.
+//
+//    What bounds them on this card: the fp32 FMA rate. Per element probe_bias
+//    does R (Rr + H) FMAs and R maxima; probe_bias2, by its definition, H
+//    times the features: H R (Rr + 1) FMAs and H R maxima. The bytes (raw
+//    in, [B, H, L, L] out) take a tenth of that time or less. At the probes'
+//    size (80,000 elements) the work is small for the card: each weight a
+//    thread reads from shared memory must feed several elements, yet few
+//    elements a thread leave the warp schedulers short of warps. The design:
+//    - the chain's shapes are fixed at compile time for those of every task
+//      and of the probes (Rr 4, R 64, H 4 or 8): the channel and head loops
+//      unroll fully with no predicate, the feature loop 16 features a pass
+//      in probe_bias (so the code stays within the instruction cache) and
+//      fully in probe_bias2; a raw element is one 16-byte load, and b1, W1
+//      rows and Wr rows come from shared memory by 16-byte loads;
+//    - a thread computes E elements a block's width apart, so each weight
+//      read, a broadcast to the warp, feeds E (Rr + H) FMAs, the E H sums
+//      are independent chains, and each head's stores stay coalesced;
+//    - a flat grid over the B L L elements, a block per threads x E of them,
+//      so every SM gets work; probe_bias2 also splits the heads among
+//      kBias2Groups blocks of the same elements (each computes all the
+//      features again for each of its heads), for more warps. A block
+//      stages the chain's weights (3.3 KB at R 64, H 8) in shared memory
+//      once, all of a thread's 16-byte loads in flight together, with its
+//      raw loads;
+//    - probe_bias2 reads b1 and W1 afresh for every head (volatile loads):
+//      the compiler otherwise takes the features, the same for every head,
+//      out of the head loop where registers allow, and computes them once.
+//    Other shapes (Rr 1..8, H 1..16, any R), and arrays off a 16-byte
+//    boundary, take a generic instance of the same kernels with runtime
+//    loops. E, the block size and the head groups are fixed at compile
+//    time, at the best of a timed sweep at the probes' shapes (PERF.md):
+//    probe_bias E 2 with 160 threads, probe_bias2 E 4 with 128 threads and
+//    4 head groups.
+//
+//    The bits: per head every instance runs the operations of the attention
+//    kernels' chain (attention_common.cuh: relation_feature,
+//    relation_pre_heads) in their order: u = b1[r]; u = fma(raw[c], W1[r, c],
+//    u) for c < Rr; t = max(u, 0); pre = fma(t, Wr[h, r], pre) for r < R
+//    from 0; pre + br[h]; then the accurate logf(fmaxf(pre, 1e-6)). So the
+//    two probes give equal bits, equal to log(max(pre, 1e-6)) of the `pre`
+//    the RSA attention forward writes. That is what the probes check.
 // 3. probe_slice (`k`, _probe_slice.py:7): out[i, j] = 2 plane[0, i, j] in
 //    fp32 from an fp32 or bf16 plane, written per chunk of rows (the TPU
 //    probe wrote four row chunks of 25) by several blocks of 128 threads a
@@ -33,11 +71,11 @@
 //    two layouts: A reads through a pointer to its head's slice, B gets
 //    the whole array and indexes it by blockIdx.y.
 //
-// What bounds them on this card: at their shapes (at most 8 x 8 x 100 x 100
-// outputs) they are a few microseconds of work, so the launch itself does.
-// Of the work, the bias probes are bound by their fp32 FMAs (2 R Rr + 2 H R
-// per element for probe_bias, H times the features for probe_bias2), the
-// slice, outer and wrblock probes by their bytes.
+// At their shapes (at most 8 x 8 x 100 x 100 outputs) the slice, outer and
+// wrblock probes are a few microseconds of work, bound by their bytes and,
+// at that size, by the launch itself.
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -46,7 +84,17 @@ namespace {
 using namespace mmnas;
 
 constexpr int kThreads = 256;
-constexpr int kRows = 4;    // query rows per block of the bias probes
+
+// ---------------------------------------------------------------------------
+// the bias probes
+// ---------------------------------------------------------------------------
+
+// the launches: elements a thread, threads a block, and probe_bias2's head
+// groups (its blocks split the heads among this many)
+constexpr int kBiasE = 2, kBiasThreads = 160;
+constexpr int kBias2E = 4, kBias2Threads = 128, kBias2Groups = 4;
+constexpr int kMaxBiasElements = (1 << 30);  // B L L: element indices stay in an int
+constexpr size_t kDefaultSmem = 48 * 1024;   // dynamic shared memory without an opt-in
 
 struct BiasArgs {
   const float* raw;  // [B, L, L, Rr]
@@ -55,44 +103,285 @@ struct BiasArgs {
   const float* wr;   // [H, R]
   const float* br;   // [H]
   float* out;        // [B, H, L, L]
-  int H, L, Rr, R;
+  int n;             // B L L elements
+  int plane;         // L L
+  int H, Rr, R;
 };
 
-// shared memory: the chain's weights (attention_common.cuh's layouts)
-size_t bias_smem_bytes(int R) { return (size_t)chain_weight_floats(R) * sizeof(float); }
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
 
-// grid (row chunks, B): features once per element, all heads
-__global__ void __launch_bounds__(kThreads) probe_bias_kernel(const BiasArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  load_chain_weights(a.w1, a.b1, a.wr, a.br, a.Rr, a.R, a.H, smem);
-  __syncthreads();
-  const int b = blockIdx.y, L = a.L, row0 = blockIdx.x * kRows;
-  const int E = min(kRows, L - row0) * L;
-  const long plane = (long)L * L;
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    const long ij = (long)row0 * L + e;
-    float x[1][kMaxRr], pre[1][kMaxH];
-    load_raw(a.raw + ((long)b * plane + ij) * a.Rr, a.Rr, x[0]);
-    relation_pre_heads<1>(x, a.Rr, a.R, a.H, smem, pre);
+// The chain's weights in shared memory, fp32, each part from a 16-byte
+// boundary: w1s [R][Rr] (W1 as it is), b1s [R], wrs, brs [H]. wrs is [R][H]
+// (Wr transposed: a feature's weights for every head in one row) for
+// probe_bias, and [H][R] (Wr as it is: a head's weights in one row) for
+// probe_bias2.
+__host__ __device__ constexpr int bias_weight_floats(int Rr, int H, int R) {
+  return pad4(R * Rr) + pad4(R) + pad4(R * H) + pad4(H);
+}
+
+struct BiasWeights {
+  const float *w1s, *b1s, *wrs, *brs;
+};
+
+// A thread's share of the kUnits 16-byte units of an array: units tid,
+// tid + blockDim.x, ... (blockDim.x >= 32), all loaded before any is stored
+template <int kUnits>
+struct Units {
+  static constexpr int kPer = (kUnits + 31) / 32;
+  float4 v[kPer];
+  __device__ __forceinline__ void fetch(const float* src) {
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h)
-      if (h < a.H) a.out[((long)b * a.H + h) * plane + ij] = logf(fmaxf(pre[0][h], kClamp));
+    for (int k = 0; k < kPer; ++k) {
+      const int u = threadIdx.x + k * blockDim.x;
+      if (u < kUnits) v[k] = reinterpret_cast<const float4*>(src)[u];
+    }
+  }
+  __device__ __forceinline__ void put(float* dst) const {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int u = threadIdx.x + k * blockDim.x;
+      if (u < kUnits) reinterpret_cast<float4*>(dst)[u] = v[k];
+    }
+  }
+};
+
+// kByHead: wrs [H][R] (probe_bias2), else [R][H] (probe_bias). With the
+// shapes fixed (kRr > 0; the weights on 16-byte boundaries), a thread puts
+// all of its 16-byte loads in flight, then stores them: one round trip to
+// L2 for the block, where a loop that stores each value as it comes takes
+// one a pass.
+template <bool kByHead, int kRr, int kH, int kR>
+__device__ __forceinline__ BiasWeights stage_bias_weights(const BiasArgs& a, int Rr, int H, int R,
+                                                          float* s) {
+  float* w1s = s;
+  float* b1s = w1s + pad4(R * Rr);
+  float* wrs = b1s + pad4(R);
+  float* brs = wrs + pad4(R * H);
+  if constexpr (kRr > 0) {
+    static_assert(kR * kRr % 4 == 0 && kH % 4 == 0, "16-byte units");
+    Units<kR * kRr / 4> w1;
+    Units<kR / 4> b1;
+    Units<kH * kR / 4> wr;
+    Units<kH / 4> br;
+    w1.fetch(a.w1);
+    b1.fetch(a.b1);
+    wr.fetch(a.wr);
+    br.fetch(a.br);
+    w1.put(w1s);
+    b1.put(b1s);
+    br.put(brs);
+    if constexpr (kByHead) {
+      wr.put(wrs);
+    } else {
+#pragma unroll
+      for (int k = 0; k < wr.kPer; ++k) {
+        const int u = threadIdx.x + k * blockDim.x;
+        if (u < kH * kR / 4) {  // Wr[h, r .. r + 3] -> wrs[r .. r + 3][h]
+          const int h = u / (kR / 4), r = 4 * (u - h * (kR / 4));
+          wrs[r * kH + h] = wr.v[k].x;
+          wrs[(r + 1) * kH + h] = wr.v[k].y;
+          wrs[(r + 2) * kH + h] = wr.v[k].z;
+          wrs[(r + 3) * kH + h] = wr.v[k].w;
+        }
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * Rr; i += blockDim.x) w1s[i] = a.w1[i];
+    for (int i = threadIdx.x; i < R; i += blockDim.x) b1s[i] = a.b1[i];
+    for (int i = threadIdx.x; i < R * H; i += blockDim.x)
+      wrs[i] = kByHead ? a.wr[i] : a.wr[(i % H) * R + i / H];
+    for (int i = threadIdx.x; i < H; i += blockDim.x) brs[i] = a.br[i];
+  }
+  return {w1s, b1s, wrs, brs};
+}
+
+// v[0, N) = p[0, n): by 16-byte loads where the row's length is fixed at
+// compile time (n == N) and a multiple of 4, p on a 16-byte boundary; else
+// one float at a time, zeros past n. kFresh: volatile loads from shared
+// memory, which the compiler may neither merge with an earlier load of the
+// same row nor move out of a loop
+template <int N, bool kVector, bool kFresh = false>
+__device__ __forceinline__ void load_row(const float* p, int n, float (&v)[N]) {
+  if constexpr (kVector && N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      float4 w;
+      if constexpr (kFresh)
+        asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                     : "=f"(w.x), "=f"(w.y), "=f"(w.z), "=f"(w.w)
+                     : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p + i))));
+      else
+        w = *reinterpret_cast<const float4*>(p + i);
+      v[i] = w.x;
+      v[i + 1] = w.y;
+      v[i + 2] = w.z;
+      v[i + 3] = w.w;
+    }
+  } else {
+    using Src = std::conditional_t<kFresh, const volatile float, const float>;
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = i < n ? static_cast<Src*>(p)[i] : 0.f;
   }
 }
 
-// grid (row chunks, H, B): features recomputed per head
-__global__ void __launch_bounds__(kThreads) probe_bias2_kernel(const BiasArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  load_chain_weights(a.w1, a.b1, a.wr, a.br, a.Rr, a.R, a.H, smem);
-  __syncthreads();
-  const int h = blockIdx.y, b = blockIdx.z, L = a.L, row0 = blockIdx.x * kRows;
-  const int E = min(kRows, L - row0) * L;
-  const long plane = (long)L * L;
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    const long ij = (long)row0 * L + e;
-    const float pre = relation_pre(a.raw + ((long)b * plane + ij) * a.Rr, a.Rr, a.R, smem, h);
-    a.out[((long)b * a.H + h) * plane + ij] = logf(fmaxf(pre, kClamp));
+// t = relu(b + sum_c x[c] w[c]) over c < Rr: relation_feature's operations
+template <int NRr>
+__device__ __forceinline__ float bias_feature(const float (&x)[NRr], const float (&w)[NRr],
+                                              float b, int Rr) {
+  float u = b;
+#pragma unroll
+  for (int c = 0; c < NRr; ++c)
+    if (c < Rr) u = fmaf(x[c], w[c], u);
+  return fmaxf(u, 0.f);
+}
+
+// An instance's shapes: fixed at compile time (kRr, kH, kR > 0, kR a
+// multiple of 4; raw and the weights on 16-byte boundaries), or all three
+// 0 and read from the arguments, with registers for up to kMaxRr channels
+// and kMaxH heads. A fixed instance takes its features 4 at a time (b1 and
+// a head's Wr by 16-byte loads), a generic one 1 at a time.
+template <int kRr, int kH, int kR>
+struct BiasShape {
+  static constexpr bool kFixed = kRr > 0;
+  static_assert((kRr > 0) == (kH > 0) && (kH > 0) == (kR > 0), "fix all three shapes or none");
+  static_assert(kR % 4 == 0, "a fixed R is a multiple of 4");
+  static constexpr int NRr = kFixed ? kRr : kMaxRr;  // registers held
+  static constexpr int NH = kFixed ? kH : kMaxH;
+  static constexpr int G = kFixed ? 4 : 1;           // features a step
+};
+
+// A thread's E elements, blockDim.x apart from its block's first: their raw
+// channels (the last element's for one past n) and where their head-0
+// outputs go (-1 past n).
+template <int E, int NRr, bool kFixed>
+__device__ __forceinline__ void load_elements(const BiasArgs& a, int Rr, int H,
+                                              float (&x)[E][NRr], long (&o)[E]) {
+  const int first = blockIdx.x * blockDim.x * E + threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int n = first + e * (int)blockDim.x;
+    load_row<NRr, kFixed>(a.raw + (long)min(n, a.n - 1) * Rr, Rr, x[e]);
+    o[e] = n < a.n ? n + (long)(n / a.plane) * (H - 1) * a.plane : -1;
   }
+}
+
+// grid (ceil(n / (blockDim.x E))): each element's features once, all heads
+template <int kRr, int kH, int kR, int E>
+__global__ void __launch_bounds__(kBiasThreads) probe_bias_kernel(const BiasArgs a) {
+  using S = BiasShape<kRr, kH, kR>;
+  constexpr int NRr = S::NRr, NH = S::NH, G = S::G;
+  const int Rr = S::kFixed ? kRr : a.Rr, H = S::kFixed ? kH : a.H, R = S::kFixed ? kR : a.R;
+  extern __shared__ __align__(16) float smem[];
+  float x[E][NRr];
+  long o[E];
+  load_elements<E, NRr, S::kFixed>(a, Rr, H, x, o);  // in flight while the weights are staged
+  const BiasWeights w = stage_bias_weights<false, kRr, kH, kR>(a, Rr, H, R, smem);
+  __syncthreads();
+
+  float pre[E][NH];
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+#pragma unroll
+    for (int h = 0; h < NH; ++h) pre[e][h] = 0.f;
+#pragma unroll 4
+  for (int r0 = 0; r0 < R; r0 += G) {
+    float b1g[G];
+    load_row<G, S::kFixed>(w.b1s + r0, G, b1g);
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const int r = r0 + q;
+      float w1r[NRr], wrr[NH];
+      load_row<NRr, S::kFixed>(w.w1s + r * Rr, Rr, w1r);
+      load_row<NH, S::kFixed>(w.wrs + r * H, H, wrr);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float t = bias_feature(x[e], w1r, b1g[q], Rr);
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          if (h < H) pre[e][h] = fmaf(t, wrr[h], pre[e][h]);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+    if (h < H) {
+      const float brh = w.brs[h];
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (o[e] >= 0) a.out[o[e] + (long)h * a.plane] = logf(fmaxf(pre[e][h] + brh, kClamp));
+    }
+}
+
+// grid (ceil(n / (blockDim.x E)), head groups): the features computed
+// again for every head; a block takes heads blockIdx.y, + gridDim.y, ...
+template <int kRr, int kH, int kR, int E>
+__global__ void __launch_bounds__(kBias2Threads) probe_bias2_kernel(const BiasArgs a) {
+  using S = BiasShape<kRr, kH, kR>;
+  constexpr int NRr = S::NRr, G = S::G;
+  const int Rr = S::kFixed ? kRr : a.Rr, H = S::kFixed ? kH : a.H, R = S::kFixed ? kR : a.R;
+  extern __shared__ __align__(16) float smem[];
+  float x[E][NRr];
+  long o[E];
+  load_elements<E, NRr, S::kFixed>(a, Rr, H, x, o);
+  const BiasWeights w = stage_bias_weights<true, kRr, kH, kR>(a, Rr, H, R, smem);
+  __syncthreads();
+
+#pragma unroll 1
+  for (int h = blockIdx.y; h < H; h += gridDim.y) {
+    // b1 and W1 are read afresh for every head (volatile loads), so the
+    // features, the same for every head, cannot be taken out of this loop
+    // and computed once: that would make this kernel probe_bias
+    const float* wrh = w.wrs + h * R;
+    float pre[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) pre[e] = 0.f;
+#pragma unroll
+    for (int r0 = 0; r0 < R; r0 += G) {
+      float b1g[G], wrg[G];
+      load_row<G, S::kFixed, true>(w.b1s + r0, G, b1g);
+      load_row<G, S::kFixed>(wrh + r0, G, wrg);
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        float w1r[NRr];
+        load_row<NRr, S::kFixed, true>(w.w1s + (r0 + q) * Rr, Rr, w1r);
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          pre[e] = fmaf(bias_feature(x[e], w1r, b1g[q], Rr), wrg[q], pre[e]);
+      }
+    }
+    const float brh = w.brs[h];
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (o[e] >= 0) a.out[o[e] + (long)h * a.plane] = logf(fmaxf(pre[e] + brh, kClamp));
+  }
+}
+
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int kRr, int kH, int kR>
+cudaError_t launch_bias(bool fresh, const BiasArgs& a, cudaStream_t s) {
+  const size_t bytes = (size_t)bias_weight_floats(a.Rr, a.H, a.R) * sizeof(float);
+  // the fixed instances' 3.3 KB never need the opt-in; a generic one's
+  // weights above 48 KB (R over ~500) do
+  cudaError_t err = cudaSuccess;
+  if (fresh) {
+    constexpr int kPer = kBias2Threads * kBias2E;
+    const dim3 grid((a.n + kPer - 1) / kPer, a.H < kBias2Groups ? a.H : kBias2Groups);
+    if (bytes > kDefaultSmem) err = opt_in(probe_bias2_kernel<kRr, kH, kR, kBias2E>, bytes);
+    if (err == cudaSuccess)
+      probe_bias2_kernel<kRr, kH, kR, kBias2E><<<grid, kBias2Threads, bytes, s>>>(a);
+  } else {
+    constexpr int kPer = kBiasThreads * kBiasE;
+    const unsigned blocks = (a.n + kPer - 1) / kPer;
+    if (bytes > kDefaultSmem) err = opt_in(probe_bias_kernel<kRr, kH, kR, kBiasE>, bytes);
+    if (err == cudaSuccess)
+      probe_bias_kernel<kRr, kH, kR, kBiasE><<<blocks, kBiasThreads, bytes, s>>>(a);
+  }
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // grid (chunks, parts): rows [chunk * rows, +rows) of out = 2 plane, each
@@ -162,37 +451,31 @@ __global__ void probe_wrblock_b_kernel(const float* wr, float* out, int R) {
     out[((long)b * H + blockIdx.y) * R + r] = wr[(long)blockIdx.y * R + r];
 }
 
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 }  // namespace
 
 // The bias probes, fp32. fresh = 0: probe_bias (features once per element,
-// all heads); 1: probe_bias2 (features per head). Returns the CUDA error code
-// of the launch (0 = launched); the kernel runs on `stream`.
+// all heads); 1: probe_bias2 (features per head). Rr 4, R 64 with H 4 or
+// 8 (every array on a 16-byte boundary) take the instances fixed at those
+// shapes, the rest the generic one. Returns the CUDA error code of the
+// launch (0 = launched); the kernel runs on `stream`.
 extern "C" int mmnas_probe_bias(int fresh, const void* raw, const void* w1, const void* b1,
                                 const void* wr, const void* br, void* out, int B, int H, int L,
                                 int Rr, int R, void* stream) {
-  if (B < 1 || H < 1 || H > kMaxH || L < 1 || Rr < 1 || Rr > kMaxRr || R < 1)
+  if (B < 1 || H < 1 || H > kMaxH || L < 1 || Rr < 1 || Rr > kMaxRr || R < 1 ||
+      (long)B * L * L > kMaxBiasElements)
     return cudaErrorInvalidValue;
   const BiasArgs a{static_cast<const float*>(raw), static_cast<const float*>(w1),
                    static_cast<const float*>(b1), static_cast<const float*>(wr),
-                   static_cast<const float*>(br), static_cast<float*>(out), H, L, Rr, R};
+                   static_cast<const float*>(br), static_cast<float*>(out), B * L * L, L * L, H,
+                   Rr, R};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = bias_smem_bytes(R);
-  const int chunks = (L + kRows - 1) / kRows;
-  cudaError_t err;
-  if (fresh == 0) {
-    if ((err = opt_in(probe_bias_kernel, bytes)) != cudaSuccess) return err;
-    probe_bias_kernel<<<dim3(chunks, B), kThreads, bytes, s>>>(a);
-  } else {
-    if ((err = opt_in(probe_bias2_kernel, bytes)) != cudaSuccess) return err;
-    probe_bias2_kernel<<<dim3(chunks, H, B), kThreads, bytes, s>>>(a);
-  }
-  return cudaGetLastError();
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(raw) | reinterpret_cast<uintptr_t>(w1) |
+                          reinterpret_cast<uintptr_t>(b1) | reinterpret_cast<uintptr_t>(wr) |
+                          reinterpret_cast<uintptr_t>(br);
+  const bool fixed = Rr == 4 && R == 64 && bases % 16 == 0;
+  if (fixed && H == 8) return launch_bias<4, 8, 64>(fresh, a, s);
+  if (fixed && H == 4) return launch_bias<4, 4, 64>(fresh, a, s);
+  return launch_bias<0, 0, 0>(fresh, a, s);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 plane; out fp32 [L, L] in `chunks` row chunks.

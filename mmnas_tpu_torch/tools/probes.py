@@ -10,8 +10,12 @@ Each kernel of `csrc/probes.cu` computes what its TPU probe computes:
 - `probe_bias` (`_probe_bias.py:13`) and `probe_bias2` (`_probe_bias2.py:13`):
   the RSA log-bias log(max(relu(raw W1^T + b1) Wr^T + br, 1e-6)) ->
   [B, H, L, L], the relation features computed once per element for all
-  heads, and once per head. Both build the chain from the device code the
-  attention kernels use (`csrc/attention_common.cuh`) and give equal bits.
+  heads, and once per head. A thread computes several elements over a flat
+  grid, the chain's shapes fixed at compile time for Rr 4, R 64, H 4 or 8
+  (a generic instance takes the rest). Both run the operations of the
+  attention kernels' chain (`csrc/attention_common.cuh`) in its order, so
+  they give equal bits, equal to log(max(pre, 1e-6)) of the RSA attention
+  forward's `pre`.
 - `probe_slice` (`_probe_slice.py:7`): 2 plane in fp32, in row chunks.
 - `probe_outer` (`_probe_outer.py:9`): plane (x) w + b1 in fp32.
 - `probe_wrblock` (`_probe_wrblock.py:9,21`): Wr copied per (b, h) through
@@ -43,7 +47,8 @@ LAUNCHES = {"probe_bias": 0, "probe_bias2": 0, "probe_slice": 0, "probe_outer": 
 B, H, L, RR, R = 8, 8, 100, 4, 64  # the TPU scripts' shapes
 CHUNKS = 4                          # _probe_slice.py writes four row chunks
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEADS, _MAX_CHANNELS = 16, 8   # probes.cu kMaxH, attention_common.cuh kMaxRr
+_MAX_HEADS, _MAX_CHANNELS = 16, 8   # attention_common.cuh kMaxH, kMaxRr
+_MAX_BIAS_ELEMENTS = 1 << 30        # probes.cu kMaxBiasElements (B L L)
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +128,9 @@ def probe_bias(raw, w1, b1, wr, br, fresh: bool = False):
     if Lq != Lk or not 1 <= Rr <= _MAX_CHANNELS or not 1 <= Hn <= _MAX_HEADS:
         raise ValueError(f"raw {tuple(raw.shape)} with {Hn} heads: the kernel takes a square "
                          f"plane, 1..{_MAX_CHANNELS} channels and 1..{_MAX_HEADS} heads")
+    if Bn * Lq * Lk > _MAX_BIAS_ELEMENTS:
+        raise ValueError(f"raw {tuple(raw.shape)}: the kernel takes up to {_MAX_BIAS_ELEMENTS} "
+                         "elements B L L")
     for t, name, shape in ((w1, "W1", (Rn, Rr)), (b1, "b1", (Rn,)), (wr, "Wr", (Hn, Rn)),
                            (br, "br", (Hn,))):
         _require(t, name, (torch.float32,), len(shape), raw.device)

@@ -22,7 +22,10 @@ input checks and launch counters.
   and the search's B 128 H 4;
 - the relation pass on random inputs at the search's B 128, H 4 (100x100)
   and at the ITM shapes' (36x36), with the live-mask flips between the
-  kernel and the plain version counted and their contribution bounded.
+  kernel and the plain version counted and their contribution bounded;
+- the probe kernels (`tools/probes.py`): the bias probes at their fixed
+  and generic instances, against the plain version, each other and the
+  RSA attention forward's pre.
 
 Needs a CUDA GPU and nvcc; skipped elsewhere. This file imports no JAX, so
 on a machine without it run it as
@@ -473,6 +476,43 @@ def test_probe_kernels_match_their_plain_versions(dev):
     with pytest.raises(ValueError, match="heads"):
         PR.probe_bias(*(a.to(dev) for a in args[:3]), torch.zeros(17, 64, device=dev),
                       torch.zeros(17, device=dev))
+
+
+@pytest.mark.parametrize("B,H,L,Rr,R", [(2, 4, 100, 4, 64), (2, 8, 100, 4, 64),
+                                         (3, 5, 37, 3, 40)])
+def test_bias_kernel_instances_match_plain_and_attention_pre(dev, B, H, L, Rr, R):
+    """The bias kernels' instances fixed at Rr 4 R 64 (H 4, H 8) and the
+    generic one at an odd shape (Rr 3, H 5, R 40, L 37), inputs drawn with
+    numpy as the probes draw theirs: each within the plain version's
+    tolerances (1e-5 on exp(bias), and on bias where pre > 0.1); probe_bias
+    and probe_bias2 equal bit for bit, also with raw off a 16-byte boundary
+    (the generic instance); both equal bit for bit to
+    log(max(pre, 1e-6)) of the pre the RSA attention forward writes for the
+    same raw and weights (q, k, v random, D 64)."""
+    import numpy as np
+
+    from mmnas_tpu_torch.tools import probes as PR
+
+    r = np.random.RandomState(B * 100 + H)
+    host = [torch.from_numpy(a) for a in (
+        np.abs(r.randn(B, L, L, Rr)).astype(np.float32), (r.randn(R, Rr) * 0.5).astype(np.float32),
+        (r.randn(R) * 0.1).astype(np.float32), (r.randn(H, R) * 0.3).astype(np.float32),
+        (r.randn(H) * 0.1).astype(np.float32))]
+    args = [a.to(dev) for a in host]
+    once = PR.probe_bias(*args)
+    want = PR.bias_reference(*host)
+    torch.testing.assert_close(once.exp().cpu(), want.exp(), rtol=0, atol=1e-5)
+    away = want.exp() > 0.1
+    torch.testing.assert_close(once.cpu()[away], want[away], rtol=0, atol=1e-5)
+    assert torch.equal(PR.probe_bias(*args, fresh=True), once)
+    shifted = torch.empty(args[0].numel() + 1, device=dev)[1:].view(args[0].shape)
+    shifted.copy_(args[0])
+    for fresh in (False, True):
+        assert torch.equal(PR.probe_bias(shifted, *args[1:], fresh=fresh), once)
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(B, H, L, 64, generator=g).to(dev) for _ in range(3))
+    _, _, pre = FA.attention_fwd(q, k, v, None, None, tuple(args), want_pre=True)
+    assert torch.equal(once, torch.log(torch.clamp(pre, min=1e-6)))
 
 
 def test_kpath_weight_step_on_the_card_matches_the_cpu(dev, tmp_path):
