@@ -113,10 +113,34 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    steps of three forwards, the argmax path's R@K on the val split, exact
    launches, alpha moved, the archive, the checkpoint, a resumed epoch,
    step times);
-13. prints one JSON line with every kernel's numbers (with x_library and
+13. holds the forward, dropout-forward, backward and relation-pass kernels
+   against their plain versions at the shapes the rest of the op library
+   reaches (`new_shape_cases`, B 64, fp32 and bf16: 2 heads of 256 at
+   (100,100) SA and RSA and (100,14) GA, 32 heads of 16 with the RSA chain
+   at (100,100), no pad mask at (100,114) and ITM's (36,86), 8 heads of
+   64; and the instances the main path runs on the column-window
+   backward: 4 heads of 128 and 16 heads of 32, RSA at (100,100) and no
+   pad mask at (100,114)), with one launch per kernel per call and their
+   times, bounds and SDPA's; past the new limits (D 272, 33 RSA heads) the
+   wrapper refuses;
+14. drives this slice's main path (`all_ops_path`): a VQA fixed net whose
+   genotype, built from arch/mmnas_vqa.json's node counts, names all 41
+   ops, at HSIZE 512: eval (fp32, bf16) with exact launches and 8 items'
+   logits against the CPU, one train step (fp32, bf16 on fp32 masters)
+   with exact launches, one fp32 step against the CPU and the plain
+   versions as in 7;
+15. evaluates arch/mmnas_vqa.json on a small VQA corpus in the reference's
+   layout, made by tools/make_rehearsal_data.py and packed by
+   tools/pack_features.py (run as programs), per item, with --DEVICE_REL
+   (the whole-batch loader) and with --DEVICE_REL --SHIP_INT8 (int8
+   features), each with exact launches and logits against the CPU, and
+   each loader's steady-state examples/s (16 passes over the eval set, the
+   first batch left out); and times an empty kernel beside probe_wrblock
+   (the launch floor);
+16. prints one JSON line with every kernel's numbers (with x_library and
    x_bound, its time over the library call's and over its bound; `launches`
-   from the ITM fixed net's fp32 run, this slice's main path, each path's
-   own counts beside them) and, last, the device line `{"ok": true,
+   from the all-ops net, this slice's main path, each path's own counts
+   beside them) and, last, the device line `{"ok": true,
    "device": {...}}`. A device time the profiler did not record in full
    (5 tries) is taken from CUDA events around replays of a CUDA graph of the
    calls, and named so: every device reading `<key>` has `<key>_by`,
@@ -393,18 +417,19 @@ def bias2_head_loop_ffma(lib):
 def relation_kernel_report(sass):
     """The relation pass's instantiations in the SASS report, each as
     (raw channels held, heads held, features a thread, row); prints one line
-    each. The paths' shapes (4 and 8 heads) must not spill."""
+    each (grouped: more than 16 heads, in groups of 16). The paths' shapes
+    (4 and 8 heads) must not spill."""
     import re
 
     rel = {}
     for fn, r in sorted(sass.items()):
-        m = re.search(r"fused_attention_bwd_rel_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E",
-                      fn)
+        m = re.search(r"fused_attention_bwd_rel_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E"
+                      r"Lb([01])E", fn)
         if m:
             rel[fn] = (int(m.group(2)), int(m.group(3)), int(m.group(4)), r)
             print(f"  relation pass {'fp32' if m.group(1) == 'f' else 'bf16'} Rr<={m.group(2)} "
-                  f"H<={m.group(3)} F {m.group(4)}: {r['registers']} registers, "
-                  f"{r['spill_bytes']} bytes spilled")
+                  f"H<={m.group(3)} F {m.group(4)}{' grouped' if m.group(5) == '1' else ''}: "
+                  f"{r['registers']} registers, {r['spill_bytes']} bytes spilled")
     return rel
 
 
@@ -491,11 +516,12 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def make_case(g, Lq, Lk, kind, B=B, H=H):
+def make_case(g, Lq, Lk, kind, B=B, H=H, D=D):
     """Random q, k, v (B, H, L, D), and by `kind`: a key mask ("mask": ~30%
     of the keys at random, key 0 valid; "padmask": keys from a random count
-    of valid ones on, that count drawn from PAD_VALID[Lk]), an additive bias
-    ("bias"), the RSA geometry chain ("rel")."""
+    of valid ones on, that count drawn from PAD_VALID[Lk]; "nopad": none, as
+    uniimg_att's keys), an additive bias ("bias"), the RSA geometry chain
+    ("rel")."""
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g) * scale
 
@@ -547,7 +573,7 @@ def live_share(rel):
     return (torch.matmul(raw, w1.t()) + b1 > 0).float().mean().item()
 
 
-def attention_bytes_ops(Lq, Lk, kind, dt, part, live=1.0, B=B, H=H):
+def attention_bytes_ops(Lq, Lk, kind, dt, part, live=1.0, B=B, H=H, D=D):
     """The least work of one call at B, H, D: (bytes, {dtype: operations}).
     Bytes: each of the function's inputs read once and each of its outputs
     written once. part "fwd": q, k, v (mask, bias, raw) -> o; "bwd": q, k, v,
@@ -583,7 +609,7 @@ def attention_bytes_ops(Lq, Lk, kind, dt, part, live=1.0, B=B, H=H):
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
+def kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES, D=D):
     """Forward kernel (no dropout) against its plain version (with the RSA
     chain: its pre against the plain chain, the output on that pre; see
     KERNEL_TOL)."""
@@ -591,7 +617,7 @@ def kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
     rows = []
     for dt in dtypes:
         for Lq, Lk, kind in cases:
-            args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind, B, H))
+            args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind, B, H, D))
             got = FA.fused_attention(*args, m, b_, rel=r_)
             torch.cuda.synchronize()
             log_bias, pre_err = f32(b_), None
@@ -615,14 +641,15 @@ def kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                 library_ms = cuda_time_ms(sdpa)
                 library_dev_ms, library_dev_by = device_time_ms(sdpa)
             live = 1.0 if r_ is None else live_share(r_)
-            bound_ms, bound_by = bound(*attention_bytes_ops(Lq, Lk, kind, dt, "fwd", live, B, H))
-            row = {"dtype": str(dt).replace("torch.", ""), "B": B, "H": H, "Lq": Lq, "Lk": Lk,
+            bound_ms, bound_by = bound(*attention_bytes_ops(Lq, Lk, kind, dt, "fwd", live, B, H,
+                                                            D))
+            row = {"dtype": str(dt).replace("torch.", ""), "B": B, "H": H, "D": D, "Lq": Lq, "Lk": Lk,
                    "operands": kind, "max_abs_err": err, "tol": tol, "pre_err": pre_err, "ms": ms,
                    "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                    "device_ms": dev_ms, "device_ms_by": dev_by, "library_device_ms": library_dev_ms,
                    "library_device_ms_by": library_dev_by}
-            print(f"fwd     B{B} H{H} {row['dtype']:8s} ({Lq:3d},{Lk:3d}) {kind:8s} max_abs_err {err:.3e} "
+            print(f"fwd     B{B} H{H} D{D} {row['dtype']:8s} ({Lq:3d},{Lk:3d}) {kind:8s} max_abs_err {err:.3e} "
                   f"(tol {tol:g})  kernel {ms:.4f} ms (device {fmt(dev_ms, dev_by)})  plain "
                   f"{plain_ms:.4f} ms  sdpa {fmt(library_ms)} ms (device "
                   f"{fmt(library_dev_ms, library_dev_by)})  bound "
@@ -637,7 +664,7 @@ def rel_err(got, want):
     return (got.float() - want.float()).abs().max().item() / max(want.abs().max().item(), 1e-6)
 
 
-def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
+def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES, D=D):
     """Dropout forward, backward and relation pass against their plain
     versions, and their times. With the RSA chain also the arch step's
     backward, where no relation input needs a gradient: no dpre, no
@@ -646,8 +673,9 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
     rows = []
     for dt in dtypes:
         for Lq, Lk, kind in cases:
-            args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind, B, H))
-            name = f"B{B} H{H} {str(dt).replace('torch.', ''):8s} ({Lq:3d},{Lk:3d}) {kind:8s}"
+            args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind, B, H, D))
+            name = (f"B{B} H{H} D{D} {str(dt).replace('torch.', ''):8s} ({Lq:3d},{Lk:3d}) "
+                    f"{kind:8s}")
             # the mask: keep rate, reproducible by seed, the numpy Philox bits
             # with the RSA chain the training forward also writes pre for the backward
             want_pre = r_ is not None
@@ -661,7 +689,7 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                 raise AssertionError(f"{name}: keep fraction {frac}")
             if not torch.equal(keep, keep2) or torch.equal(keep, keep3):
                 raise AssertionError(f"{name}: the keep mask does not follow its seed")
-            if dt == torch.float32 and kind in ("mask", "padmask"):
+            if dt == torch.float32 and kind in ("mask", "padmask", "nopad"):
                 want_keep = FA.keep_mask_reference(1234, B, H, Lq, Lk, RATE)
                 if not torch.equal(keep.cpu().bool(), want_keep):
                     raise AssertionError(f"{name}: keep bits differ from Philox4x32-10")
@@ -758,8 +786,8 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                     sdpa_bwd_dev_by = "cuda graph, fwd+bwd - fwd"
                 sdpa_ms = cuda_time_ms(sdpa_step)
             live = 1.0 if r_ is None else live_share(r_)
-            row = {"dtype": str(dt).replace("torch.", ""), "B": B, "H": H, "Lq": Lq, "Lk": Lk,
-                   "operands": kind, "keep_fraction": frac, "fwd_err": fwd_err, "fwd_tol": fwd_tol,
+            row = {"dtype": str(dt).replace("torch.", ""), "B": B, "H": H, "D": D, "Lq": Lq,
+                   "Lk": Lk, "operands": kind, "keep_fraction": frac, "fwd_err": fwd_err, "fwd_tol": fwd_tol,
                    "pre_err": pre_err,
                    "grad_rel_err": errs, "grad_abs_err": abs_err, "grad_tol": tol,
                    "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_bwd_ms": step_ms,
@@ -772,7 +800,7 @@ def train_kernel_cases(FA, dev, B=B, H=H, cases=CASES, dtypes=DTYPES):
                    "sdpa_bwd_device_ms": sdpa_bwd_dev_ms, "sdpa_bwd_device_ms_by": sdpa_bwd_dev_by}
             for part, key in (("fwd", "fwd"), ("bwd", "bwd"), ("fwd+bwd", "fwd_bwd")):
                 row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound(
-                    *attention_bytes_ops(Lq, Lk, kind, dt, part, live, B, H))
+                    *attention_bytes_ops(Lq, Lk, kind, dt, part, live, B, H, D))
             if r_ is not None:
                 row.update(relation_pass(FA, r_, dpre_plain, live))
                 row["rel_abs_err"] = max((x.float() - w).abs().max().item()
@@ -1833,6 +1861,352 @@ def itm_path(FA, dev, card):
     return {"legs": legs}
 
 
+# this slice's main path: a VQA fixed net whose genotype names every one of
+# the 41 ops, at HSIZE 512, batch 64 (all_ops_path), and the whole-batch VQA
+# loader with DEVICE_REL and SHIP_INT8 (device_rel_path). The kernel shapes
+# its attention reaches past the shapes above (NEW_SHAPE_CASES: B, H, D,
+# cases): 2 heads of 256 (self_att_256, rel_self_att_256, guided_att_256),
+# 32 heads of 16 with the relation chain (rel_self_att_16), and keys with no
+# pad mask over concat(y, x) (uniimg_att_64: VQA's 100 regions over 114 keys,
+# ITM's 36 over 86), and the instances that the main path runs on the
+# column-window backward at the shipped widths (rel_self_att_128 and
+# uniimg_att_128: 4 heads of 128; rel_self_att_32 and uniimg_att_32: 16 of 32)
+NEW_SHAPE_CASES = [(B, 2, 256, [(100, 100, "mask"), (100, 100, "mask+rel"), (100, 14, "mask")]),
+                   (B, 32, 16, [(100, 100, "mask+rel")]),
+                   (B, H, D, [(100, 114, "nopad"), (36, 86, "nopad")]),
+                   (B, 4, 128, [(100, 100, "mask+rel"), (100, 114, "nopad")]),
+                   (B, 16, 32, [(100, 100, "mask+rel"), (100, 114, "nopad")])]
+ALL_OPS_EVAL_SIZE = 2 * BATCH
+# the ops that read neither y nor the relation go to the encoder
+DECODER_OPS = ("rel_self_att_", "guided_att_", "uniimg_att_", "self_att_256")
+REHEARSAL = os.path.join(WORK, "rehearsal")   # the small packed corpus (device_rel_path)
+LOADER_PASSES = 16          # passes over its 200 questions: 50 batches of 64 a loader
+
+
+def all_ops_genotype():
+    """A genotype with arch/mmnas_vqa.json's node counts (12 encoder, 18
+    decoder) naming all 41 ops: the 26 that read neither y nor the relation
+    spread over the encoder's nodes (2 or 3 a node, summed as the reference
+    sums a node's ops), the 15 others one a node in the decoder, cycled to
+    fill its 18 nodes."""
+    from mmnas_tpu_torch.genotype import load_genotype
+    from mmnas_tpu_torch.ops.registry import OPS
+
+    ref = load_genotype(ARCHS["vqa"])
+    n_enc, n_dec = len(ref["enc"]), len(ref["dec"])
+    dec_ops = [n for n in OPS if n.startswith(DECODER_OPS)]
+    enc_ops = [n for n in OPS if n not in dec_ops]
+    return {"enc": [enc_ops[i::n_enc] for i in range(n_enc)],
+            "dec": [[dec_ops[i % len(dec_ops)]] for i in range(n_dec)]}
+
+
+def genotype_launches(genotype):
+    """(attention ops, rel_self_att ops) of a genotype at LAYERS 1."""
+    ops = [n for c in ("enc", "dec") for node in genotype[c] for n in node]
+    return sum("_att_" in n for n in ops), sum(n.startswith("rel_self_att_") for n in ops)
+
+
+def new_shape_cases(FA, dev):
+    """The kernels at NEW_SHAPE_CASES against their plain versions (fp32 and
+    bf16, forward, dropout forward, backward, relation pass), with their
+    times, bounds and SDPA's; each kernel launched exactly once per call
+    (the wrappers' counts), and past the new limits the wrapper refuses."""
+    fwd, train = [], []
+    g = torch.Generator().manual_seed(5)
+    for Bn, Hn, Dn, cases in NEW_SHAPE_CASES:
+        fwd += kernel_cases(FA, dev, Bn, Hn, cases, D=Dn)
+        train += train_kernel_cases(FA, dev, Bn, Hn, cases, D=Dn)
+        for Lq, Lk, kind in cases:               # one launch per kernel per call
+            args, m, _, r_ = to_dev(dev, torch.float32, *make_case(g, Lq, Lk, kind, Bn, Hn, Dn))
+            leaves = [a.requires_grad_() for a in args]
+            if r_ is not None:
+                r_ = (r_[0],) + tuple(t.requires_grad_() for t in r_[1:])
+            zero_launches(FA)
+            out = FA.fused_attention(*leaves, m, rel=r_, dropout_r=RATE,
+                                     generator=torch.Generator(dev).manual_seed(1))
+            out.sum().backward()
+            torch.cuda.synchronize()
+            want = {"fused_attention_fwd": 0, "fused_attention_fwd_dropout": 1,
+                    "fused_attention_bwd": 1, "fused_attention_bwd_rel": int(r_ is not None)}
+            if dict(FA.LAUNCHES) != want:
+                raise AssertionError(f"B{Bn} H{Hn} D{Dn} ({Lq},{Lk}) {kind}: launches "
+                                     f"{FA.LAUNCHES}, expected {want}")
+    q = torch.zeros(1, 1, 8, 272, device=dev)                     # past the new limits
+    rel = (torch.zeros(1, 8, 8, RR, device=dev), torch.zeros(R, RR, device=dev),
+           torch.zeros(R, device=dev), torch.zeros(33, R, device=dev), torch.zeros(33, device=dev))
+    for call, what in ((lambda: FA.attention_fwd(q, q, q), "head width"),
+                       (lambda: FA.attention_fwd(*[torch.zeros(1, 33, 8, 16, device=dev)] * 3,
+                                                 rel=rel), "heads")):
+        try:
+            call()
+        except ValueError as e:
+            if what not in str(e):
+                raise
+        else:
+            raise AssertionError(f"the wrapper took a shape past its {what} limit")
+    print(f"new shapes: {len(fwd)} forward and {len(train)} training cases agree, one launch "
+          "per kernel per call, past the limits refused", flush=True)
+    return fwd, train
+
+
+def all_ops_path(FA, dev, card):
+    """This slice's main path. `Execution.run()` of RUN val (fp32, bf16) on
+    the all-ops genotype at full width from a seeded checkpoint: exact
+    forward launches, logits of 8 items card vs CPU; one train step on one
+    resident batch (DROPOUT_R 0.1, fp32 and bf16 on fp32 masters) with exact
+    launches and a finite loss, the fp32 step timed; `one_step_parity`.
+    Returns the main path's launches: the fp32 eval's forwards, the fp32
+    train step's dropout forwards, backwards and relation passes."""
+    from mmnas_tpu_torch.engine.vqa import Execution, batch_to_device
+    from mmnas_tpu_torch.models.convert import to_jax_params
+    from mmnas_tpu_torch.models.net import INPUT_KEYS
+    from mmnas_tpu_torch.train.checkpoint import save_checkpoint
+    from mmnas_tpu_torch.train.optimizer import build_net_optimizer
+
+    genotype = all_ops_genotype()
+    arch = os.path.join(WORK, "all_ops.json")
+    with open(arch, "w") as f:
+        json.dump({"epoch0": genotype}, f)
+    n_att, n_rsa = genotype_launches(genotype)
+    ckpt = os.path.join(WORK, "all_ops_seed0.pkl")
+    cfg32 = cfg_for("val", "float32", SYNTH_SIZE=ALL_OPS_EVAL_SIZE, CKPT_PATH=ckpt,
+                    ARCH_PATH=arch)
+    exe = Execution(cfg32, dev)
+    dataset = exe.build_dataset("val")
+    net = exe.build_net(dataset)
+    names = sorted({n for c in genotype.values() for node in c for n in node})
+    print(f"all-ops net: {len(names)} ops, {n_att} attention ({n_rsa} RSA) ops, "
+          f"{sum(p.numel() for p in net.parameters())} parameters", flush=True)
+    if len(names) != 41:
+        raise AssertionError(f"the all-ops genotype names {len(names)} ops")
+    save_checkpoint(ckpt, {"state_dict": to_jax_params(net), "net_optim": None, "epoch": 0})
+    del net
+    out, main = {"genotype": genotype}, {}
+    n_batches = ALL_OPS_EVAL_SIZE // BATCH
+    for dtype in ("float32", "bfloat16"):
+        cfg = cfg_for("val", dtype, SYNTH_SIZE=ALL_OPS_EVAL_SIZE, CKPT_PATH=ckpt, ARCH_PATH=arch)
+        exe = Execution(cfg, dev)
+        zero_launches(FA)
+        result = exe.run()
+        torch.cuda.synchronize()
+        launches = dict(FA.LAUNCHES)
+        want = {"fused_attention_fwd": n_att * n_batches, "fused_attention_fwd_dropout": 0,
+                "fused_attention_bwd": 0, "fused_attention_bwd_rel": 0}
+        if launches != want or result.preds.shape != (ALL_OPS_EVAL_SIZE,):
+            raise AssertionError(f"all-ops {dtype} eval: launches {launches}, expected {want}; "
+                                 f"predictions {result.preds.shape}")
+        gpu_net = exe.load_net(dataset)
+        host_batch = list(exe.make_loader(dataset, BATCH))[0]
+        batch = batch_to_device(host_batch, dev)
+        with torch.inference_mode():
+            fwd_ms = cuda_time_ms(lambda: gpu_net(batch), iters=5, warmup=1)
+            small = {k: v[:8] for k, v in host_batch.items()}
+            gpu_logits = gpu_net(batch_to_device(small, dev)).cpu()
+            cpu_net = Execution(cfg, torch.device("cpu")).load_net(dataset)
+            cpu_logits = cpu_net(batch_to_device(small, torch.device("cpu")))
+        diff = (gpu_logits - cpu_logits).abs().max().item()
+        print(f"all-ops eval {dtype}: {launches['fused_attention_fwd']} forward launches over "
+              f"{n_batches} batches; forward {fwd_ms:.3f} ms per batch of {BATCH} on {card}; "
+              f"logits card vs CPU max abs diff {diff:.3e} (tol {LOGIT_TOL[dtype]:g})", flush=True)
+        if not (torch.isfinite(gpu_logits).all() and diff <= LOGIT_TOL[dtype]):
+            raise AssertionError(f"all-ops {dtype}: card logits differ from the CPU's by {diff}")
+        out[f"eval_{dtype}"] = {"launches": launches, "forward_ms": fwd_ms, "logit_diff": diff}
+        if dtype == "float32":
+            main["fused_attention_fwd"] = launches["fused_attention_fwd"]
+        del gpu_net, cpu_net
+
+    keys = INPUT_KEYS + Execution.TARGET_KEYS
+    for dtype in ("float32", "bfloat16"):
+        cfg = cfg_for("train", dtype, SYNTH_SIZE=BATCH, ARCH_PATH=arch)
+        exe = Execution(cfg, dev)
+        dataset = exe.build_dataset("train")
+        host_batch = list(exe.make_loader(dataset, BATCH))[0]
+        batch = batch_to_device(host_batch, dev, keys)
+        net = exe.build_net(dataset).to(dev)
+        params = dict(net.named_parameters())
+        optim = build_net_optimizer(cfg, 1)
+        state = optim.init(params)
+        gen = torch.Generator(dev).manual_seed(3)
+        zero_launches(FA)
+        loss, _ = exe.train_step(net, optim, state, params, batch, gen)
+        torch.cuda.synchronize()
+        launches = dict(FA.LAUNCHES)
+        want = {"fused_attention_fwd": 0, "fused_attention_fwd_dropout": n_att,
+                "fused_attention_bwd": n_att, "fused_attention_bwd_rel": n_rsa}
+        if launches != want or not math.isfinite(float(loss)):
+            raise AssertionError(f"all-ops {dtype} train step: launches {launches}, expected "
+                                 f"{want}; loss {float(loss)}")
+        step_ms = cuda_time_ms(lambda: exe.train_step(net, optim, state, params, batch, gen),
+                               iters=3, warmup=1)
+        print(f"all-ops train step {dtype} BS {BATCH}: loss {float(loss):.4f}, {launches}; "
+              f"{step_ms:.2f} ms on {card}", flush=True)
+        out[f"train_{dtype}"] = {"launches": launches, "loss": float(loss), "step_ms": step_ms}
+        if dtype == "float32":
+            main.update({k: launches[k] for k in ("fused_attention_fwd_dropout",
+                                                  "fused_attention_bwd",
+                                                  "fused_attention_bwd_rel")})
+        del net, params, state
+    out.update(one_step_parity(Execution, cfg_for("train", "float32", ARCH_PATH=arch
+                                                  ).replace(DROPOUT_R=0.0),
+                               dataset, {k: v[:16] for k, v in host_batch.items()}, keys, 1,
+                               n_rsa, "all-ops", dev))
+    out["main_path_launches"] = main
+    return out
+
+
+def data_cfg(run, dtype, flags=(), **extra):
+    """`--RUN run --DATA_ROOT <the rehearsal corpus> --ARCH_PATH
+    arch/mmnas_vqa.json --BS 64` of the VQA CLI with `flags` (--DEVICE_REL,
+    --SHIP_INT8), GloVe off (the corpus has no GloVe cache)."""
+    from mmnas_tpu_torch.config import cfg_from_args, make_arg_parser
+
+    args = ["--RUN", run, "--DATA_ROOT", REHEARSAL, "--ARCH_PATH", ARCHS["vqa"], "--BS",
+            str(BATCH), "--SEED", "0", "--NW", "8", "--DTYPE", dtype, *flags]
+    for k, v in extra.items():
+        args += [f"--{k}", str(v)]
+    cfg = cfg_from_args("vqa", make_arg_parser("vqa").parse_args(args))
+    return cfg.replace(LOG_ROOT=os.path.join(WORK, "log"), CKPT_ROOT=os.path.join(WORK, "ckpts"),
+                       GLOVE_FEATURE=False)
+
+
+def loader_rate(FA, exe, dataset, dev, n_att):
+    """Steady-state examples/s of the eval loop with its loader: LOADER_PASSES
+    passes over `dataset` in order through the engine's loader and net, as
+    `Execution.eval` runs them (the forward, the argmax fetched to the host),
+    timed from the end of the first batch to the end of the last, so that the
+    loader's start and the first batch stay out; exact forward launches."""
+    from mmnas_tpu_torch.data.loader import Loader
+    from mmnas_tpu_torch.data.sampler import SubsetShardSampler
+    from mmnas_tpu_torch.engine.vqa import batch_to_device
+    from mmnas_tpu_torch.models.net import compute_call, compute_params
+
+    cfg = exe.cfg
+    idx = np.tile(np.arange(len(dataset)), LOADER_PASSES)
+    loader = Loader(dataset, BATCH, num_workers=cfg.NUM_WORKERS,
+                    sampler=SubsetShardSampler(len(dataset), subset_indices=idx))
+    net = exe.load_net(dataset)
+    n = 0
+    zero_launches(FA)
+    with torch.inference_mode():
+        params = compute_params(net, cfg)
+        for batch in loader:
+            compute_call(net, cfg, (batch_to_device(batch, dev),), params=params
+                         ).argmax(dim=-1).cpu()
+            if n == 0:
+                t0 = time.perf_counter()
+            n += 1
+    seconds = time.perf_counter() - t0
+    if FA.LAUNCHES["fused_attention_fwd"] != n_att * n or n * BATCH != len(idx):
+        raise AssertionError(f"loader rate: {n} batches, {FA.LAUNCHES}")
+    return (n - 1) * BATCH / seconds, seconds
+
+
+def device_rel_path(FA, dev, card):
+    """The VQA eval through the real-data loaders on a small corpus in the
+    reference's on-disk layout, made on the spot by tools/make_rehearsal_data.py
+    and packed by tools/pack_features.py (run as programs): `Execution.run()`
+    of RUN val (arch/mmnas_vqa.json, HSIZE 512, 100 regions of 2048) with the
+    per-item loader (host relation tensors, fp32 features), with DEVICE_REL
+    (the whole-batch loader: fp16 features, raw boxes) and with DEVICE_REL
+    and SHIP_INT8 (int8 features and fp32 scales), each with exact forward
+    launches; the flags' logits of 8 items card vs CPU and against the
+    per-item path's (int8 rounding: within 5% of the largest); each loader's
+    steady-state examples/s (`loader_rate`). `run_seconds` is one
+    `Execution.run()` of the 200 questions, the loader's start included."""
+    from mmnas_tpu_torch.data.vqa import VqaDataset
+    from mmnas_tpu_torch.engine.vqa import Execution, batch_to_device
+    from mmnas_tpu_torch.genotype import load_genotype
+    from mmnas_tpu_torch.models.convert import to_jax_params
+    from mmnas_tpu_torch.train.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    for tool, args in (("make_rehearsal_data.py", ["--out", REHEARSAL, "--seed", "0"]),
+                       ("pack_features.py", ["--src", os.path.join(
+                           REHEARSAL, "vqa", "bua-r101-max100", "val2014"), "--max_len", "100"])):
+        subprocess.run([sys.executable, os.path.join(HERE, "tools", tool), *args], check=True,
+                       capture_output=True, text=True)
+    print(f"rehearsal corpus made and packed in {time.perf_counter() - t0:.1f} s", flush=True)
+    ckpt = os.path.join(WORK, "rehearsal_vqa_seed0.pkl")
+    exe = Execution(data_cfg("val", "float32", CKPT_PATH=ckpt), dev)
+    dataset = exe.build_dataset("val")
+    net = exe.build_net(dataset)
+    save_checkpoint(ckpt, {"state_dict": to_jax_params(net), "net_optim": None, "epoch": 0})
+    del net
+    n_att, _ = genotype_launches(load_genotype(ARCHS["vqa"]))
+    n_batches = math.ceil(len(dataset) / BATCH)
+    out, logits = {}, {}
+    for leg, flags in (("per_item", ()), ("device_rel", ("--DEVICE_REL",)),
+                       ("device_rel_int8", ("--DEVICE_REL", "--SHIP_INT8"))):
+        cfg = data_cfg("val", "float32", flags, CKPT_PATH=ckpt)
+        exe = Execution(cfg, dev)
+        zero_launches(FA)
+        result = exe.run()
+        torch.cuda.synchronize()
+        if FA.LAUNCHES["fused_attention_fwd"] != n_att * n_batches:
+            raise AssertionError(f"{leg}: {FA.LAUNCHES}, expected {n_att * n_batches} forwards")
+        ds = VqaDataset(cfg, "val")
+        if (leg != "per_item") != ds.supports_batch():
+            raise AssertionError(f"{leg}: whole-batch loader {ds.supports_batch()}")
+        idx = np.arange(8)
+        host = ds.get_batch(idx) if leg != "per_item" else {
+            k: np.stack([ds[i][k] for i in idx]) for k in ds[0]}
+        if leg == "device_rel_int8" and (host["frcn_feat_q"].dtype != np.int8
+                                         or "rel_img" in host):
+            raise AssertionError(f"{leg}: batch {[(k, v.dtype) for k, v in host.items()]}")
+        gpu_net = exe.load_net(ds)
+        with torch.inference_mode():
+            g = gpu_net(batch_to_device(host, dev)).cpu()
+            c = Execution(cfg, torch.device("cpu")).load_net(ds)(
+                batch_to_device(host, torch.device("cpu")))
+        diff = (g - c).abs().max().item()
+        logits[leg] = g
+        launches = FA.LAUNCHES["fused_attention_fwd"]
+        if not (torch.isfinite(g).all() and diff <= LOGIT_TOL["float32"]):
+            raise AssertionError(f"{leg}: card logits differ from the CPU's by {diff}")
+        del gpu_net
+        eps, seconds = loader_rate(FA, exe, ds, dev, n_att)
+        print(f"VQA eval on the packed corpus, {leg}: {len(dataset)} questions in "
+              f"{result.seconds:.3f} s ({launches} forward launches); steady state "
+              f"{eps:.1f} examples/s with the loader over {LOADER_PASSES} passes "
+              f"({seconds:.3f} s) on {card}; logits card vs CPU {diff:.3e}", flush=True)
+        out[leg] = {"examples_per_s": eps, "steady_seconds": seconds,
+                    "run_seconds": result.seconds, "logit_diff": diff, "launches": launches}
+    scale = logits["per_item"].abs().max().item()
+    for leg in ("device_rel", "device_rel_int8"):
+        d = (logits[leg] - logits["per_item"]).abs().max().item()
+        out[leg]["vs_per_item"] = d
+        if not d <= 0.05 * scale:
+            raise AssertionError(f"{leg}: logits {d} off the per-item path's (largest {scale})")
+    return out
+
+
+def launch_floor(PR, dev):
+    """Device time of an empty kernel (csrc/probes.cu `mmnas_probe_empty`,
+    one block of 32 threads), the least any launch takes on this card: by
+    device_time_ms, and by CUDA events around CUDA-graph replays beside the
+    two probe_wrblock kernels' (row 9, a 2x8x64 fp32 copy) by the same
+    method."""
+    import ctypes
+
+    from mmnas_tpu_torch.csrc import build
+
+    fn = build.load("probes").mmnas_probe_empty
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def call():
+        if fn(torch.cuda.current_stream(dev).cuda_stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+
+    ms, by = device_time_ms(call)
+    wr_ = PR.wrblock_inputs().to(dev)
+    out = {"empty_device_ms": ms, "empty_device_ms_by": by, "empty_graph_ms": graph_time_ms(call),
+           **{f"wrblock_{v}_graph_ms": graph_time_ms(lambda v=v: PR.probe_wrblock(wr_, v))
+              for v in ("a", "b")}}
+    print("launch floor: an empty kernel " + ", ".join(f"{k} {fmt(v) if isinstance(v, float) else v}"
+                                                      for k, v in out.items()), flush=True)
+    return out
+
+
 def cpu_reference(net, cfg):
     """(net, cfg) of the CPU's reference for the card's scores: under
     bf16 the net's parameters rounded to bf16 and computed on in fp32 (the
@@ -2052,8 +2426,8 @@ def main() -> int:
     bias_regs = bias_kernel_report(built)
     rel_sass = relation_kernel_report(sass)
     spilled = [fn for fn, (_, heads, _, r) in rel_sass.items() if heads <= 8 and r["spill_bytes"]]
-    if len(rel_sass) != 12 or spilled:
-        raise AssertionError(f"relation pass: {len(rel_sass)} of 12 instantiations found; spills at "
+    if len(rel_sass) != 16 or spilled:
+        raise AssertionError(f"relation pass: {len(rel_sass)} of 16 instantiations found; spills at "
                              f"4 or 8 heads in {spilled}")
 
     dev = torch.device("cuda")
@@ -2107,6 +2481,13 @@ def main() -> int:
     phase("ITM mining, train and eval")
     itm["search"] = search_path(FA, dev, card, "itm", ITM_SEARCH_LEGS)
     phase("ITM search")
+    new_fwd, new_train = new_shape_cases(FA, dev)
+    phase("kernels at the new shapes (D 256, 32 RSA heads, no pad mask)")
+    all_ops = all_ops_path(FA, dev, card)
+    phase("the all-ops net: eval, train step")
+    device_rel = device_rel_path(FA, dev, card)
+    phase("VQA eval on the packed corpus with DEVICE_REL and SHIP_INT8")
+    floor = launch_floor(PR, dev)
 
     def pick(rows, Lq, Lk, kind):
         return next(r for r in rows if r["dtype"] == "float32" and (r["Lq"], r["Lk"],
@@ -2120,7 +2501,8 @@ def main() -> int:
     def at_shapes(rows, keys, rel=None):
         """A path's attention shapes, fp32 and bf16 (with rel True or False,
         only the cases with or without the RSA chain)."""
-        return [{"shape": f"B{r['B']} H{r['H']} ({r['Lq']},{r['Lk']}) {r['operands']} {r['dtype']}",
+        return [{"shape": f"B{r['B']} H{r['H']} D{r['D']} ({r['Lq']},{r['Lk']}) {r['operands']} "
+                          f"{r['dtype']}",
                  **{k: r[v] for k, v in keys.items()}} for r in rows
                 if rel is None or ("rel" in r["operands"]) == rel]
 
@@ -2152,7 +2534,8 @@ def main() -> int:
          "search_shape": at_search_shape(search_fwd, "mask", fwd_keys),
          "vgd_shapes": at_shapes(vgd_fwd, fwd_keys),
          "vgd_search_shapes": at_shapes(vgd_search_fwd, fwd_keys),
-         "itm_shapes": at_shapes(itm_fwd, fwd_keys)},
+         "itm_shapes": at_shapes(itm_fwd, fwd_keys),
+         "new_shapes": at_shapes(new_fwd, fwd_keys)},
         {"name": "fused_attention_fwd_dropout",
          "max_abs_err": max(c["fwd_err"] for c in fp32_train),
          "ms": drop["fwd_ms"], "plain_ms": drop["plain_fwd_ms"], "bound_ms": drop["fwd_bound_ms"],
@@ -2162,7 +2545,8 @@ def main() -> int:
          "search_shape": at_search_shape(search_train, "mask", drop_keys),
          "vgd_shapes": at_shapes(vgd_train_cases, drop_keys),
          "vgd_search_shapes": at_shapes(vgd_search_train, drop_keys),
-         "itm_shapes": at_shapes(itm_train_cases, drop_keys)},
+         "itm_shapes": at_shapes(itm_train_cases, drop_keys),
+         "new_shapes": at_shapes(new_train, drop_keys)},
         {"name": "fused_attention_bwd", "max_abs_err": max(c["grad_abs_err"] for c in fp32_train),
          "ms": drop["bwd_ms"], "plain_ms": drop["plain_bwd_ms"], "bound_ms": drop["bwd_bound_ms"],
          "bound_by": drop["bwd_bound_by"], "library_ms": drop["sdpa_bwd_ms"],
@@ -2171,23 +2555,30 @@ def main() -> int:
          "search_shape": at_search_shape(search_train, "mask", bwd_keys),
          "vgd_shapes": at_shapes(vgd_train_cases, bwd_keys),
          "vgd_search_shapes": at_shapes(vgd_search_train, bwd_keys),
-         "itm_shapes": at_shapes(itm_train_cases, bwd_keys)},
+         "itm_shapes": at_shapes(itm_train_cases, bwd_keys),
+         "new_shapes": at_shapes(new_train, bwd_keys)},
         {"name": "fused_attention_bwd_rel", "max_abs_err": rel["rel_abs_err"],
          "ms": rel["rel_ms"], "plain_ms": rel["rel_plain_ms"], "bound_ms": rel["rel_bound_ms"],
          "bound_by": rel["rel_bound_by"], "library_ms": None,
          **{k: rel[v] for k, v in rel_keys.items() if "device" in k}, "library_device_ms": None,
          "shape": "B64 H8 (100,100) Rr4 R64 fp32",
          "search_shape": at_search_shape(search_train, "mask+rel", rel_keys),
-         "itm_shapes": at_shapes(itm_train_cases, rel_keys, rel=True)},
+         "itm_shapes": at_shapes(itm_train_cases, rel_keys, rel=True),
+         "new_shapes": at_shapes(new_train, rel_keys, rel=True)},
     ]
-    # the attention kernels' launches on this slice's main path, the ITM
-    # fixed net's fp32 run (mining, 16 triplet steps, the R@K eval); each
-    # path's own counts beside them
-    main_path = itm["legs"]["float32"]["launches"]
+    # the attention kernels' launches on this slice's main path, the all-ops
+    # fixed net (the fp32 eval's forwards, the fp32 train step's dropout
+    # forwards, backwards and relation passes); each path's own counts beside
+    # them
+    main_path = all_ops["main_path_launches"]
     for row in rows:
         fwd_only = row["name"] == "fused_attention_fwd"
         row["launches"] = main_path[row["name"]]
         row["launches_by_path"] = {
+            "all_ops_eval_bf16": all_ops["eval_bfloat16"]["launches"][row["name"]],
+            "all_ops_train_bf16": all_ops["train_bfloat16"]["launches"][row["name"]],
+            "device_rel_int8_eval": device_rel["device_rel_int8"]["launches"] if fwd_only else 0,
+            "itm_fixed_fp32": itm["legs"]["float32"]["launches"][row["name"]],
             "eval_fp32": evals["float32"]["launches"] if fwd_only else 0,
             **{f"train_{dt}": leg["launches"][row["name"]] for dt, leg in train["legs"].items()},
             **{f"search_{leg}": v["launches"][row["name"]] for leg, v in search.items()},
@@ -2198,6 +2589,9 @@ def main() -> int:
             **{f"itm_train_{dt}": leg["launches"][row["name"]] for dt, leg in itm["legs"].items()},
             "itm_search_fp32": itm["search"]["float32_bs128_k1"]["launches"][row["name"]]}
     rows += [{"name": name, **row} for name, row in probes["rows"].items()]
+    for row in rows:          # row 9 beside the launch floor
+        if row["name"].startswith("probe_wrblock"):
+            row["launch_floor"] = floor
     for row in rows:
         source, replaces = KERNELS[row["name"]]
         row.update(route="cuda", source=source, replaces=replaces,
@@ -2209,10 +2603,13 @@ def main() -> int:
         json.dump({"fwd": fwd_cases, "train": train_cases, "search_fwd": search_fwd,
                    "search_train": search_train, "vgd_fwd": vgd_fwd, "vgd_train": vgd_train_cases,
                    "vgd_search_fwd": vgd_search_fwd, "vgd_search_train": vgd_search_train,
-                   "itm_fwd": itm_fwd, "itm_train": itm_train_cases}, f)
+                   "itm_fwd": itm_fwd, "itm_train": itm_train_cases, "new_fwd": new_fwd,
+                   "new_train": new_train}, f)
     print(f"kernel cases: {os.path.relpath(details, HERE)}")
     print(json.dumps({"kernels": rows, "probes": {k: v for k, v in probes.items() if k != "rows"},
-                      "eval": evals, "train": train, "search": search, "vgd": vgd, "itm": itm}))
+                      "eval": evals, "train": train, "search": search, "vgd": vgd, "itm": itm,
+                      "all_ops": all_ops, "device_rel": device_rel,
+                      "launch_floor": floor}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -521,5 +521,21 @@ def cfg_from_args(task: str, args, search: bool = False) -> Cfg:
     if cfg.MULTIHOST:
         raise NotImplementedError(
             "--MULTIHOST is not ported yet (ROADMAP.md, queue 1: parallel/)")
+    # the port runs on one card: more than one (a mesh, tensor parallelism)
+    # is parallel/'s
+    if cfg.N_DEVICES > 1 or cfg.MODEL_AXIS != 1 or "," in getattr(args, "GPU", "0"):
+        raise NotImplementedError(
+            "--NDEV > 1, --MODEL_AXIS > 1 and several --GPU ids are not ported yet "
+            "(ROADMAP.md, queue 1: parallel/); the port runs on the one card --GPU names")
+    # flags the JAX package accepts where no path reads them; the port refuses them there
+    if task == "itm" and cfg.DEVICE_REL:
+        raise ValueError(
+            "--DEVICE_REL has no ITM path: ITM's relation tensors are built on the host "
+            "(the JAX package accepts the flag for ITM and ignores it)")
+    if cfg.SHIP_INT8 and (task != "vqa" or cfg.SYNTH or not cfg.DEVICE_REL):
+        raise ValueError(
+            "--SHIP_INT8 ships int8 features only from the whole-batch VQA loader: VQA on "
+            "the packed feature store with --DEVICE_REL (the JAX package accepts the flag "
+            "with any other loader and ships float features)")
     suffix = "-search" if search else "-full"
     return cfg.replace(VERSION=cfg.VERSION + suffix)

@@ -24,7 +24,8 @@
 namespace mmnas {
 
 constexpr int kMaxRr = 8;          // raw relation channels held in registers
-constexpr int kMaxH = 16;          // heads the relation chain holds in registers
+constexpr int kMaxH = 16;          // heads the relation chain holds in registers (a group)
+constexpr int kMaxHeads = 32;      // heads the relation chain takes, in groups of kMaxH
 constexpr float kClamp = 1e-6f;    // log(max(pre, kClamp))
 constexpr float kMaskAdd = -1e9f;  // added to a padded key's score
 
@@ -59,10 +60,10 @@ struct Pad<__nv_bfloat16> {
 //
 // The chain of one (b, i, j), in fp32:
 //   t[r] = relu(b1[r] + sum_c raw[c] W1[r, c])          (relation_feature)
-//   pre  = sum_r t[r] Wr[h, r] + br[h]                   (relation_pre)
-// The attention kernels and the bias probes (probes.cu) all compute it
-// through these functions, with the same operations in the same order per
-// head, so they round alike.
+//   pre  = sum_r t[r] Wr[h, r] + br[h]                   (relation_pre_heads)
+// The attention forward computes it through these functions; the bias
+// probes (probes.cu) repeat their operations in the same order per head, so
+// all of them round alike.
 
 // the Rr raw channels at `rp`, widened to fp32 (zeros past Rr)
 template <typename T>
@@ -81,17 +82,18 @@ __device__ __forceinline__ float relation_feature(const float (&x)[kMaxRr], int 
   return fmaxf(u, 0.f);
 }
 
-// The chain's weights in shared memory, fp32: w1p [R][kMaxRr] (W1's rows,
-// zeros past Rr), wrt [R][kMaxH] (Wr transposed, zeros past H), b1s [R],
-// brs [kMaxH]; chain_weight_floats(R) floats from a 16-byte boundary, so a
-// row of w1p or wrt is read by 16-byte loads.
+// The chain's weights for the heads h0 .. h0 + H - 1 (H <= kMaxH, one head
+// group) in shared memory, fp32: w1p [R][kMaxRr] (W1's rows, zeros past
+// Rr), wrt [R][kMaxH] (those heads' rows of Wr, transposed, zeros past H),
+// b1s [R], brs [kMaxH]; chain_weight_floats(R) floats from a 16-byte
+// boundary, so a row of w1p or wrt is read by 16-byte loads.
 __host__ __device__ constexpr int chain_weight_floats(int R) {
   return R * (kMaxRr + kMaxH + 1) + kMaxH;
 }
 
 template <typename T>
 __device__ __forceinline__ void load_chain_weights(const T* w1, const T* b1, const T* wr,
-                                                   const T* br, int Rr, int R, int H,
+                                                   const T* br, int Rr, int R, int h0, int H,
                                                    float* ws) {
   float* w1p = ws;
   float* wrt = w1p + R * kMaxRr;
@@ -103,32 +105,17 @@ __device__ __forceinline__ void load_chain_weights(const T* w1, const T* b1, con
   }
   for (int i = threadIdx.x; i < R * kMaxH; i += blockDim.x) {
     const int r = i / kMaxH, h = i - r * kMaxH;
-    wrt[i] = h < H ? load_f32(wr, (long)h * R + r) : 0.f;
+    wrt[i] = h < H ? load_f32(wr, (long)(h0 + h) * R + r) : 0.f;
   }
   for (int i = threadIdx.x; i < R; i += blockDim.x) b1s[i] = load_f32(b1, i);
-  for (int i = threadIdx.x; i < kMaxH; i += blockDim.x) brs[i] = i < H ? load_f32(br, i) : 0.f;
+  for (int i = threadIdx.x; i < kMaxH; i += blockDim.x) brs[i] = i < H ? load_f32(br, h0 + i) : 0.f;
 }
 
-// pre of head h for the Rr raw channels at `rp`, from the weights at ws
-template <typename T>
-__device__ __forceinline__ float relation_pre(const T* rp, int Rr, int R, const float* ws,
-                                              int h) {
-  const float* w1p = ws;
-  const float* wrt = w1p + R * kMaxRr;
-  const float* b1s = wrt + R * kMaxH;
-  const float* brs = b1s + R;
-  float x[kMaxRr];
-  load_raw(rp, Rr, x);
-  float pre = 0.f;
-  for (int rr = 0; rr < R; ++rr)
-    pre = fmaf(relation_feature(x, Rr, w1p + rr * kMaxRr, b1s[rr]), wrt[rr * kMaxH + h], pre);
-  return pre + brs[h];
-}
-
-// pre[e][h] for every head h < H of E elements, the features computed once
-// per element: per head the operations and their order of relation_pre.
-// Each weight read from shared memory (16 bytes at a time) serves all E
-// elements from registers.
+// pre[e][h] for every head h < H of a head group (the weights at ws, as
+// load_chain_weights stages them) of E elements, the features computed once
+// per element and group. Per head: pre = 0, then pre = fma(t[r], Wr[h, r],
+// pre) for r = 0 .. R - 1, then pre + br[h]. Each weight read from shared
+// memory (16 bytes at a time) serves all E elements from registers.
 template <int E>
 __device__ __forceinline__ void relation_pre_heads(const float (&x)[E][kMaxRr], int Rr, int R,
                                                    int H, const float* ws,
@@ -186,23 +173,36 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-// rows [0, rows_pad) of a [rows][D] operand into shared memory rows of ld
-// elements, by 16-byte asynchronous copies of threads tid, tid + nt, ...;
-// rows past `rows` are zeros. Operand pointers and D * sizeof(T) are
+// Columns [0, width) of the rows of a [rows][src_ld] operand (src already
+// at the first column) into shared memory rows of ld elements, by 16-byte
+// asynchronous copies of threads tid, tid + nt, ...; rows [rows, rows_pad)
+// are zeros. Operand pointers, the first column and width * sizeof(T) are
 // multiples of 16 bytes (checked by the wrappers). Commit and wait, then a
 // barrier of the copying threads, before reading.
 template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src, int rows, int rows_pad,
-                                           int D, int tid, int nt) {
-  const int per_row = D * (int)sizeof(T) / 16;
+__device__ __forceinline__ void stage_cols(T* dst, int ld, const T* src, int src_ld, int rows,
+                                           int rows_pad, int width, int tid, int nt) {
+  const int per_row = width * (int)sizeof(T) / 16;
   for (int c = tid; c < rows_pad * per_row; c += nt) {
     const int r = c / per_row, k = c - r * per_row;
     void* d = reinterpret_cast<char*>(dst + (long)r * ld) + 16 * k;
     if (r < rows)
-      cp_async16(d, reinterpret_cast<const char*>(src + (long)r * D) + 16 * k);
+      cp_async16(d, reinterpret_cast<const char*>(src + (long)r * src_ld) + 16 * k);
     else
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
   }
+}
+// by the whole block: a window of a wide head's columns (the sliced backward)
+template <typename T>
+__device__ __forceinline__ void stage_cols(T* dst, int ld, const T* src, int src_ld, int rows,
+                                           int rows_pad, int width) {
+  stage_cols(dst, ld, src, src_ld, rows, rows_pad, width, threadIdx.x, blockDim.x);
+}
+// rows [0, rows_pad) of a [rows][D] operand, whole
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src, int rows, int rows_pad,
+                                           int D, int tid, int nt) {
+  stage_cols(dst, ld, src, D, rows, rows_pad, D, tid, nt);
 }
 template <typename T>
 __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src, int rows, int rows_pad,
@@ -257,6 +257,16 @@ struct WarpStream {
   }
 };
 
+// The chunks of `inner` from column c0 on: a product over a window of a
+// wide head's columns.
+template <typename Chunks>
+struct ColumnShift {
+  Chunks inner;
+  int c0;
+  __device__ __forceinline__ void begin() const { inner.begin(); }
+  __device__ __forceinline__ auto operator()(int c) const { return inner(c) + c0; }
+};
+
 // ---------------------------------------------------------------------------
 // tensor-core primitives (bf16 operands, fp32 accumulation)
 // ---------------------------------------------------------------------------
@@ -296,12 +306,16 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4], uint3
 // (s0, s1) = A B^T for one chunk of 16 keys, the C-layout n tiles of keys
 // 0-7 and 8-15: A the warp's 16 rows at `as`, B the chunk's rows at `bs`,
 // both rows of ld, over the first D columns
+// (with kAccumulate the products add to s0, s1 as they stand)
+template <bool kAccumulate = false>
 __device__ __forceinline__ void chunk_abt(float (&s0)[4], float (&s1)[4],
                                           const __nv_bfloat16* as, const __nv_bfloat16* bs,
                                           int ld, int D) {
   const int lane = threadIdx.x % 32, mi = lane / 8, r8 = lane % 8;
+  if (!kAccumulate) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) s0[i] = s1[i] = 0.f;
+    for (int i = 0; i < 4; ++i) s0[i] = s1[i] = 0.f;
+  }
   for (int kc = 0; kc < D / 16; ++kc) {
     uint32_t a[4], b[4];
     // A: (rows 0-7 | 8-15) x (k 0-7 | 8-15), rows fastest; B: keys x k, k fastest
@@ -314,11 +328,14 @@ __device__ __forceinline__ void chunk_abt(float (&s0)[4], float (&s1)[4],
 
 // fp32 on the CUDA cores, register-tiled: a thread's 2 rows by 4 keys; one
 // 16-byte load of a row serves 8 FMAs. The sum over d runs in order.
+template <bool kAccumulate = false>
 __device__ __forceinline__ void chunk_abt(float (&s0)[4], float (&s1)[4], const float* as,
                                           const float* bs, int ld, int D) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  if (!kAccumulate) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) s0[i] = s1[i] = 0.f;
+    for (int i = 0; i < 4; ++i) s0[i] = s1[i] = 0.f;
+  }
   const float* a0p = as + g * ld;
   const float* b0p = bs + 2 * t * ld;
   for (int d = 0; d < D; d += 4) {
@@ -395,14 +412,14 @@ __device__ __forceinline__ void chunk_px(float (&o)[DM / 2], const float (&p0)[4
 }
 
 // s = A B^T: A the warp's 16 rows at `as`, B the first 16 KT keys, chunk by
-// chunk from `chunks` (StagedChunks or WarpStream)
-template <int KTM, typename T, typename Chunks>
+// chunk from `chunks` (StagedChunks or WarpStream); with kAccumulate, s +=
+template <int KTM, bool kAccumulate = false, typename T, typename Chunks>
 __device__ __forceinline__ void tile_abt(float (&s)[2 * KTM][4], const T* as,
                                          const Chunks& chunks, int ld, int D, int KT) {
   chunks.begin();
 #pragma unroll
   for (int c = 0; c < KTM; ++c)
-    if (c < KT) chunk_abt(s[2 * c], s[2 * c + 1], as, chunks(c), ld, D);
+    if (c < KT) chunk_abt<kAccumulate>(s[2 * c], s[2 * c + 1], as, chunks(c), ld, D);
 }
 
 // o = P X: P the warp's 16 x 16 KT tile in registers (C layout), X the
@@ -467,11 +484,13 @@ __device__ __forceinline__ void tile_ptx(float (&o)[DM / 2], const float* ps, in
   }
 }
 
-// rows [row0, row0 + 16) of an output tile o * scale into dst ([rows][D]),
-// rows at or past `rows` skipped, in the operand type
+// rows [row0, row0 + 16) of an output tile o * scale into columns [0, D)
+// of dst (rows of ldd elements), rows at or past `rows` skipped, in the
+// operand type
 template <int DM>
-__device__ __forceinline__ void store_tile(const float (&o)[DM / 2], __nv_bfloat16* dst,
-                                           int row0, int rows, int D, float scale) {
+__device__ __forceinline__ void store_tile_cols(const float (&o)[DM / 2], __nv_bfloat16* dst,
+                                                int row0, int rows, int D, int ldd,
+                                                float scale) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int n = 0; n < DM / 8; ++n)
@@ -480,15 +499,15 @@ __device__ __forceinline__ void store_tile(const float (&o)[DM / 2], __nv_bfloat
       for (int half = 0; half < 2; ++half) {
         const int r = row0 + g + 8 * half;
         if (r < rows)
-          *reinterpret_cast<uint32_t*>(dst + (long)r * D + 8 * n + 2 * t) =
+          *reinterpret_cast<uint32_t*>(dst + (long)r * ldd + 8 * n + 2 * t) =
               pack_bf16(o[4 * n + 2 * half] * scale, o[4 * n + 2 * half + 1] * scale);
       }
     }
 }
 
 template <int DM>
-__device__ __forceinline__ void store_tile(const float (&o)[DM / 2], float* dst, int row0,
-                                           int rows, int D, float scale) {
+__device__ __forceinline__ void store_tile_cols(const float (&o)[DM / 2], float* dst, int row0,
+                                                int rows, int D, int ldd, float scale) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int m = 0; m < DM / 16; ++m)
@@ -498,10 +517,17 @@ __device__ __forceinline__ void store_tile(const float (&o)[DM / 2], float* dst,
         const int r = row0 + g + 8 * half;
         const float* c = o + 8 * m + 4 * half;
         if (r < rows)
-          *reinterpret_cast<float4*>(dst + (long)r * D + 16 * m + 4 * t) =
+          *reinterpret_cast<float4*>(dst + (long)r * ldd + 16 * m + 4 * t) =
               make_float4(c[0] * scale, c[1] * scale, c[2] * scale, c[3] * scale);
       }
     }
+}
+
+// the same into a [rows][D] array
+template <int DM, typename T>
+__device__ __forceinline__ void store_tile(const float (&o)[DM / 2], T* dst, int row0, int rows,
+                                           int D, float scale) {
+  store_tile_cols<DM>(o, dst, row0, rows, D, D, scale);
 }
 
 // ---------------------------------------------------------------------------

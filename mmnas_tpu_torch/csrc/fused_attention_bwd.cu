@@ -28,6 +28,13 @@
 //      each written once. No block shares a (b, h), so nothing is
 //      accumulated across blocks: no atomics, the same bits every run.
 //
+//    Where those tiles do not fit in 227 KB (D 256; D 128 in fp32 at Lq =
+//    Lk = 100; 114 keys at D 64 in fp32), fused_attention_bwd_sliced_kernel
+//    runs the same phases with the head's D columns in windows of 64, 32 or
+//    16: phase A sums q k^T and do v^T window by window in registers (a
+//    warp per row tile, so Lq up to 128), then dq, dv and dk are computed
+//    and stored window by window.
+//
 //    bf16: all five products on tensor cores (mma.m16n8k16 from ldmatrix
 //    fragments, the transposed operands of dq, dv and dk by ldmatrix.trans,
 //    ds re-packed in registers for dq); fp32: register-tiled FMAs on the
@@ -48,7 +55,9 @@
 //    run of the Lq * Lk elements of a batch row: the wrapper picks the
 //    runs per row so that the grid fills the card once
 //    (mmnas_fused_attention_bwd_rel_chunks), so a run is thousands of
-//    elements and no length is refused. A thread owns F features (F 4, or
+//    elements and no length is refused. More than 16 heads run as groups of
+//    16, a block per group (kGrouped), each writing its own partial rows.
+//    A thread owns F features (F 4, or
 //    2 at 16 heads) with their W1 rows, b1 and Wr columns in registers, and
 //    per element loads raw[e, :Rr] and dpre[:H, e] from shared memory once
 //    for all F: Rr + H + 1 shared loads for F (2 Rr + 2 H + 2) FMAs and
@@ -91,7 +100,8 @@
 // Shared memory is dynamic: at Lq = Lk = 100, D 64 about 118 KB in bf16
 // (q, k, v, do, and the two probability tiles) and 225 KB in fp32, opted in
 // per launch. Limits (cudaErrorInvalidValue past them): D a multiple of 16
-// up to 128, Lk up to 128, shared memory within 227 KB.
+// up to 256, Lk up to 128, Lq up to 128 where the sliced kernel runs,
+// shared memory within 227 KB; the relation pass takes up to 32 heads.
 
 #include <algorithm>
 
@@ -104,6 +114,7 @@ using namespace mmnas;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kSmemCap = 232448;  // 227 KB, a block's most dynamic shared memory
+constexpr int kMaxD = 256;        // the widest head
 
 // ---------------------------------------------------------------------------
 // kernel 1: dq, dk, dv, dbias, dpre
@@ -135,25 +146,32 @@ __device__ __forceinline__ void store_pair(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 
-// phase A for rows [row0, row0 + 16) of (b, h)
-template <typename T, int DM, int KTM>
-__device__ __forceinline__ void grad_rows(const BwdArgs<T>& a, int b, int h, int row0,
-                                          const T* qs, const T* ks, const T* vs, const T* dos,
-                                          int ld, T* pds, T* dss, int ldp) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+// the scores of rows [row0, row0 + 16) of (b, h) from q k^T in p, and their
+// softmax, in place, as the forward kernel computes them
+template <typename T, int KTM>
+__device__ __forceinline__ void grad_softmax(const BwdArgs<T>& a, int b, int h, int row0,
+                                             float (&p)[2 * KTM][4]) {
   const int Lq = a.Lq, Lk = a.Lk, KT = (Lk + 15) / 16;
-  const long bh = (long)b * a.H + h;
-  const long rows_at = (bh * Lq + row0) * Lk;  // element (row0, 0) of [Lq, Lk] planes
-  float p[2 * KTM][4], da[2 * KTM][4];
-  tile_abt<KTM>(p, qs + row0 * ld, StagedChunks<T>{ks, ld}, ld, a.D, KT);
+  const long rows_at = (((long)b * a.H + h) * Lq + row0) * Lk;
   ScoreTerms<T> st{a.bias == nullptr ? nullptr : a.bias + rows_at,
                    a.pre == nullptr ? nullptr : a.pre + rows_at, Lk,
                    a.mask == nullptr ? nullptr : a.mask + (long)b * Lk,
                    Lq - row0, Lk, a.scale};
   tile_scores_epilogue<T, KTM>(p, st, KT);
   tile_softmax<KTM>(p, KT);
-  tile_abt<KTM>(da, dos + row0 * ld, StagedChunks<T>{vs, ld}, ld, a.D, KT);
+}
 
+// the rest of phase A for rows [row0, row0 + 16) of (b, h), from the
+// probabilities p and da = do v^T: the dropped-out a and ds to shared
+// memory (pds, dss), dbias and dpre out; da ends as ds
+template <typename T, int KTM>
+__device__ __forceinline__ void grad_ds(const BwdArgs<T>& a, int b, int h, int row0,
+                                        float (&p)[2 * KTM][4], float (&da)[2 * KTM][4],
+                                        T* pds, T* dss, int ldp) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int Lq = a.Lq, Lk = a.Lk, KT = (Lk + 15) / 16;
+  const long bh = (long)b * a.H + h;
+  const long rows_at = (bh * Lq + row0) * Lk;  // element (row0, 0) of [Lq, Lk] planes
 #pragma unroll
   for (int n = 0; n < 2 * KTM; ++n)
     if (n < 2 * KT) {
@@ -195,9 +213,23 @@ __device__ __forceinline__ void grad_rows(const BwdArgs<T>& a, int b, int h, int
       store_pair(dss + (row0 + g) * ldp + 8 * n + 2 * t, da[n][0], da[n][1]);
       store_pair(dss + (row0 + g + 8) * ldp + 8 * n + 2 * t, da[n][2], da[n][3]);
     }
+}
+
+// phase A for rows [row0, row0 + 16) of (b, h)
+template <typename T, int DM, int KTM>
+__device__ __forceinline__ void grad_rows(const BwdArgs<T>& a, int b, int h, int row0,
+                                          const T* qs, const T* ks, const T* vs, const T* dos,
+                                          int ld, T* pds, T* dss, int ldp) {
+  const int KT = (a.Lk + 15) / 16;
+  const long bh = (long)b * a.H + h;
+  float p[2 * KTM][4], da[2 * KTM][4];
+  tile_abt<KTM>(p, qs + row0 * ld, StagedChunks<T>{ks, ld}, ld, a.D, KT);
+  grad_softmax<T, KTM>(a, b, h, row0, p);
+  tile_abt<KTM>(da, dos + row0 * ld, StagedChunks<T>{vs, ld}, ld, a.D, KT);
+  grad_ds<T, KTM>(a, b, h, row0, p, da, pds, dss, ldp);
   float o[DM / 2];
   tile_px<DM, KTM>(o, da, StagedChunks<T>{ks, ld}, ld, a.D, KT);
-  store_tile<DM>(o, a.dq + bh * Lq * a.D, row0, Lq, a.D, a.scale);
+  store_tile<DM>(o, a.dq + bh * a.Lq * a.D, row0, a.Lq, a.D, a.scale);
 }
 
 template <typename T, int DM, int KTM>
@@ -234,6 +266,82 @@ __global__ void __launch_bounds__(kThreads) fused_attention_bwd_kernel(const Bwd
   }
 }
 
+// Kernel 1 where q, k, v, do and the two probability tiles do not fit in
+// shared memory together (D 128 in fp32 at Lq = Lk = 100, D 256, or 114
+// keys at D 64 in fp32): the head's D columns are walked in windows of DS
+// (64, 32 or 16, the widest that fits). A block per (b, h), a warp per
+// 16-row tile (Lq up to 128). Phase A accumulates q k^T and do v^T window by
+// window into the warp's registers, then runs grad_softmax and grad_ds as
+// the staged kernel does; then, per window, dq from ds and that window of K,
+// and phase B's dv and dk for that window of their columns.
+template <typename T, int KTM>
+__global__ void __launch_bounds__(kThreads) fused_attention_bwd_sliced_kernel(const BwdArgs<T> a,
+                                                                              int DS) {
+  extern __shared__ __align__(16) float smem[];
+  const int h = blockIdx.x, b = blockIdx.y, warp = threadIdx.x / 32;
+  const int Lq = a.Lq, Lk = a.Lk, D = a.D;
+  const int LqP = (Lq + 15) / 16 * 16, LkP = (Lk + 15) / 16 * 16, KT = LkP / 16;
+  const int ldp = LkP + Pad<T>::value, lds = DS + Pad<T>::value;
+  T* pds = reinterpret_cast<T*>(smem);  // [LqP][ldp] dropped-out a, operand type
+  T* dss = pds + LqP * ldp;             // [LqP][ldp] ds, operand type
+  T* ks = dss + LqP * ldp;              // [LkP][lds], a window of K's columns
+  T* vs = ks + LkP * lds;               // [LkP][lds]
+  T* qs = vs + LkP * lds;               // [LqP][lds]
+  T* dos = qs + LqP * lds;              // [LqP][lds]
+  const long bh = (long)b * a.H + h;
+  const T* kb = a.k + bh * Lk * D;
+  const T* vb = a.v + bh * Lk * D;
+  const T* qb = a.q + bh * Lq * D;
+  const T* dob = a.dout + bh * Lq * D;
+  const int row0 = 16 * warp;
+  const bool live = row0 < LqP;
+
+  float p[2 * KTM][4], da[2 * KTM][4];
+#pragma unroll
+  for (int n = 0; n < 2 * KTM; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[n][e] = da[n][e] = 0.f;
+#pragma unroll 1
+  for (int c0 = 0; c0 < D; c0 += DS) {
+    __syncthreads();  // every warp is done with the last window
+    stage_cols(ks, lds, kb + c0, D, Lk, LkP, DS);
+    stage_cols(vs, lds, vb + c0, D, Lk, LkP, DS);
+    stage_cols(qs, lds, qb + c0, D, Lq, LqP, DS);
+    stage_cols(dos, lds, dob + c0, D, Lq, LqP, DS);
+    cp_async_wait_all();
+    __syncthreads();
+    if (live) {
+      tile_abt<KTM, true>(p, qs + row0 * lds, StagedChunks<T>{ks, lds}, lds, DS, KT);
+      tile_abt<KTM, true>(da, dos + row0 * lds, StagedChunks<T>{vs, lds}, lds, DS, KT);
+    }
+  }
+  if (live) {
+    grad_softmax<T, KTM>(a, b, h, row0, p);
+    grad_ds<T, KTM>(a, b, h, row0, p, da, pds, dss, ldp);
+  }
+
+#pragma unroll 1
+  for (int c0 = 0; c0 < D; c0 += DS) {
+    __syncthreads();  // pds, dss written; every warp is done with the last window
+    stage_cols(ks, lds, kb + c0, D, Lk, LkP, DS);
+    stage_cols(qs, lds, qb + c0, D, Lq, LqP, DS);
+    stage_cols(dos, lds, dob + c0, D, Lq, LqP, DS);
+    cp_async_wait_all();
+    __syncthreads();
+    float o[32];
+    if (live) {
+      tile_px<64, KTM>(o, da, StagedChunks<T>{ks, lds}, lds, DS, KT);
+      store_tile_cols<64>(o, a.dq + bh * Lq * D + c0, row0, Lq, DS, D, a.scale);
+    }
+    for (int kt = warp; kt < LkP / 16; kt += kWarps) {
+      tile_ptx<64>(o, pds, ldp, 16 * kt, dos, lds, DS, LqP / 16);
+      store_tile_cols<64>(o, a.dv + bh * Lk * D + c0, 16 * kt, Lk, DS, D, 1.f);
+      tile_ptx<64>(o, dss, ldp, 16 * kt, qs, lds, DS, LqP / 16);
+      store_tile_cols<64>(o, a.dk + bh * Lk * D + c0, 16 * kt, Lk, DS, D, a.scale);
+    }
+  }
+}
+
 
 // ---------------------------------------------------------------------------
 // kernel 2: the relation pass
@@ -250,11 +358,12 @@ struct RelArgs {
   const T* b1;        // [R]
   const T* wr;        // [H, R]
   const float* dpre;  // [B, H, Lq, Lk]
-  float* pw;          // [B * chunks][R * Rr + H * R] partials: dW1, then dWr
-  double* pd;         // [B * chunks][R + H] partials: db1, then dbr
+  float* pw;          // [B * chunks * groups][R * Rr + H * R] partials: dW1, then dWr
+  double* pd;         // [B * chunks * groups][R + H] partials: db1, then dbr
   int H, N, Rr, R;    // N = Lq * Lk elements per batch row
   int chunks, run;    // runs per batch row, elements per run (a multiple of 16)
   int vec;            // dpre's head rows start on 16-byte boundaries
+  int groups;         // head groups of kMaxH heads; a partial row per (b, run, group)
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -283,10 +392,11 @@ __device__ __forceinline__ const char* rel_raw_at(const RelArgs<T>& a, int b, in
 // most 15 bytes before or past the tensor, inside a 16-byte-aligned chunk
 // that holds one of its bytes (so never on another page), and nothing
 // uses them.
-// dpre: each head's n values, by 16 bytes when its rows are aligned
-// (N % 4 == 0, e0 % 16 == 0), else by 4.
+// dpre: the n values of each head h0 .. h0 + Hg - 1, by 16 bytes when its
+// rows are aligned (N % 4 == 0, e0 % 16 == 0), else by 4.
 template <typename T>
-__device__ __forceinline__ void rel_stage(const RelArgs<T>& a, int b, int e0, int n, char* buf) {
+__device__ __forceinline__ void rel_stage(const RelArgs<T>& a, int b, int h0, int Hg, int e0,
+                                          int n, char* buf) {
   const uintptr_t src = reinterpret_cast<uintptr_t>(rel_raw_at(a, b, e0));
   const uintptr_t lo = src & ~(uintptr_t)15;
   const uintptr_t hi = (src + (uintptr_t)n * a.Rr * sizeof(T) + 15) & ~(uintptr_t)15;
@@ -294,16 +404,16 @@ __device__ __forceinline__ void rel_stage(const RelArgs<T>& a, int b, int e0, in
   for (int c = threadIdx.x; c < chunks; c += kThreads)
     cp_async16(buf + 16 * c, reinterpret_cast<const void*>(lo + 16 * c));
   float* dps = reinterpret_cast<float*>(buf + rel_raw_bytes(a.Rr, sizeof(T)));
-  const float* d0 = a.dpre + (long)b * a.H * a.N + e0;
+  const float* d0 = a.dpre + ((long)b * a.H + h0) * a.N + e0;
   if (a.vec) {
     constexpr int per = kRelTile / 4;
     const int m = (n + 3) / 4;
-    for (int c = threadIdx.x; c < a.H * per; c += kThreads) {
+    for (int c = threadIdx.x; c < Hg * per; c += kThreads) {
       const int h = c / per, k = c % per;  // per is a power of two
       if (k < m) cp_async16(dps + h * kRelTile + 4 * k, d0 + (long)h * a.N + 4 * k);
     }
   } else {
-    for (int c = threadIdx.x; c < a.H * kRelTile; c += kThreads) {
+    for (int c = threadIdx.x; c < Hg * kRelTile; c += kThreads) {
       const int h = c / kRelTile, k = c % kRelTile;
       if (k < n) cp_async4(dps + h * kRelTile + k, d0 + (long)h * a.N + k);
     }
@@ -321,7 +431,9 @@ struct RelShape {
   static constexpr int reduce_bytes = kWarps * G * (ND * 8 + NF * 4);
 };
 
-template <typename T, int RM, int HM, int F>
+// kGrouped: more than kMaxH heads, in groups of kMaxH (the third grid axis
+// walks feature blocks, then groups); without it the block takes every head.
+template <typename T, int RM, int HM, int F, bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
     fused_attention_bwd_rel_kernel(const RelArgs<T> a) {
   using S = RelShape<RM, HM, F>;
@@ -329,8 +441,11 @@ __global__ void __launch_bounds__(kThreads)
   // independent FMA chains; one at 4, whose chains are short (measured)
   constexpr int kRelElems = HM >= 8 ? 2 : 1;
   extern __shared__ __align__(16) float smem[];
-  const int chunk = blockIdx.x, b = blockIdx.y, fblk = blockIdx.z;
-  const int H = a.H, Rr = a.Rr, R = a.R;
+  const int P = (a.R + kRelFeatures - 1) / kRelFeatures;
+  const int chunk = blockIdx.x, b = blockIdx.y;
+  const int fblk = kGrouped ? blockIdx.z % P : blockIdx.z, hg = kGrouped ? blockIdx.z / P : 0;
+  const int h0 = hg * kMaxH, H = kGrouped ? min(kMaxH, a.H - h0) : a.H;  // the block's heads
+  const int Rr = a.Rr, R = a.R;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int fg = lane % S::G, slot = warp * S::S + lane / S::G;
   const int e_begin = chunk * a.run, n_run = max(0, min(a.N - e_begin, a.run));
@@ -345,7 +460,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < RM; ++c)
       w1r[f][c] = ok && c < Rr ? load_f32(a.w1, (long)(r0 + f) * Rr + c) : 0.f;
 #pragma unroll
-    for (int h = 0; h < HM; ++h) wrr[f][h] = ok && h < H ? load_f32(a.wr, (long)h * R + r0 + f) : 0.f;
+    for (int h = 0; h < HM; ++h)
+      wrr[f][h] = ok && h < H ? load_f32(a.wr, (long)(h0 + h) * R + r0 + f) : 0.f;
     b1r[f] = ok ? load_f32(a.b1, r0 + f) : 0.f;
   }
   float dw1[F][RM], dwr[F][HM], db1_tile[F], dbr_tile = 0.f;
@@ -365,12 +481,12 @@ __global__ void __launch_bounds__(kThreads)
   const int stage = rel_stage_bytes(Rr, H, sizeof(T));
   const int raw_bytes = rel_raw_bytes(Rr, sizeof(T));
   const int tiles = (n_run + kRelTile - 1) / kRelTile;
-  if (tiles > 0) rel_stage(a, b, e_begin, min(kRelTile, n_run), bufs);
+  if (tiles > 0) rel_stage(a, b, h0, H, e_begin, min(kRelTile, n_run), bufs);
   cp_async_commit();
   for (int t = 0; t < tiles; ++t) {
     const int e0 = e_begin + t * kRelTile, n = min(kRelTile, e_begin + n_run - e0);
     if (t + 1 < tiles)  // the next tile's copies run while this one computes
-      rel_stage(a, b, e0 + kRelTile, min(kRelTile, e_begin + n_run - e0 - kRelTile),
+      rel_stage(a, b, h0, H, e0 + kRelTile, min(kRelTile, e_begin + n_run - e0 - kRelTile),
                 bufs + ((t + 1) & 1) * stage);
     cp_async_commit();
     cp_async_wait<1>();
@@ -455,9 +571,10 @@ __global__ void __launch_bounds__(kThreads)
     d[F] = dbr;
   }
   __syncthreads();
-  const long row = (long)b * a.chunks + chunk;
-  float* pw = a.pw + row * (R * Rr + H * R);
-  double* pd = a.pd + row * (R + H);
+  const long row = kGrouped ? ((long)b * a.chunks + chunk) * a.groups + hg
+                            : (long)b * a.chunks + chunk;
+  float* pw = a.pw + row * (R * Rr + a.H * R);
+  double* pd = a.pd + row * (R + a.H);
   for (int i = threadIdx.x; i < S::G * S::NF; i += kThreads) {
     const int g = i / S::NF, k = i - g * S::NF;
     float s = 0.f;
@@ -469,7 +586,7 @@ __global__ void __launch_bounds__(kThreads)
       if (r < R && c < Rr) pw[r * Rr + c] = s;
     } else {
       const int r = base + (k - F * RM) / HM, h = (k - F * RM) % HM;
-      if (r < R && h < H) pw[R * Rr + h * R + r] = s;
+      if (r < R && h < H) pw[R * Rr + (h0 + h) * R + r] = s;
     }
   }
   for (int i = threadIdx.x; i < S::G * S::ND; i += kThreads) {
@@ -481,7 +598,7 @@ __global__ void __launch_bounds__(kThreads)
     if (k < F) {
       if (r < R) pd[r] = s;
     } else if (fblk == 0 && g < H) {
-      pd[R + g] = s;
+      pd[R + h0 + g] = s;
     }
   }
 }
@@ -516,7 +633,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // draw[e, c] = sum_r du[e, r] W1[r, c], a thread per element of batch row
 // blockIdx.y; the weights in shared memory: W1 [R][kMaxRr], Wr^T
-// [R][kMaxH], b1 [R].
+// [R][kMaxHeads], b1 [R].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     fused_attention_bwd_rel_draw_kernel(const RelArgs<T> a, T* draw) {
@@ -524,33 +641,34 @@ __global__ void __launch_bounds__(kThreads)
   const int H = a.H, Rr = a.Rr, R = a.R, b = blockIdx.y;
   float* w1s = smem;
   float* wrt = w1s + R * kMaxRr;
-  float* b1s = wrt + R * kMaxH;
+  float* b1s = wrt + R * kMaxHeads;
   for (int r = threadIdx.x; r < R; r += kThreads) {
 #pragma unroll
     for (int c = 0; c < kMaxRr; ++c) w1s[r * kMaxRr + c] = c < Rr ? load_f32(a.w1, (long)r * Rr + c) : 0.f;
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) wrt[r * kMaxH + h] = h < H ? load_f32(a.wr, (long)h * R + r) : 0.f;
+    for (int h = 0; h < kMaxHeads; ++h)
+      wrt[r * kMaxHeads + h] = h < H ? load_f32(a.wr, (long)h * R + r) : 0.f;
     b1s[r] = load_f32(a.b1, r);
   }
   __syncthreads();
   const int e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= a.N) return;
   const long at = (long)b * a.N + e;
-  float x[kMaxRr], dp[kMaxH], acc[kMaxRr];
+  float x[kMaxRr], dp[kMaxHeads], acc[kMaxRr];
 #pragma unroll
   for (int c = 0; c < kMaxRr; ++c) {
     x[c] = c < Rr ? load_f32(a.raw, at * Rr + c) : 0.f;
     acc[c] = 0.f;
   }
 #pragma unroll
-  for (int h = 0; h < kMaxH; ++h) dp[h] = h < H ? a.dpre[((long)b * H + h) * a.N + e] : 0.f;
+  for (int h = 0; h < kMaxHeads; ++h) dp[h] = h < H ? a.dpre[((long)b * H + h) * a.N + e] : 0.f;
   for (int r = 0; r < R; ++r) {
     float u = b1s[r];
 #pragma unroll
     for (int c = 0; c < kMaxRr; ++c) u = fmaf(x[c], w1s[r * kMaxRr + c], u);
     float du = 0.f;
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) du = fmaf(dp[h], wrt[r * kMaxH + h], du);
+    for (int h = 0; h < kMaxHeads; ++h) du = fmaf(dp[h], wrt[r * kMaxHeads + h], du);
     du = u > 0.f ? du : 0.f;
 #pragma unroll
     for (int c = 0; c < kMaxRr; ++c) acc[c] = fmaf(du, w1s[r * kMaxRr + c], acc[c]);
@@ -567,13 +685,37 @@ cudaError_t opt_in(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Shared memory of the sliced kernel for windows of DS columns.
+template <typename T>
+size_t sliced_bytes(int Lq, int Lk, int DS) {
+  const size_t LqP = (Lq + 15) / 16 * 16, LkP = (Lk + 15) / 16 * 16;
+  return (2 * LqP * (LkP + Pad<T>::value) + (2 * LkP + 2 * LqP) * (DS + Pad<T>::value)) *
+         sizeof(T);
+}
+
+template <typename T, int KTM>
+cudaError_t launch_bwd_sliced(const BwdArgs<T>& a, int B, cudaStream_t stream) {
+  if ((a.Lq + 15) / 16 > kWarps) return cudaErrorInvalidValue;  // a warp per row tile
+  int DS = 0;
+  for (int w = 64; w >= 16 && DS == 0; w /= 2)
+    if (a.D % w == 0 && sliced_bytes<T>(a.Lq, a.Lk, w) <= (size_t)kSmemCap) DS = w;
+  if (DS == 0) return cudaErrorInvalidValue;
+  const size_t bytes = sliced_bytes<T>(a.Lq, a.Lk, DS);
+  cudaError_t err = opt_in(fused_attention_bwd_sliced_kernel<T, KTM>, bytes);
+  if (err != cudaSuccess) return err;
+  fused_attention_bwd_sliced_kernel<T, KTM><<<dim3(a.H, B), kThreads, bytes, stream>>>(a, DS);
+  return cudaGetLastError();
+}
+
+// The staged kernel where q, k, v, do and the probability tiles fit in
+// shared memory (and D <= 128), else the sliced one.
 template <typename T, int DM, int KTM>
 cudaError_t launch_bwd_shape(const BwdArgs<T>& a, int B, cudaStream_t stream) {
   const int ld = a.D + Pad<T>::value;
   const int LqP = (a.Lq + 15) / 16 * 16, LkP = (a.Lk + 15) / 16 * 16;
   const size_t bytes =
       ((size_t)(2 * LkP + 2 * LqP) * ld + 2 * (size_t)LqP * (LkP + Pad<T>::value)) * sizeof(T);
-  if (bytes > (size_t)kSmemCap) return cudaErrorInvalidValue;
+  if (a.D > DM || bytes > (size_t)kSmemCap) return launch_bwd_sliced<T, KTM>(a, B, stream);
   cudaError_t err = opt_in(fused_attention_bwd_kernel<T, DM, KTM>, bytes);
   if (err != cudaSuccess) return err;
   fused_attention_bwd_kernel<T, DM, KTM><<<dim3(a.H, B), kThreads, bytes, stream>>>(a);
@@ -594,7 +736,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        void* dq, void* dk, void* dv, void* dbias, void* dpre, int B, int H,
                        int Lq, int Lk, int D, float scale, float keep_p,
                        cudaStream_t stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 16 || D > 128 || D % 16 != 0)
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 16 || D > kMaxD || D % 16 != 0)
     return cudaErrorInvalidValue;
   if (pre == nullptr && dpre != nullptr) return cudaErrorInvalidValue;
   if ((bias == nullptr) != (dbias == nullptr)) return cudaErrorInvalidValue;
@@ -616,22 +758,29 @@ size_t rel_smem(int Rr, int H) {
 }
 
 // One instantiation per register shape: RM raw channels (4 or 8), HM heads
-// (4, 8 or 16) and F features a thread, fewer at 16 heads so they fit.
+// (4, 8 or 16: a head group; more heads run as groups of 16) and F
+// features a thread, fewer at 16 heads so they fit.
 template <typename T, typename Fn>
 cudaError_t rel_dispatch(int Rr, int H, Fn fn) {
-  if (Rr <= 4) {
-    if (H <= 4) return fn(fused_attention_bwd_rel_kernel<T, 4, 4, 4>, rel_smem<T, 4, 4, 4>(Rr, H));
-    if (H <= 8) return fn(fused_attention_bwd_rel_kernel<T, 4, 8, 4>, rel_smem<T, 4, 8, 4>(Rr, H));
-    return fn(fused_attention_bwd_rel_kernel<T, 4, 16, 2>, rel_smem<T, 4, 16, 2>(Rr, H));
+  if (H > kMaxH) {  // groups of 16 heads
+    if (Rr <= 4)
+      return fn(fused_attention_bwd_rel_kernel<T, 4, 16, 2, true>, rel_smem<T, 4, 16, 2>(Rr, kMaxH));
+    return fn(fused_attention_bwd_rel_kernel<T, 8, 16, 2, true>, rel_smem<T, 8, 16, 2>(Rr, kMaxH));
   }
-  if (H <= 4) return fn(fused_attention_bwd_rel_kernel<T, 8, 4, 4>, rel_smem<T, 8, 4, 4>(Rr, H));
-  if (H <= 8) return fn(fused_attention_bwd_rel_kernel<T, 8, 8, 4>, rel_smem<T, 8, 8, 4>(Rr, H));
-  return fn(fused_attention_bwd_rel_kernel<T, 8, 16, 2>, rel_smem<T, 8, 16, 2>(Rr, H));
+  if (Rr <= 4) {
+    if (H <= 4) return fn(fused_attention_bwd_rel_kernel<T, 4, 4, 4, false>, rel_smem<T, 4, 4, 4>(Rr, H));
+    if (H <= 8) return fn(fused_attention_bwd_rel_kernel<T, 4, 8, 4, false>, rel_smem<T, 4, 8, 4>(Rr, H));
+    return fn(fused_attention_bwd_rel_kernel<T, 4, 16, 2, false>, rel_smem<T, 4, 16, 2>(Rr, H));
+  }
+  if (H <= 4) return fn(fused_attention_bwd_rel_kernel<T, 8, 4, 4, false>, rel_smem<T, 8, 4, 4>(Rr, H));
+  if (H <= 8) return fn(fused_attention_bwd_rel_kernel<T, 8, 8, 4, false>, rel_smem<T, 8, 8, 4>(Rr, H));
+  return fn(fused_attention_bwd_rel_kernel<T, 8, 16, 2, false>, rel_smem<T, 8, 16, 2>(Rr, H));
 }
 
 bool rel_shape_ok(int B, int H, int Lq, int Lk, int Rr, int R) {
-  return B >= 1 && B <= 65535 && H >= 1 && H <= kMaxH && Lq >= 1 && Lk >= 1 && Rr >= 1 &&
-         Rr <= kMaxRr && R >= 1 && (long)Lq * Lk <= (1L << 30) && (R + kRelFeatures - 1) / kRelFeatures <= 65535;
+  return B >= 1 && B <= 65535 && H >= 1 && H <= kMaxHeads && Lq >= 1 && Lk >= 1 && Rr >= 1 &&
+         Rr <= kMaxRr && R >= 1 && (long)Lq * Lk <= (1L << 30) &&
+         (R + kRelFeatures - 1) / kRelFeatures * ((H + kMaxH - 1) / kMaxH) <= 65535;
 }
 
 // Runs per batch row: enough blocks to fill every SM once at the kernel's
@@ -650,7 +799,7 @@ int rel_chunks(int B, int H, int Lq, int Lk, int Rr, int R) {
     });
   if (err != cudaSuccess) return -(int)err;
   const long N = (long)Lq * Lk;
-  const long P = (R + kRelFeatures - 1) / kRelFeatures;
+  const long P = (R + kRelFeatures - 1) / kRelFeatures * ((H + kMaxH - 1) / kMaxH);
   const long fill = std::max<long>(1, (long)sms * std::max(per_sm, 1) / (B * P));
   return (int)std::max<long>(1, std::min<long>(fill, (N + kRelMinRun - 1) / kRelMinRun));
 }
@@ -663,14 +812,16 @@ cudaError_t launch_rel(const void* raw, const void* w1, const void* b1, const vo
   if (!rel_shape_ok(B, H, Lq, Lk, Rr, R) || chunks < 1) return cudaErrorInvalidValue;
   const int N = Lq * Lk;
   const int run = ((N + chunks - 1) / chunks + 15) / 16 * 16;
-  const long rows = (long)B * chunks;
+  const int groups = (H + kMaxH - 1) / kMaxH;
+  const long rows = (long)B * chunks * groups;
   double* pd = static_cast<double*>(work);
   float* pw = reinterpret_cast<float*>(pd + rows * (R + H));
   const int vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(dpre) % 16 == 0;
   const RelArgs<T> a{static_cast<const T*>(raw), static_cast<const T*>(w1),
                      static_cast<const T*>(b1), static_cast<const T*>(wr),
-                     static_cast<const float*>(dpre), pw, pd, H, N, Rr, R, chunks, run, vec};
-  const dim3 grid(chunks, B, (R + kRelFeatures - 1) / kRelFeatures);
+                     static_cast<const float*>(dpre), pw, pd, H, N, Rr, R, chunks, run, vec,
+                     groups};
+  const dim3 grid(chunks, B, (R + kRelFeatures - 1) / kRelFeatures * groups);
   cudaError_t err = rel_dispatch<T>(Rr, H, [&](auto kernel, size_t bytes) {
     cudaError_t e = opt_in(kernel, bytes);
     if (e != cudaSuccess) return e;
@@ -685,7 +836,7 @@ cudaError_t launch_rel(const void* raw, const void* w1, const void* b1, const vo
       static_cast<T*>(dwr), static_cast<T*>(dbr));
   err = cudaGetLastError();
   if (err != cudaSuccess || draw == nullptr) return err;
-  const size_t bytes = (size_t)R * (kMaxRr + kMaxH + 1) * sizeof(float);
+  const size_t bytes = (size_t)R * (kMaxRr + kMaxHeads + 1) * sizeof(float);
   if (bytes > (size_t)kSmemCap) return cudaErrorInvalidValue;
   err = opt_in(fused_attention_bwd_rel_draw_kernel<T>, bytes);
   if (err != cudaSuccess) return err;

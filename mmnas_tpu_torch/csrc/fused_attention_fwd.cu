@@ -21,13 +21,21 @@
 //   (b, h) and up to 8 row tiles (all of Lq <= 128): K, V and q are staged
 //   in shared memory once per (b, h) by 16-byte cp.async copies.
 // - With it (fused_attention_fwd_rel_kernel) a block is one batch row b and
-//   16 * (8 / H) query rows, for all heads: it first computes pre for every
-//   head into shared memory (relation_pre_heads, the features once per
-//   (b, i, j), each weight read serving four elements), writing pre
-//   [B, H, Lq, Lk] fp32 out too when the backward will need it; then a
-//   warp per (16 rows, head) streams that head's K and V through its own
-//   kStages 16-key buffers (cp.async, kStages - 1 chunks in flight while
-//   one is used), since the heads' K and V do not fit beside pre.
+//   16 * (8 / H) query rows, for a group of up to 16 heads (32 heads run as
+//   two groups, a grid axis each; the features are computed once per (b,
+//   i, j) and group): it first computes pre for every head of the group
+//   into shared memory (relation_pre_heads, each weight read serving four
+//   elements), writing pre [B, H, Lq, Lk] fp32 out too when the backward
+//   will need it; then a warp per (16 rows, head) streams that head's K and
+//   V through its own kStages 16-key buffers (cp.async, kStages - 1 chunks
+//   in flight while one is used), since the heads' K and V do not fit
+//   beside pre.
+// - Heads wider than 128 (up to 256): o would take D / 2 registers a
+//   thread, so the output is computed and stored 128 columns at a time.
+//   Without the chain (fused_attention_fwd_wide_kernel) a block of 4 warps
+//   stages K and its q rows, keeps the probabilities in registers, then
+//   stages V where K was; with it, the relation kernel walks V's chunks once
+//   per 128-column window.
 // - bf16: both products on tensor cores (ldmatrix fragments, fp32
 //   accumulation, the probabilities re-packed from the C to the A layout in
 //   registers). fp32: TF32 stays off, so the products are fp32 FMAs,
@@ -59,9 +67,9 @@
 // [R, Rr] and Wr is [H, R] (torch Linear layout). The chain stays fp32 even
 // for bf16 operands: pre sits at the 1e-6 clamp and the log turns small
 // errors into large bias errors. Limits (the launcher returns
-// cudaErrorInvalidValue past them): D a multiple of 16 up to 128, Lk up to
-// 208 (128 with the chain), H up to 16 with the chain, shared memory within
-// 227 KB.
+// cudaErrorInvalidValue past them): D a multiple of 16 up to 256, Lk up to
+// 208 (128 with the chain or past D 128), H up to 32 with the chain,
+// shared memory within 227 KB.
 
 #include "attention_common.cuh"
 
@@ -74,6 +82,8 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kSmemCap = 232448;  // 227 KB, a block's most dynamic shared memory
 constexpr int kChainE = 4;        // relation-chain elements per thread and pass
 constexpr int kStages = 2;        // 16-key buffers a warp streams K and V through
+constexpr int kWideWarps = 4;     // row tiles a block of the wide kernel takes
+constexpr int kMaxD = 256;        // the widest head
 
 template <typename T>
 struct Args {
@@ -151,8 +161,10 @@ __device__ __forceinline__ void tile_dropout(float (&p)[2 * KTM][4], const Args<
 
 // one warp: the attention of rows [row0, row0 + 16) of head h from its
 // staged rows of q at qs (rows of ld) and the chunks of k and v; pre (rows
-// of ldpre) with the relation chain
-template <typename T, int DM, int KTM, typename Chunks>
+// of ldpre) with the relation chain. With kWide (D > DM) the output is
+// computed and stored DM columns at a time, v's chunks walked once per
+// window.
+template <typename T, int DM, int KTM, bool kWide = false, typename Chunks>
 __device__ __forceinline__ void attend_tile(const Args<T>& a, int b, int h, int row0,
                                             const T* qs, const Chunks& kc, const Chunks& vc,
                                             int ld, const float* pre, int ldpre) {
@@ -168,8 +180,17 @@ __device__ __forceinline__ void attend_tile(const Args<T>& a, int b, int h, int 
   tile_softmax<KTM>(s, KT);
   if (a.keep != nullptr) tile_dropout<T, KTM>(s, a, bh, row0, KT);
   float o[DM / 2];
-  tile_px<DM, KTM>(o, s, vc, ld, a.D, KT);
-  store_tile<DM>(o, a.out + bh * a.Lq * a.D, row0, a.Lq, a.D, 1.f);
+  if constexpr (kWide) {
+#pragma unroll 1
+    for (int c0 = 0; c0 < a.D; c0 += DM) {
+      const int w = min(DM, a.D - c0);
+      tile_px<DM, KTM>(o, s, ColumnShift<Chunks>{vc, c0}, ld, w, KT);
+      store_tile_cols<DM>(o, a.out + bh * a.Lq * a.D + c0, row0, a.Lq, w, a.D, 1.f);
+    }
+  } else {
+    tile_px<DM, KTM>(o, s, vc, ld, a.D, KT);
+    store_tile<DM>(o, a.out + bh * a.Lq * a.D, row0, a.Lq, a.D, 1.f);
+  }
 }
 
 // Without the relation chain: grid (row groups of kWarps tiles, H, B), a
@@ -198,24 +219,72 @@ __global__ void __launch_bounds__(kThreads, 2) fused_attention_fwd_kernel(const 
                             StagedChunks<T>{vs, ld}, ld, nullptr, 0);
 }
 
-// With the relation chain: grid (row groups of a.tiles 16-row tiles, B).
-// The block computes pre for every head of its rows into shared memory, the
-// features once per (b, i, j), kChainE elements a thread at a time; then a
-// warp per (tile, head) streams that head's K and V through its own two
-// chunk buffers. Shared memory: pre [H][16 tiles][LkP] fp32, the chain's
-// weights, and per warp its q rows and chunk buffers.
-template <typename T, int DM, int KTM>
+// Heads wider than 128 without the relation chain: grid (row groups of
+// kWideWarps tiles, H, B), a warp per 16-row tile. K and the block's q rows
+// are staged, the scores and probabilities kept in registers; then V is
+// staged where K was, and the output computed and stored 128 columns at a
+// time (o stays 64 registers a thread). Shared memory: (LkP + 16 warps) rows
+// of D + Pad<T>, 183 KB at D 256, Lk 100 in fp32.
+template <typename T, int KTM>
+__global__ void __launch_bounds__(32 * kWideWarps) fused_attention_fwd_wide_kernel(const Args<T> a) {
+  extern __shared__ __align__(16) float smem[];
+  const int h = blockIdx.y, b = blockIdx.z, warp = threadIdx.x / 32;
+  const int Lq = a.Lq, Lk = a.Lk, D = a.D, ld = D + Pad<T>::value;
+  const int LkP = (Lk + 15) / 16 * 16, KT = LkP / 16;
+  const int row_base = blockIdx.x * kWideWarps * 16, tiles = blockDim.x / 32;
+  T* kv = reinterpret_cast<T*>(smem);   // [LkP][ld]: K, then V
+  T* qs = kv + LkP * ld;                // [tiles * 16][ld]
+  const long bh = (long)b * a.H + h;
+  stage_rows(kv, ld, a.k + bh * Lk * D, Lk, LkP, D);
+  stage_rows(qs, ld, a.q + (bh * Lq + row_base) * D, Lq - row_base, tiles * 16, D);
+  cp_async_wait_all();
+  __syncthreads();
+  const int row0 = row_base + 16 * warp;
+  const bool live = row0 < Lq;
+  float s[2 * KTM][4];
+  if (live) {
+    tile_abt<KTM>(s, qs + 16 * warp * ld, StagedChunks<T>{kv, ld}, ld, D, KT);
+    ScoreTerms<T> st{a.bias == nullptr ? nullptr : a.bias + (bh * Lq + row0) * Lk, nullptr, 0,
+                     a.mask == nullptr ? nullptr : a.mask + (long)b * Lk, Lq - row0, Lk,
+                     a.scale};
+    tile_scores_epilogue<T, KTM>(s, st, KT);
+    tile_softmax<KTM>(s, KT);
+    if (a.keep != nullptr) tile_dropout<T, KTM>(s, a, bh, row0, KT);
+  }
+  __syncthreads();  // every warp is done with K
+  stage_rows(kv, ld, a.v + bh * Lk * D, Lk, LkP, D);
+  cp_async_wait_all();
+  __syncthreads();
+  if (!live) return;
+  float o[64];
+#pragma unroll 1
+  for (int c0 = 0; c0 < D; c0 += 128) {
+    const int w = min(128, D - c0);
+    tile_px<128, KTM>(o, s, StagedChunks<T>{kv + c0, ld}, ld, w, KT);
+    store_tile_cols<128>(o, a.out + bh * Lq * D + c0, row0, Lq, w, D, 1.f);
+  }
+}
+
+// With the relation chain: grid (row groups of a.tiles 16-row tiles, B,
+// head groups of kMaxH heads). The block computes pre for every head of its
+// group and rows into shared memory, the features once per (b, i, j) and
+// group, kChainE elements a thread at a time; then a warp per (tile, head)
+// streams that head's K and V through its own two chunk buffers (with kWide
+// V once per 128-column window). Shared memory: pre [Hg][16 tiles][LkP]
+// fp32, the chain's weights, and per warp its q rows and chunk buffers.
+template <typename T, int DM, int KTM, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1) fused_attention_fwd_rel_kernel(const Args<T> a) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y, warp = threadIdx.x / 32, warps = blockDim.x / 32;
   const int H = a.H, Lq = a.Lq, Lk = a.Lk, D = a.D, R = a.R, Rr = a.Rr;
+  const int h0 = blockIdx.z * kMaxH, Hg = min(kMaxH, H - h0);  // the block's head group
   const int ld = D + Pad<T>::value, LkP = (Lk + 15) / 16 * 16, KT = LkP / 16;
   const int rows_b = 16 * a.tiles, row_base = blockIdx.x * rows_b;
   const int rows = min(rows_b, Lq - row_base);
-  float* pres = smem;                        // [H][rows_b][LkP]
-  float* ws = pres + H * rows_b * LkP;       // the chain's weights
+  float* pres = smem;                        // [Hg][rows_b][LkP]
+  float* ws = pres + Hg * rows_b * LkP;      // the chain's weights
   T* wbuf = reinterpret_cast<T*>(ws + (chain_weight_floats(R) + 3) / 4 * 4);
-  load_chain_weights(a.w1, a.b1, a.wr, a.br, Rr, R, H, ws);
+  load_chain_weights(a.w1, a.b1, a.wr, a.br, Rr, R, h0, Hg, ws);
   __syncthreads();
 
   const int E = rows * Lk;
@@ -224,7 +293,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_attention_fwd_rel_kernel(co
     float x[kChainE][kMaxRr], pre[kChainE][kMaxH];
 #pragma unroll
     for (int u = 0; u < kChainE; ++u) load_raw(raw + (long)min(e0 + u, E - 1) * Rr, Rr, x[u]);
-    relation_pre_heads<kChainE>(x, Rr, R, H, ws, pre);
+    relation_pre_heads<kChainE>(x, Rr, R, Hg, ws, pre);
 #pragma unroll
     for (int u = 0; u < kChainE; ++u) {
       const int e = e0 + u;
@@ -232,10 +301,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_attention_fwd_rel_kernel(co
       const int r = e / Lk, j = e - r * Lk;
 #pragma unroll
       for (int hh = 0; hh < kMaxH; ++hh)
-        if (hh < H) {
+        if (hh < Hg) {
           pres[(hh * rows_b + r) * LkP + j] = pre[u][hh];
           if (a.pre != nullptr)
-            a.pre[(((long)b * H + hh) * Lq + row_base + r) * Lk + j] = pre[u][hh];
+            a.pre[(((long)b * H + h0 + hh) * Lq + row_base + r) * Lk + j] = pre[u][hh];
         }
     }
   }
@@ -243,8 +312,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_attention_fwd_rel_kernel(co
 
   T* qs = wbuf + warp * 16 * (1 + kStages) * ld;  // the warp's q rows [16][ld], then its buffers
   T* ring = qs + 16 * ld;
-  for (int item = warp; item < a.tiles * H; item += warps) {
-    const int tile = item / H, h = item - tile * H, row0 = row_base + 16 * tile;
+  for (int item = warp; item < a.tiles * Hg; item += warps) {
+    const int tile = item / Hg, hl = item - tile * Hg, h = h0 + hl, row0 = row_base + 16 * tile;
     if (row0 >= Lq) continue;
     const long bh = (long)b * H + h;
     __syncwarp();  // the warp is done with qs
@@ -252,8 +321,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_attention_fwd_rel_kernel(co
     cp_async_commit();
     const WarpStream<T, kStages> kc{ring, a.k + bh * Lk * D, Lk, D, ld, KT};
     const WarpStream<T, kStages> vc{ring, a.v + bh * Lk * D, Lk, D, ld, KT};
-    attend_tile<T, DM, KTM>(a, b, h, row0, qs, kc, vc, ld,
-                            pres + (h * rows_b + 16 * tile) * LkP, LkP);
+    attend_tile<T, DM, KTM, kWide>(a, b, h, row0, qs, kc, vc, ld,
+                                   pres + (hl * rows_b + 16 * tile) * LkP, LkP);
   }
 }
 
@@ -272,23 +341,23 @@ cudaError_t launch_head(const Args<T>& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int DM, int KTM>
+template <typename T, int DM, int KTM, bool kWide = false>
 cudaError_t launch_rel(Args<T> a, int B, cudaStream_t stream) {
   const int ld = a.D + Pad<T>::value, LkP = (a.Lk + 15) / 16 * 16;
-  const int tiles = (a.Lq + 15) / 16;
-  a.tiles = max(1, min(kWarps / a.H, tiles));  // 8 (tile, head) items a block where H <= 8
+  const int tiles = (a.Lq + 15) / 16, Hg = min(a.H, kMaxH);
+  a.tiles = max(1, min(kWarps / Hg, tiles));  // 8 (tile, head) items a block where Hg <= 8
   const size_t fixed =
-      ((size_t)a.H * 16 * a.tiles * LkP + (chain_weight_floats(a.R) + 3) / 4 * 4) * sizeof(float);
+      ((size_t)Hg * 16 * a.tiles * LkP + (chain_weight_floats(a.R) + 3) / 4 * 4) * sizeof(float);
   const size_t per_warp = (size_t)16 * (1 + kStages) * ld * sizeof(T);
   if (fixed + per_warp > (size_t)kSmemCap) return cudaErrorInvalidValue;
-  const int warps = min(min(kWarps, a.tiles * a.H), (int)((kSmemCap - fixed) / per_warp));
+  const int warps = min(min(kWarps, a.tiles * Hg), (int)((kSmemCap - fixed) / per_warp));
   const size_t bytes = fixed + warps * per_warp;
-  cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_rel_kernel<T, DM, KTM>,
+  cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_rel_kernel<T, DM, KTM, kWide>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((tiles + a.tiles - 1) / a.tiles, B);
-  fused_attention_fwd_rel_kernel<T, DM, KTM><<<grid, 32 * warps, bytes, stream>>>(a);
+  const dim3 grid((tiles + a.tiles - 1) / a.tiles, B, (a.H + kMaxH - 1) / kMaxH);
+  fused_attention_fwd_rel_kernel<T, DM, KTM, kWide><<<grid, 32 * warps, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -306,6 +375,35 @@ cudaError_t launch_d(const Args<T>& a, int B, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int KTM>
+cudaError_t launch_wide_head(const Args<T>& a, int B, cudaStream_t stream) {
+  const int ld = a.D + Pad<T>::value, LkP = (a.Lk + 15) / 16 * 16;
+  const int tiles = (a.Lq + 15) / 16, warps = min(kWideWarps, tiles);
+  const size_t bytes = (size_t)(LkP + 16 * warps) * ld * sizeof(T);
+  if (bytes > (size_t)kSmemCap) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_wide_kernel<T, KTM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tiles + kWideWarps - 1) / kWideWarps, a.H, B);
+  fused_attention_fwd_wide_kernel<T, KTM><<<grid, 32 * warps, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// heads wider than 128 (up to 256): keys up to 128
+template <typename T>
+cudaError_t launch_wide(const Args<T>& a, int B, cudaStream_t stream) {
+  const int KT = (a.Lk + 15) / 16;
+  if (a.raw != nullptr) {
+    if (KT <= 1) return launch_rel<T, 128, 1, true>(a, B, stream);
+    if (KT <= 8) return launch_rel<T, 128, 8, true>(a, B, stream);
+    return cudaErrorInvalidValue;
+  }
+  if (KT <= 1) return launch_wide_head<T, 1>(a, B, stream);
+  if (KT <= 8) return launch_wide_head<T, 8>(a, B, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    const void* mask, const void* raw, const void* w1, const void* b1,
@@ -313,9 +411,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
                    int H, int Lq, int Lk, int D, int Rr, int R, float scale,
                    unsigned long long seed, unsigned int keep_thr, float keep_p,
                    cudaStream_t stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 16 || D > 128 || D % 16 != 0)
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 16 || D > kMaxD || D % 16 != 0)
     return cudaErrorInvalidValue;
-  if (raw != nullptr && (Rr < 1 || Rr > kMaxRr || R < 1 || H > kMaxH))
+  if (raw != nullptr && (Rr < 1 || Rr > kMaxRr || R < 1 || H > kMaxHeads))
     return cudaErrorInvalidValue;
   if (raw == nullptr && pre != nullptr) return cudaErrorInvalidValue;
   if (keep != nullptr && !(keep_p > 0.f && keep_p <= 1.f)) return cudaErrorInvalidValue;
@@ -327,6 +425,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
                   static_cast<const T*>(br), static_cast<T*>(out),
                   static_cast<unsigned char*>(keep), static_cast<float*>(pre),
                   H, Lq, Lk, D, Rr, R, 1, scale, seed, keep_thr, keep_p};
+  if (D > 128) return launch_wide<T>(a, B, stream);
   return D <= 64 ? launch_d<T, 64>(a, B, stream) : launch_d<T, 128>(a, B, stream);
 }
 

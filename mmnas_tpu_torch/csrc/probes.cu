@@ -546,3 +546,15 @@ extern "C" int mmnas_probe_wrblock(int variant, const void* wr, void* out, int H
     return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
+
+namespace {
+__global__ void empty_kernel() {}
+}  // namespace
+
+// An empty kernel of one block of 32 threads: its device time is the least
+// any launch takes, the floor under the toy-size probes (probe_wrblock's
+// 2x8x64 copy). Returns the CUDA error code of the launch.
+extern "C" int mmnas_probe_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}

@@ -6,8 +6,9 @@ there — including the two documented quirks that the trained weights depend
 on: the 1e-3 clamp *before* log in the geometry embedding, and the
 sqrt-of-L2-norm normalizer in the GloVe cosine (load_data_vqa.py:49-50).
 
-The port's own copy of the numpy functions of mmnas_tpu/data/relations.py;
-the device-side relation_embedding_jnp stays in the JAX package.
+The port's own copy of the numpy functions of mmnas_tpu/data/relations.py,
+with `relation_embedding_torch` in place of the device-side
+relation_embedding_jnp.
 """
 
 from __future__ import annotations
@@ -34,6 +35,34 @@ def relation_embedding(bbox: np.ndarray) -> np.ndarray:
     delta_w = np.log(w[:, None] / w[None, :])
     delta_h = np.log(h[:, None] / h[None, :])
     return np.stack((delta_x, delta_y, delta_w, delta_h), axis=-1).astype(np.float32)
+
+
+def relation_embedding_torch(bbox, valid_mask=None):
+    """Device-side batched twin of relation_embedding: [B, K, 4] boxes ->
+    [B, K, K, 4] in the boxes' dtype. With cfg.DEVICE_REL the loaders ship
+    the raw 4-float boxes and the nets' stem runs this on the device
+    instead of per item in the host workers. Entries touching padded boxes
+    ([B, K] bool valid_mask, True = real box) are exactly 0, as in the
+    host's zero-padded tensor (load_data_vqa.py:241-244)."""
+    import torch
+
+    x_min, y_min, x_max, y_max = bbox.unbind(-1)
+    cx = (x_min + x_max) * 0.5
+    cy = (y_min + y_max) * 0.5
+    w = (x_max - x_min) + 1.0
+    h = (y_max - y_min) + 1.0
+    dx = torch.log(torch.clamp(
+        torch.abs((cx[..., :, None] - cx[..., None, :]) / w[..., :, None]), min=1e-3))
+    dy = torch.log(torch.clamp(
+        torch.abs((cy[..., :, None] - cy[..., None, :]) / h[..., :, None]), min=1e-3))
+    dw = torch.log(w[..., :, None] / w[..., None, :])
+    dh = torch.log(h[..., :, None] / h[..., None, :])
+    rel = torch.stack((dx, dy, dw, dh), dim=-1)
+    if valid_mask is not None:
+        pair = valid_mask[..., :, None] & valid_mask[..., None, :]
+        rel = torch.where(pair[..., None], rel, torch.zeros((), dtype=rel.dtype,
+                                                             device=rel.device))
+    return rel
 
 
 def semantic_embedding_batch(ques_ix: np.ndarray, n_words: np.ndarray,

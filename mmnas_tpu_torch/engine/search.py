@@ -55,7 +55,9 @@ from torch.func import functional_call
 
 from mmnas_tpu_torch.data.loader import Loader
 from mmnas_tpu_torch.data.sampler import SubsetShardSampler
-from mmnas_tpu_torch.engine.vqa import batch_to_device, bce_with_logits_sum, step_seed
+from mmnas_tpu_torch.engine.vqa import (
+    batch_to_device, bce_with_logits_sum, check_int8_shipping, step_seed,
+)
 from mmnas_tpu_torch.genotype import append_genotype
 from mmnas_tpu_torch.models.convert import (
     alpha_from_jax, alpha_optim_state_from_jax, alpha_optim_state_to_jax, alpha_to_jax,
@@ -68,6 +70,7 @@ from mmnas_tpu_torch.train.optimizer import (
     WarmupAdam, build_net_optimizer, clip_by_global_norm, plain_adam,
 )
 from mmnas_tpu_torch.utils.logger import TextLogger
+from mmnas_tpu_torch.utils.profiling import epoch_trace
 
 ARCH_STREAM = 1_000_000_000  # arch step s draws from stream ARCH_STREAM + s
 
@@ -131,6 +134,7 @@ class SearchExecution:
 
     def make_loader(self, dataset, subset_indices) -> Loader:
         """Both bilevel loaders shuffle and use BATCH_SIZE (search_vqa.py:560-583)."""
+        check_int8_shipping(self.cfg, dataset)
         return Loader(dataset, self.cfg.BATCH_SIZE,
                       sampler=SubsetShardSampler(len(dataset), shuffle=True,
                                                  subset_indices=subset_indices),
@@ -298,10 +302,11 @@ class SearchExecution:
             eval_iter = iter(eval_loader)
             t0 = time.time()
             # losses stay on the device until the epoch ends
-            losses, lr = self.steps(result, optim, alpha_optim,
-                                    (batch_to_device(b, dev, keys) for b in train_loader),
-                                    next_arch_batch, global_step, epoch >= cfg.ALPHA_START,
-                                    generator)
+            with epoch_trace(cfg, epoch, start_epoch):       # --PROFILE: the first epoch
+                losses, lr = self.steps(result, optim, alpha_optim,
+                                        (batch_to_device(b, dev, keys) for b in train_loader),
+                                        next_arch_batch, global_step, epoch >= cfg.ALPHA_START,
+                                        generator)
             global_step += len(losses)
 
             epoch_losses = torch.stack(losses).tolist() if losses else []

@@ -12,7 +12,8 @@ genotype's `NetFull`, then
   epoch the optimizer's
   epoch hook, a checkpoint in the JAX package's pickle format (so either
   package resumes from or evaluates it) and, with EVAL_EVERY_EPOCH, an
-  eval. RESUME starts from either package's checkpoint;
+  eval. RESUME starts from either package's checkpoint; --PROFILE traces
+  the first epoch (utils/profiling.py);
 - with RUN_MODE val|test, loads the pickled checkpoint at CKPT_FILE_PATH
   (either package's) and evaluates: argmax predictions, the soft-score VQA
   accuracy, the EvalAI result JSON and, where the dataset has annotation
@@ -44,6 +45,17 @@ from mmnas_tpu_torch.models.net import (
 from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint, save_checkpoint
 from mmnas_tpu_torch.train.optimizer import WarmupAdam, build_net_optimizer, clip_by_global_norm
 from mmnas_tpu_torch.utils.logger import TextLogger, dump_result_json
+from mmnas_tpu_torch.utils.profiling import epoch_trace
+
+
+def check_int8_shipping(cfg, dataset) -> None:
+    """SHIP_INT8 is read by the whole-batch loader alone (VqaDataset.get_batch:
+    the packed feature store with DEVICE_REL). The JAX package accepts the
+    flag with any other loader and ships float features; the port refuses it."""
+    if cfg.SHIP_INT8 and not (hasattr(dataset, "supports_batch") and dataset.supports_batch()):
+        raise ValueError(
+            "--SHIP_INT8 needs the whole-batch VQA loader: features packed by "
+            "tools/pack_features.py and --DEVICE_REL")
 
 
 @dataclass
@@ -104,6 +116,7 @@ class Execution:
     def make_loader(self, dataset, batch_size: int, shuffle: bool = False) -> Loader:
         """One replica; dataset order for eval, the epoch-seeded shuffle of
         the shared sampler for training."""
+        check_int8_shipping(self.cfg, dataset)
         return Loader(
             dataset, batch_size,
             sampler=SubsetShardSampler(len(dataset), shuffle=shuffle),
@@ -199,14 +212,16 @@ class Execution:
             # losses stay on the device until the epoch ends: reading one per
             # step would wait for the device every step
             losses, t0, lr = [], time.time(), 0.0
-            for step, host_batch in enumerate(train_loader):
-                batch = batch_to_device(host_batch, self.device, INPUT_KEYS + self.TARGET_KEYS)
-                generator.manual_seed(step_seed(cfg.SEED, global_step))
-                loss, lr = self.train_step(net, optim, opt_state, params, batch, generator)
-                losses.append(loss)
-                global_step += 1
-                if cfg.DEBUG:
-                    print(step, float(loss) / cfg.BATCH_SIZE)
+            with epoch_trace(cfg, epoch, start_epoch):       # --PROFILE: the first epoch
+                for step, host_batch in enumerate(train_loader):
+                    batch = batch_to_device(host_batch, self.device,
+                                            INPUT_KEYS + self.TARGET_KEYS)
+                    generator.manual_seed(step_seed(cfg.SEED, global_step))
+                    loss, lr = self.train_step(net, optim, opt_state, params, batch, generator)
+                    losses.append(loss)
+                    global_step += 1
+                    if cfg.DEBUG:
+                        print(step, float(loss) / cfg.BATCH_SIZE)
             epoch_step_losses = torch.stack(losses).tolist() if losses else []
             step_losses += epoch_step_losses
             loss_sum = sum(epoch_step_losses)

@@ -1,10 +1,12 @@
 """Weights between the JAX param pytree and the port's modules.
 
-The JAX package stores a Linear as {'w': [in, out], 'b': [out]}, the
-reference LayerNorm as {'a', 'b'}, the LSTM as {'w_ih': [in, 4H],
-'w_hh': [H, 4H], 'b_ih', 'b_hh'}, the embedding as a bare [V, E] array, and
-cells as nested lists. The port's modules carry the same names, with
-Linear and LSTM weights transposed to torch's [out, in]. Every JAX leaf is
+The JAX package stores a Linear as {'w': [in, out], 'b': [out]} (the
+gated-linear units' too, [in, 2 out]), a Conv1d as {'w': [out, in / groups,
+k], 'b': [out]} (torch's layout already), the reference LayerNorm as
+{'a', 'b'}, the LSTM as {'w_ih': [in, 4H], 'w_hh': [H, 4H], 'b_ih',
+'b_hh'}, the embedding as a bare [V, E] array, and cells as nested lists.
+The port's modules carry the same names, with Linear and LSTM weights
+transposed to torch's [out, in] and conv weights as they are. Every JAX leaf is
 consumed exactly once: a leaf that fits no rule raises here, and a missing
 or extra one raises in `load_state_dict(strict=True)`.
 
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mmnas_tpu_torch.ops.primitives import LSTM, LayerNorm
+from mmnas_tpu_torch.ops.primitives import LSTM, Conv1d, LayerNorm
 
 _LSTM_KEYS = {"w_ih", "w_hh", "b_ih", "b_hh"}
 
@@ -54,11 +56,11 @@ def from_jax_params(tree) -> "OrderedDict[str, torch.Tensor]":
             if keys == {"a", "b"}:                                # LayerNorm
                 sd[prefix + "a"] = _t(node["a"])
                 sd[prefix + "b"] = _t(node["b"])
-            elif "w" in keys and keys <= {"w", "b"}:              # Linear
-                if np.ndim(node["w"]) not in (0, 2):
-                    raise ValueError(f"{prefix}w: expected a 2-d Linear weight, "
+            elif "w" in keys and keys <= {"w", "b"}:              # Linear or Conv1d
+                if np.ndim(node["w"]) not in (0, 2, 3):
+                    raise ValueError(f"{prefix}w: expected a 2-d Linear or 3-d Conv1d weight, "
                                      f"got shape {np.shape(node['w'])}")
-                sd[prefix + "weight"] = _t(node["w"], transpose=True)
+                sd[prefix + "weight"] = _t(node["w"], transpose=np.ndim(node["w"]) == 2)
                 if "b" in node:
                     sd[prefix + "bias"] = _t(node["b"])
             elif keys == _LSTM_KEYS:                              # LSTM
@@ -97,6 +99,8 @@ def to_jax_params(module: nn.Module, values: Optional[Mapping[str, Any]] = None)
             if m.bias is not None:
                 out["b"] = arr(prefix + "bias", m.bias)
             return out
+        if isinstance(m, Conv1d):
+            return {"w": arr(prefix + "weight", m.weight), "b": arr(prefix + "bias", m.bias)}
         if isinstance(m, LayerNorm):
             return {"a": arr(prefix + "a", m.a), "b": arr(prefix + "b", m.b)}
         if isinstance(m, LSTM):

@@ -42,6 +42,9 @@ Batch dict keys (fixed shapes, as the JAX package's loaders give them):
   ques_ix   [B, MAX_TOKEN] int64              token ids (0 = PAD); VGD's
                                               query is MAX_TOKEN + 1 = 15 long
                                               (load_data_vgd.py:190)
+With SHIP_INT8 (VQA's whole-batch loader) frcn_feat arrives as int8
+`frcn_feat_q` [B, L, F] and fp32 `frcn_scale` [B, L]; with DEVICE_REL
+(VQA, VGD) rel_img as the raw boxes `bbox_raw` [B, L, 4] (image_stem).
 VGD batches also carry the supervision and eval keys of `VGD_KEYS`, ITM
 train batches the hard negatives of `ITM_NEG_KEYS`.
 """
@@ -54,12 +57,17 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from mmnas_tpu_torch.data.relations import relation_embedding_torch
 from mmnas_tpu_torch.genotype import Genotype
 from mmnas_tpu_torch.ops import primitives as P
 from mmnas_tpu_torch.ops.modules import AttFlat, OpCfg
 from mmnas_tpu_torch.ops.registry import make_op
 
-INPUT_KEYS = ("frcn_feat", "bbox_feat", "rel_img", "ques_ix")
+# the model inputs a batch may carry: SHIP_INT8 batches hold frcn_feat_q and
+# frcn_scale in place of frcn_feat, DEVICE_REL batches bbox_raw in place of
+# rel_img (image_stem)
+INPUT_KEYS = ("frcn_feat", "bbox_feat", "rel_img", "ques_ix", "frcn_feat_q", "frcn_scale",
+              "bbox_raw")
 # a VGD batch's targets and eval inputs (mmnas_tpu/data/vgd.py): score and
 # box-delta targets with their masks, the ground-truth box, the proposals
 # and the image's (H, W)
@@ -197,14 +205,28 @@ def text_stem(net: nn.Module, ques_ix):
 def image_stem(net: nn.Module, cfg, batch):
     """The region mask (all-zero feature rows are pads), the image linear
     (after the box embedding with BBOX_FEATURE) and the relation bundle
-    (full_vqa.py:96-103): (y, y_mask, y_rel)."""
-    frcn_feat = batch["frcn_feat"]
+    (full_vqa.py:96-103): (y, y_mask, y_rel). In the JAX package's order
+    (mmnas_tpu/models/net.py:114-135): SHIP_INT8 batches carry int8
+    `frcn_feat_q` and a per-region fp32 `frcn_scale`, dequantized in fp32
+    and cast to the parameters' compute dtype; DEVICE_REL batches carry raw
+    boxes `bbox_raw` in place of `rel_img`, whose relation tensor is
+    computed here in fp32 (pairs touching a pad region 0) and cast to the
+    features' dtype."""
+    if "frcn_feat_q" in batch:
+        frcn_feat = (batch["frcn_feat_q"].float() * batch["frcn_scale"].float()[..., None]
+                     ).to(net.imgfeat_linear.weight.dtype)
+    else:
+        frcn_feat = batch["frcn_feat"]
     y_mask = P.make_mask(frcn_feat)
+    rel_img = batch.get("rel_img")
+    if rel_img is None and "bbox_raw" in batch:
+        rel_img = relation_embedding_torch(batch["bbox_raw"].float(),
+                                           ~y_mask[:, 0, 0, :]).to(frcn_feat.dtype)
     if cfg.BBOX_FEATURE:
         bb = net.bboxfeat_linear(batch["bbox_feat"])
         frcn_feat = torch.cat((frcn_feat, bb), dim=-1)
     y = net.imgfeat_linear(frcn_feat)
-    return y, y_mask, rel_pack(net.linear_y_rel, batch["rel_img"])
+    return y, y_mask, rel_pack(net.linear_y_rel, rel_img)
 
 
 def apply_stem(net: nn.Module, cfg, batch):
@@ -275,10 +297,8 @@ class NetFull(nn.Module):
         super().__init__()
         task = task or cfg.TASK
         check_task(task, "head")
-        for flag in ("SHIP_INT8", "DEVICE_REL"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"{flag} is not ported yet (ROADMAP.md, queue 1: SHIP_INT8 and DEVICE_REL)")
+        if cfg.REMAT:
+            raise NotImplementedError("REMAT is not ported (ROADMAP.md, 'Not ported')")
         # the full net feeds the raw [B,T,T,3] text relation to the encoder
         # (full_vqa.py:85-104 has no x-rel projection): no rel op there
         for node in genotype["enc"]:

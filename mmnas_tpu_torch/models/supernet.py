@@ -43,11 +43,10 @@ from mmnas_tpu_torch.models.net import (
     init_stem, op_cfg_from, text_stem,
 )
 from mmnas_tpu_torch.ops import primitives as P
-from mmnas_tpu_torch.ops.registry import make_op
+from mmnas_tpu_torch.ops.registry import Used_OPS, make_op
 
 # the safe search spaces (mmnas_tpu/ops/registry.py:48-51)
-SPACES = {"enc": ["self_att_64", "feed_forward"],
-          "dec": ["self_att_64", "rel_self_att_64", "guided_att_64", "feed_forward"]}
+SPACES = {"enc": Used_OPS["enc_safe"], "dec": Used_OPS["dec_safe"]}
 # MCAN-like biased alpha init (hygr_vqa.py:139-156): +1 on the hand-picked
 # op, -1 elsewhere. The reference's dec pattern has 21 entries for 18 nodes;
 # zip truncates, reproduced by cycling then slicing (supernet.py:45-50).
@@ -78,10 +77,6 @@ class NetSearch(nn.Module):
                              "(reference parity)")
         if cfg.REMAT:
             raise NotImplementedError("REMAT is not ported (ROADMAP.md, 'Not ported')")
-        for flag in ("SHIP_INT8", "DEVICE_REL"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"{flag} is not ported yet (ROADMAP.md, queue 1: SHIP_INT8 and DEVICE_REL)")
         self.cfg = cfg
         self.task = task
         self.ocfg = op_cfg_from(cfg)

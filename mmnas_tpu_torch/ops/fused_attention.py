@@ -13,9 +13,9 @@ called through ctypes:
 
 - `fused_attention_fwd` (csrc/fused_attention_fwd.cu): the forward without
   dropout (replaces `_fwd_kernel`, pallas_attention.py:173-213); with the
-  RSA chain it computes the chain once per (b, i, j) for all heads and, when
-  the call will be differentiated, writes it out ([B,H,Lq,Lk] fp32 `pre`)
-  for the backward;
+  RSA chain it computes the chain once per (b, i, j) for each group of up
+  to 16 heads and, when the call will be differentiated, writes it out
+  ([B,H,Lq,Lk] fp32 `pre`) for the backward;
 - `fused_attention_fwd_dropout`: the same kernel drawing the keep mask with
   a counter-based Philox4x32-10 (key: a 64-bit seed, counter: (j // 4, i,
   b*H+h, 0), word j % 4) and emitting it as a uint8 [B,H,Lq,Lk] residual
@@ -29,6 +29,10 @@ called through ctypes:
   Wr, br (per-block partials over long element runs, summed in a fixed
   order by a second kernel of the same call), and the raw geometry's
   gradient when asked for (the relation half of `_bwd_kernel`).
+
+The kernels take heads of 16 to 256 (multiples of 16) and, with the RSA
+chain, up to 32 heads: every shape the ported ops reach. Past that the
+wrapper raises; nothing falls back to the plain version.
 
 `FusedAttentionFn` is the counterpart of the custom VJP (:572-599).
 Dispatch follows the tensor: a CUDA tensor goes through the kernels (or
@@ -55,8 +59,9 @@ import torch
 from mmnas_tpu_torch.ops.primitives import mask_scores
 
 MAX_REL_CHANNELS = 8  # raw geometry channels the kernels hold in registers
-MAX_REL_HEADS = 16    # heads the relation chain and its pass hold in registers
-MAX_HEAD_DIM = 128    # head widths the kernels take: multiples of 16 up to this
+REL_HEAD_GROUP = 16   # heads the relation chain and its pass hold in registers at a time
+MAX_REL_HEADS = 32    # heads the relation chain takes (in groups of REL_HEAD_GROUP)
+MAX_HEAD_DIM = 256    # head widths the kernels take: multiples of 16 up to this
 
 LAUNCHES = {"fused_attention_fwd": 0, "fused_attention_fwd_dropout": 0,
             "fused_attention_bwd": 0, "fused_attention_bwd_rel": 0}
@@ -347,8 +352,9 @@ def _raise_on(err, name):
     if err == 1:
         raise RuntimeError(f"{name} launch failed with CUDA error 1 (invalid value): the "
                            "shape is outside the kernel's limits (keys up to 208 forward, "
-                           "128 with the relation chain or backward; the block's tiles "
-                           "within 227 KB of shared memory)")
+                           "128 with the relation chain, past 128-wide heads or backward, "
+                           "queries up to 128 in a backward whose tiles exceed shared "
+                           "memory; the block's tiles within 227 KB of shared memory)")
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
@@ -429,10 +435,13 @@ def relation_bwd(raw, w1, b1, wr, br, dpre, need_draw: bool = False):
     code = _DTYPE_CODES[raw.dtype]
     chunks = _rel_chunks(raw.device.index if raw.device.index is not None
                          else torch.cuda.current_device(), code, B, H, Lq, Lk, Rr, R)
-    rows = B * chunks
-    # the per-(batch row, run) partials: fp64 db1, dbr, then fp32 dW1, dWr
-    work = torch.empty(rows * ((R + H) * 8 + (R * Rr + H * R) * 4), dtype=torch.uint8,
-                       device=raw.device)
+    groups = -(-H // REL_HEAD_GROUP)
+    rows = B * chunks * groups
+    # the per-(batch row, run, head group) partials: fp64 db1, dbr, then fp32
+    # dW1, dWr; a group writes its own heads' dWr and dbr only, so with more
+    # than one group the others must read 0
+    work = (torch.zeros if groups > 1 else torch.empty)(
+        rows * ((R + H) * 8 + (R * Rr + H * R) * 4), dtype=torch.uint8, device=raw.device)
     dw1, db1, dwr, dbr = (torch.empty_like(t) for t in (w1, b1, wr, br))
     draw = torch.empty_like(raw) if need_draw else None
     with torch.cuda.device(raw.device):

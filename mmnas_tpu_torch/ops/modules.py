@@ -69,19 +69,22 @@ def _merge_heads(t):
 
 
 class MHAtt(nn.Module):
-    """Projections `wv`, `wk`, `wq`, `wm` (no bias); `wr` [REL_SIZE -> heads]
-    for the relation op."""
+    """Projections `wv`, `wk`, `wq` [hsize -> inside], `wm` [inside -> hsize]
+    (no bias), inside = hsize * hsize_k (hsize without hsize_k), in heads of
+    `base`; `wr` [REL_SIZE -> heads] for the relation op."""
 
-    def __init__(self, cfg: OpCfg, base: int, with_rel: bool = False):
+    def __init__(self, cfg: OpCfg, base: int, with_rel: bool = False,
+                 hsize_k: Optional[float] = None):
         super().__init__()
-        if cfg.hsize % base:
-            raise ValueError(f"hsize {cfg.hsize} is not a multiple of head size {base}")
-        self.n_heads = cfg.hsize // base
+        inside = int(cfg.hsize * hsize_k) if hsize_k else cfg.hsize
+        if inside % base:
+            raise ValueError(f"inner width {inside} is not a multiple of head size {base}")
+        self.n_heads = inside // base
         self.dropout_r = cfg.dropout_r
-        self.wv = nn.Linear(cfg.hsize, cfg.hsize, bias=False)
-        self.wk = nn.Linear(cfg.hsize, cfg.hsize, bias=False)
-        self.wq = nn.Linear(cfg.hsize, cfg.hsize, bias=False)
-        self.wm = nn.Linear(cfg.hsize, cfg.hsize, bias=False)
+        self.wv = nn.Linear(cfg.hsize, inside, bias=False)
+        self.wk = nn.Linear(cfg.hsize, inside, bias=False)
+        self.wq = nn.Linear(cfg.hsize, inside, bias=False)
+        self.wm = nn.Linear(inside, cfg.hsize, bias=False)
         if with_rel:
             self.wr = nn.Linear(cfg.rel_size, self.n_heads)
 
@@ -104,8 +107,8 @@ class RelSelfAtt(MHAtt):
     relation tensor runs inside the attention kernel (modules.py:179-215,
     dict path)."""
 
-    def __init__(self, cfg: OpCfg, base: int):
-        super().__init__(cfg, base, with_rel=True)
+    def __init__(self, cfg: OpCfg, base: int, hsize_k: Optional[float] = None):
+        super().__init__(cfg, base, with_rel=True, hsize_k=hsize_k)
 
     def forward(self, x, y, x_mask, y_mask, rel, train=False, generator=None):
         fused = (rel["raw"], rel["w1"], rel["b1"], self.wr.weight, self.wr.bias)
@@ -120,13 +123,105 @@ class GuidedAtt(MHAtt):
         return self.attend(y, y, x, y_mask, train, generator)
 
 
+class UniimgAtt(MHAtt):
+    """x attends over concat(x, y) with no mask, as in the reference
+    (modules.py:417-418)."""
+
+    def forward(self, x, y, x_mask, y_mask, rel, train=False, generator=None):
+        xy = torch.cat((x, y), dim=1)
+        return self.attend(xy, xy, x, None, train, generator)
+
+
+# ---------------------------------------------------------------------------
+# feed-forward, gated-linear and convolution cores (modules.py:122-155, :431-491)
+# ---------------------------------------------------------------------------
+
 class FeedForward(P.MLP):
-    def __init__(self, cfg: OpCfg):
-        super().__init__(cfg.hsize, cfg.hsize * 4, cfg.hsize, cfg.dropout_r, True)
+    """MLP hsize -> hsize * mid_k (4 without mid_k) -> hsize."""
+
+    def __init__(self, cfg: OpCfg, mid_k: Optional[int] = None):
+        mid = cfg.hsize * mid_k if mid_k else cfg.hsize * 4
+        super().__init__(cfg.hsize, mid, cfg.hsize, cfg.dropout_r, True)
 
     def forward(self, x, y, x_mask, y_mask, rel, train=False, generator=None):
         return super().forward(x, train, generator)
 
+
+class FeedForwardDeep(nn.Module):
+    """fc (linear + relu + dropout) hsize -> 2 hsize, then an MLP 2 hsize ->
+    2 hsize -> hsize; params `fc`, `mlp`."""
+
+    def __init__(self, cfg: OpCfg):
+        super().__init__()
+        mid = cfg.hsize * 2
+        self.dropout_r = cfg.dropout_r
+        self.fc = nn.Linear(cfg.hsize, mid)
+        self.mlp = P.MLP(mid, mid, cfg.hsize, cfg.dropout_r, True)
+
+    def forward(self, x, y, x_mask, y_mask, rel, train=False, generator=None):
+        h = P.fc(self.fc, x, self.dropout_r, True, train, generator)
+        return self.mlp(h, train, generator)
+
+
+def gated_linear(linear: nn.Linear, x):
+    """a * sigmoid(b) for (a, b) the halves of linear(x) (modules.py:122-130)."""
+    a, b = linear(x).chunk(2, dim=-1)
+    return a * torch.sigmoid(b)
+
+
+class GLU(nn.Module):
+    """One gated-linear unit hsize -> hsize (`unit`), or two (`unit_0`
+    hsize -> 2 hsize, relu and dropout, `unit_1` 2 hsize -> hsize); each
+    unit's Linear has twice its output width (modules.py:133-155)."""
+
+    def __init__(self, cfg: OpCfg, layers: int):
+        super().__init__()
+        if layers not in (1, 2):
+            raise ValueError(f"gated_linear takes 1 or 2 layers, got {layers}")
+        self.layers = layers
+        self.dropout_r = cfg.dropout_r
+        h = cfg.hsize
+        if layers == 1:
+            self.unit = nn.Linear(h, 2 * h)
+        else:
+            self.unit_0 = nn.Linear(h, 4 * h)
+            self.unit_1 = nn.Linear(2 * h, 2 * h)
+
+    def forward(self, x, y, x_mask, y_mask, rel, train=False, generator=None):
+        if self.layers == 1:
+            return gated_linear(self.unit, x)
+        h = torch.relu(gated_linear(self.unit_0, x))
+        h = P.dropout(h, self.dropout_r, train, generator)
+        return gated_linear(self.unit_1, h)
+
+
+class SepConv(nn.Module):
+    """Depthwise Conv1d of width k, then pointwise (modules.py:431-462);
+    params `dw`, `pw`."""
+
+    def __init__(self, cfg: OpCfg, k: int):
+        super().__init__()
+        self.dw = P.Conv1d(cfg.hsize, cfg.hsize, k, groups=cfg.hsize)
+        self.pw = P.Conv1d(cfg.hsize, cfg.hsize, 1)
+
+    def forward(self, x, y, x_mask, y_mask, rel, train=False, generator=None):
+        return self.pw(self.dw(x))
+
+
+class StdConv(nn.Module):
+    """One Conv1d of width k (modules.py:465-491); param `conv`."""
+
+    def __init__(self, cfg: OpCfg, k: int):
+        super().__init__()
+        self.conv = P.Conv1d(cfg.hsize, cfg.hsize, k)
+
+    def forward(self, x, y, x_mask, y_mask, rel, train=False, generator=None):
+        return self.conv(x)
+
+
+# ---------------------------------------------------------------------------
+# parameter-free ops, with no residual/norm wrapper (modules.py:92-119)
+# ---------------------------------------------------------------------------
 
 class Zero(nn.Module):
     """'none' op: x * 0, with no residual/norm wrapper (modules.py:445-450)."""
@@ -135,28 +230,71 @@ class Zero(nn.Module):
         return x * 0.0
 
 
+class Elementwise(nn.Module):
+    """skip_connect, relu, gelu (tanh form) or leakyrelu (slope 0.01) of x."""
+
+    FNS = {"skip_connect": lambda x: x, "relu": torch.relu, "gelu": P.gelu_tanh,
+           "leakyrelu": lambda x: torch.nn.functional.leaky_relu(x, 0.01)}
+
+    def __init__(self, name: str):
+        super().__init__()
+        self.fn = self.FNS[name]
+
+    def forward(self, x, y, x_mask, y_mask, rel, train=False, generator=None):
+        return self.fn(x)
+
+
 # ---------------------------------------------------------------------------
-# candidate-op factories (cfg, norm, residual) -> Op
+# candidate-op factories (cfg, norm, residual, **kw) -> module
 # ---------------------------------------------------------------------------
 
-def self_att(cfg: OpCfg, norm: bool, residual: bool, base: int = 64) -> Op:
-    return Op(cfg, SelfAtt(cfg, base), norm, residual)
+def self_att(cfg: OpCfg, norm: bool, residual: bool, base: int = 64,
+             hsize_k: Optional[float] = None) -> Op:
+    return Op(cfg, SelfAtt(cfg, base, hsize_k=hsize_k), norm, residual)
 
 
-def rel_self_att(cfg: OpCfg, norm: bool, residual: bool, base: int = 64) -> Op:
-    return Op(cfg, RelSelfAtt(cfg, base), norm, residual)
+def rel_self_att(cfg: OpCfg, norm: bool, residual: bool, base: int = 64,
+                 hsize_k: Optional[float] = None) -> Op:
+    return Op(cfg, RelSelfAtt(cfg, base, hsize_k=hsize_k), norm, residual)
 
 
-def guided_att(cfg: OpCfg, norm: bool, residual: bool, base: int = 64) -> Op:
-    return Op(cfg, GuidedAtt(cfg, base), norm, residual)
+def guided_att(cfg: OpCfg, norm: bool, residual: bool, base: int = 64,
+               hsize_k: Optional[float] = None) -> Op:
+    return Op(cfg, GuidedAtt(cfg, base, hsize_k=hsize_k), norm, residual)
 
 
-def feed_forward(cfg: OpCfg, norm: bool, residual: bool) -> Op:
-    return Op(cfg, FeedForward(cfg), norm, residual)
+def uniimg_att(cfg: OpCfg, norm: bool, residual: bool, base: int = 64,
+               hsize_k: Optional[float] = None) -> Op:
+    return Op(cfg, UniimgAtt(cfg, base, hsize_k=hsize_k), norm, residual)
+
+
+def feed_forward(cfg: OpCfg, norm: bool, residual: bool, mid_k: Optional[int] = None) -> Op:
+    return Op(cfg, FeedForward(cfg, mid_k), norm, residual)
+
+
+def feed_forward_deep(cfg: OpCfg, norm: bool, residual: bool) -> Op:
+    return Op(cfg, FeedForwardDeep(cfg), norm, residual)
+
+
+def glu(cfg: OpCfg, norm: bool, residual: bool, layers: int = 1) -> Op:
+    return Op(cfg, GLU(cfg, layers), norm, residual)
+
+
+def sep_conv(cfg: OpCfg, norm: bool, residual: bool, k: int = 3) -> Op:
+    return Op(cfg, SepConv(cfg, k), norm, residual)
+
+
+def std_conv(cfg: OpCfg, norm: bool, residual: bool, k: int = 3) -> Op:
+    return Op(cfg, StdConv(cfg, k), norm, residual)
 
 
 def zero(cfg: OpCfg, norm: bool, residual: bool) -> Zero:
     return Zero()
+
+
+def elementwise(cfg: OpCfg, norm: bool, residual: bool, name: str = "skip_connect"
+                ) -> Elementwise:
+    return Elementwise(name)
 
 
 # ---------------------------------------------------------------------------

@@ -106,6 +106,40 @@ def mask_scores(scores, mask):
 
 
 # ---------------------------------------------------------------------------
+# GELU (tanh approximation, reference modules.py:104-109)
+# ---------------------------------------------------------------------------
+
+def gelu_tanh(x):
+    return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+
+
+# ---------------------------------------------------------------------------
+# 1-D convolutions (reference modules.py:431-491)
+# ---------------------------------------------------------------------------
+
+def conv1d(x, weight, bias, groups: int = 1):
+    """x [B, L, C_in] -> [B, L, C_out], stride 1, padding k // 2; weight in
+    the JAX package's (and torch's) layout [out, in / groups, k]."""
+    k = weight.shape[-1]
+    y = F.conv1d(x.transpose(1, 2), weight, bias, padding=k // 2, groups=groups)
+    return y.transpose(1, 2)
+
+
+class Conv1d(nn.Module):
+    """Params `weight` [out, in / groups, k] and `bias` [out] (the JAX
+    package's {'w', 'b'})."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, groups: int = 1):
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, k))
+        self.bias = nn.Parameter(torch.empty(out_ch))
+
+    def forward(self, x):
+        return conv1d(x, self.weight, self.bias, self.groups)
+
+
+# ---------------------------------------------------------------------------
 # LSTM (1 layer, batch_first; reference full_vqa.py:63-68)
 # ---------------------------------------------------------------------------
 
@@ -143,14 +177,15 @@ class LSTM(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# initialization (mmnas_tpu/ops/primitives.py:29-47, :164-178)
+# initialization (mmnas_tpu/ops/primitives.py:29-47, :131-142, :164-178)
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every parameter of `module` from `generator`:
     Linear weight and bias U(-1/sqrt(in), 1/sqrt(in)); LSTM all
-    U(-1/sqrt(H), 1/sqrt(H)); LayerNorm ones/zeros; Embedding N(0, 1)."""
+    U(-1/sqrt(H), 1/sqrt(H)); Conv1d weight kaiming normal
+    N(0, 2 / fan_in), bias zeros; LayerNorm ones/zeros; Embedding N(0, 1)."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             bound = 1.0 / math.sqrt(m.in_features)
@@ -161,6 +196,10 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             bound = 1.0 / math.sqrt(m.w_hh.shape[1])
             for p in (m.w_ih, m.w_hh, m.b_ih, m.b_hh):
                 p.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, Conv1d):
+            fan_in = m.weight.shape[1] * m.weight.shape[2]
+            m.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+            m.bias.zero_()
         elif isinstance(m, LayerNorm):
             m.a.fill_(1.0)
             m.b.zero_()

@@ -28,7 +28,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the GPU")
     cfg = cfg_from_args("vgd", args, search=True)
-    return SearchExecution(cfg, torch.device("cuda")).run()
+    return SearchExecution(cfg, torch.device("cuda", int(args.GPU))).run()
 
 
 if __name__ == "__main__":

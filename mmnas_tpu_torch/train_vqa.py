@@ -30,7 +30,7 @@ def main(argv=None):
     cfg = cfg_from_args("vqa", args)
     print("Use the GENOTYPE PATH:", cfg.ARCH_PATH)
     print("Use the GENOTYPE EPOCH:", cfg.GENO_EPOCH)
-    return Execution(cfg, torch.device("cuda")).run()
+    return Execution(cfg, torch.device("cuda", int(args.GPU))).run()
 
 
 if __name__ == "__main__":

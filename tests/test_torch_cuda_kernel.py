@@ -562,12 +562,18 @@ EDGE_LK = (1, 14, 100, 112, 113, 128, 200)
 
 
 def bwd_fits(Lq, Lk, D, dt):
-    """Whether the backward kernel takes the shape: keys up to 128 and q, k,
-    v, do and the two probability tiles within 227 KB of shared memory
-    (csrc/fused_attention_bwd.cu, `launch_bwd_shape`)."""
+    """Whether the backward kernel takes the shape: keys up to 128, and q,
+    k, v, do and the two probability tiles within 227 KB of shared memory,
+    or else (the sliced kernel) queries up to 128 and the probability tiles
+    with a window of 64, 32 or 16 of the D columns of q, k, v, do within it
+    (csrc/fused_attention_bwd.cu, `launch_bwd_shape`, `launch_bwd_sliced`)."""
     es = 2 if dt == torch.bfloat16 else 4
     pad, LqP, LkP = 16 // es, -(-Lq // 16) * 16, -(-Lk // 16) * 16
-    return Lk <= 128 and ((2 * LkP + 2 * LqP) * (D + pad) + 2 * LqP * (LkP + pad)) * es <= 232448
+    tiles = 2 * LqP * (LkP + pad)
+    staged = D <= 128 and ((2 * LkP + 2 * LqP) * (D + pad) + tiles) * es <= 232448
+    sliced = LqP <= 128 and any(D % w == 0 and ((2 * LkP + 2 * LqP) * (w + pad) + tiles) * es
+                                <= 232448 for w in (64, 32, 16))
+    return Lk <= 128 and (staged or sliced)
 
 
 def check_backward(args, m, b, r, keep, pre, rate, do, dt):
@@ -651,10 +657,12 @@ def test_fully_padded_row_is_uniform_over_its_keys(dev, dt):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("D", [32, 128, 256])
 def test_head_widths(dev, D, dt):
-    """D 32 and 128 at (100, 100) with the pad mask and the relation chain:
-    the forward, and the backward where its tiles fit (else its refusal)."""
+    """D 32, 128 and 256 (the wide kernels: the output in 128-column
+    windows, the backward's D in windows) at (100, 100) with the pad mask
+    and the relation chain: the forward, and the backward where its tiles
+    fit (else its refusal)."""
     args, m, _, r = on(dev, dt, *make(2, 4, 100, 100, D, "mask+rel", R=64, seed=D))
     out, keep, pre = FA.attention_fwd(*args, m, None, r, dropout_r=RATE, seed=D, want_pre=True)
     want = FA.fused_attention_reference(*[t.float() for t in args], m, rel=tuple(map(f32, r)),
@@ -662,6 +670,36 @@ def test_head_widths(dev, D, dt):
     torch.testing.assert_close(out.float(), want, rtol=0,
                                atol=5e-2 if dt == torch.bfloat16 else 1e-3)
     do = torch.randn(2, 4, 100, D, generator=torch.Generator().manual_seed(D)).to(dev, dt)
+    check_backward(args, m, None, r, keep, pre, RATE, do, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,D,Lq,Lk,kind", [(32, 16, 100, 100, "mask+rel"),
+                                           (20, 32, 36, 36, "mask+rel"),
+                                           (8, 64, 100, 114, "none"),
+                                           (2, 256, 100, 14, "mask")])
+def test_new_op_shapes(dev, H, D, Lq, Lk, kind, dt):
+    """The shapes the rest of the op library reaches: 32 heads of 16 with
+    the relation chain (two head groups; 20 heads: a group of 16 and one of
+    4), keys with no pad mask over concat(y, x) (uniimg_att), 2 heads of 256
+    against 14 keys (guided_att_256): the chain's pre against the plain
+    chain, the dropout forward and the backward with the relation pass
+    against the plain version."""
+    args, m, _, r = on(dev, dt, *make(2, H, Lq, Lk, D, kind, R=64, seed=H + D))
+    out, keep, pre = FA.attention_fwd(*args, m, None, r, dropout_r=RATE, seed=H,
+                                      want_pre=r is not None)
+    if r is not None:
+        raw, w1, b1, wr, br = (t.float() for t in r)
+        want_pre = (torch.matmul(torch.relu(torch.matmul(raw, w1.t()) + b1), wr.t())
+                    + br).permute(0, 3, 1, 2)
+        torch.testing.assert_close(pre, want_pre, rtol=0, atol=1e-5)
+    want = FA.fused_attention_reference(*[t.float() for t in args], m,
+                                        None if r is None else torch.log(torch.clamp(
+                                            torch.relu(pre), min=1e-6)),
+                                        keep=keep, dropout_r=RATE)
+    torch.testing.assert_close(out.float(), want, rtol=0,
+                               atol=5e-2 if dt == torch.bfloat16 else 1e-3)
+    do = torch.randn(2, H, Lq, D, generator=torch.Generator().manual_seed(H)).to(dev, dt)
     check_backward(args, m, None, r, keep, pre, RATE, do, dt)
 
 

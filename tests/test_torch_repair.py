@@ -46,7 +46,8 @@ CHANGED = {("config.py", "cfg_from_args")}
 # the port's torch versions in place of the JAX package's jnp ones
 TWINS = {("utils/bbox.py", "bbox_overlaps_torch"): "bbox_overlaps_jnp",
          ("utils/bbox_transform.py", "bbox_transform_inv_torch"): "bbox_transform_inv_jnp",
-         ("utils/bbox_transform.py", "clip_boxes_torch"): "clip_boxes_jnp"}
+         ("utils/bbox_transform.py", "clip_boxes_torch"): "clip_boxes_jnp",
+         ("data/relations.py", "relation_embedding_torch"): "relation_embedding_jnp"}
 
 
 def imported_modules(path):
