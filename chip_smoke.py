@@ -137,7 +137,20 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    each loader's steady-state examples/s (16 passes over the eval set, the
    first batch left out); and times an empty kernel beside probe_wrblock
    (the launch floor);
-16. prints one JSON line with every kernel's numbers (with x_library and
+16. drives the data-parallel path (`data_parallel_path`, parallel/mesh.py):
+   arch/mmnas_vqa.json at HSIZE 512, fp32, DROPOUT_R 0.1, 5 train steps of
+   64 and an eval of 2 batches, then the fp32 search leg (BS 128, KPATH 1) for
+   5 weight steps and an arch step, single-process and then through the same
+   engine loops in a process group over NCCL: world 1 in this process, whose
+   losses, parameters and alpha are the single process's bit for bit, with
+   the same kernel launches and one all_reduce per gradient bucket per train,
+   weight and arch step; with two or more cards also one spawned process a
+   card, whose first all-reduced gradient is the mean of the ranks' shards'
+   computed on one card (1e-5 of the largest), the log written by rank 0
+   alone, every rank the same search paths and alpha, and whose eval gives
+   the single process's predictions in dataset order; the train step's ms
+   with and without the group and the all-reduce's share of it;
+17. prints one JSON line with every kernel's numbers (with x_library and
    x_bound, its time over the library call's and over its bound; `launches`
    from the all-ops net, this slice's main path, each path's own counts
    beside them) and, last, the device line `{"ok": true,
@@ -2391,6 +2404,319 @@ def profile_step(step):
     return {k: round(v, 3) for k, v in split.items()}
 
 
+DP = os.path.join(WORK, "dp")           # the data-parallel phase's checkpoints, logs, rank files
+DP_TRAIN_STEPS = 5                      # fixed-net train steps a rank
+DP_EVAL_BATCHES = 2                     # eval batches of the single process
+DP_SEARCH_STEPS = 5                     # search weight steps a rank, an arch step after the 5th
+DP_GRAD_TOL = 1e-5                      # the all-reduced gradient vs the mean of the shards', of
+                                        # the largest entry
+
+
+def dp_train_cfg(world, root):
+    """arch/mmnas_vqa.json at full width, fp32, DROPOUT_R 0.1: one epoch of
+    DP_TRAIN_STEPS steps of BATCH a rank, no per-epoch eval."""
+    cfg = cfg_for("train", "float32", SYNTH_SIZE=DP_TRAIN_STEPS * BATCH * world, MAX_EPOCH=1,
+                  VERSION="smoke_dp")
+    return cfg.replace(EVAL_EVERY_EPOCH=False, CKPT_ROOT=os.path.join(root, "ckpts"),
+                       LOG_ROOT=os.path.join(root, "log"))
+
+
+def dp_search_cfg(world, root):
+    """The search's fp32 leg (SearchCfg, HSIZE 256, BS 128 a rank, KPATH 1)
+    for one epoch of DP_SEARCH_STEPS weight steps a rank, its arch step
+    after the ALPHA_EVERY-th, the argmax path's eval."""
+    size = DP_SEARCH_STEPS * SEARCH_B * world * 5 // 4
+    return search_cfg("float32", SEARCH_B, 1).replace(
+        SYNTH_SIZE=size, VERSION="smoke_dp_search", CKPT_ROOT=os.path.join(root, "ckpts"),
+        LOG_ROOT=os.path.join(root, "log"), ARCH_ROOT=os.path.join(root, "arch"))
+
+
+def dp_runs(dev, world, root, eval_ckpt):
+    """This rank's fixed-net train, the eval of `eval_ckpt`, and the search,
+    through the engines' loops, in whatever group the process is in; then
+    the train step on one resident batch and the gradients' all-reduce
+    alone, timed (in a group also the step with the all-reduce left out, in
+    turns: with, without, without, with, twice). Every all_reduce_grads call is
+    recorded: its tensors, the buckets they make and the all_reduce calls
+    it issued; the first call's gradients (after the reduce) are kept."""
+    from mmnas_tpu_torch.data.loader import Loader
+    from mmnas_tpu_torch.engine.search import SearchExecution
+    from mmnas_tpu_torch.engine.vqa import Execution, batch_to_device
+    from mmnas_tpu_torch.models.net import INPUT_KEYS
+    from mmnas_tpu_torch.ops import fused_attention as FA
+    from mmnas_tpu_torch.parallel import mesh as pmesh
+    from mmnas_tpu_torch.train.checkpoint import ckpt_path
+    from mmnas_tpu_torch.train.optimizer import build_net_optimizer
+
+    reduce, calls, first = pmesh.all_reduce_grads, [], []
+
+    def recorded(grads):
+        before = pmesh.COUNTS["all_reduce"]
+        reduce(grads)
+        calls.append({"tensors": len(grads), "buckets": len(pmesh.buckets(grads)),
+                      "all_reduce": pmesh.COUNTS["all_reduce"] - before})
+        if not first:
+            first.append([g.detach().clone() for g in grads])
+
+    out = {"rank": pmesh.rank(), "world": pmesh.world_size()}
+    pmesh.all_reduce_grads = recorded
+    try:
+        cfg = dp_train_cfg(world, root)
+        zero_launches(FA)
+        trained = Execution(cfg, dev).run()
+        torch.cuda.synchronize()
+        out["train"] = {"losses": trained.step_losses, "launches": dict(FA.LAUNCHES),
+                        "calls": list(calls), "ckpt": ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, 1)}
+        out["first_grads"] = first[0]
+        out["train"]["log"] = None
+        if pmesh.is_writer():
+            with open(os.path.join(cfg.LOG_ROOT, f"log_{cfg.VERSION}.txt")) as f:
+                out["train"]["log"] = f.read()
+        zero_launches(FA)
+        evaluated = Execution(cfg_for("val", "float32", SYNTH_SIZE=DP_EVAL_BATCHES * BATCH,
+                                      CKPT_PATH=eval_ckpt or out["train"]["ckpt"]), dev).run()
+        out["eval"] = {"preds": evaluated.preds, "launches": dict(FA.LAUNCHES)}
+        calls.clear()
+        scfg = dp_search_cfg(world, root)
+        zero_launches(FA)
+        searched = SearchExecution(scfg, dev).run()
+        torch.cuda.synchronize()
+        out["search"] = {"losses": searched.step_losses, "launches": dict(FA.LAUNCHES),
+                         "calls": list(calls), "paths": searched.paths}
+    finally:
+        pmesh.all_reduce_grads = reduce
+    if world == 1:         # the final state, for the bit-for-bit comparison
+        out["params"] = {n: p.detach().clone() for n, p in trained.net.named_parameters()}
+        out["search"]["params"] = {n: p.detach().clone()
+                                   for n, p in searched.net.named_parameters()}
+    out["search"]["alpha"] = {c: a.detach().clone() for c, a in searched.alpha.items()}
+    del searched
+
+    # the train step alone on this rank's first batch, and its all-reduce
+    exe = Execution(cfg, dev)
+    dataset = exe.build_dataset("train")
+    batch = batch_to_device(next(iter(exe.make_loader(dataset, BATCH))), dev,
+                            INPUT_KEYS + exe.TARGET_KEYS)
+    net, gen = trained.net, torch.Generator(dev).manual_seed(3)
+    params = dict(net.named_parameters())
+    optim = build_net_optimizer(cfg, DP_TRAIN_STEPS)
+    state = optim.init(params)
+    def step_ms():
+        return cuda_time_ms(lambda: exe.train_step(net, optim, state, params, batch, gen),
+                            iters=10, warmup=2)
+
+    if pmesh.is_initialized():
+        times = {True: [], False: []}
+        for reducing in (True, False, False, True) * 2:
+            pmesh.all_reduce_grads = reduce if reducing else (lambda grads: None)
+            try:
+                times[reducing].append(step_ms())
+            finally:
+                pmesh.all_reduce_grads = reduce
+        out["step_ms"], out["step_ms_no_reduce"] = (sum(times[k]) / 4 for k in (True, False))
+    else:
+        out["step_ms"] = step_ms()
+    grads = [torch.randn_like(p) for p in params.values()]
+    out["all_reduce_ms"] = cuda_time_ms(lambda: pmesh.all_reduce_grads(grads), iters=10,
+                                        warmup=2)
+    out["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+    del trained, net, params, state, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_member(dev, world, eval_ckpt):
+    """A rank of the data-parallel phase on several cards: dp_runs, its
+    record saved for the parent (the gradients on rank 0 alone)."""
+    from mmnas_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = dp_runs(dev, world, os.path.join(DP, f"world{world}"), eval_ckpt)
+    if not pmesh.is_writer():
+        del out["first_grads"]
+    torch.save(out, os.path.join(DP, f"world{world}", f"rank{pmesh.rank()}.pt"))
+
+
+def shard_grads(dev, world, rank):
+    """One process, no group: the gradients of the train step on the batch
+    rank `rank` of `world` takes first, with the dropout seed that rank
+    draws (step_seed), from the seeded init every rank starts from."""
+    from mmnas_tpu_torch.data.loader import Loader
+    from mmnas_tpu_torch.data.sampler import SubsetShardSampler
+    from mmnas_tpu_torch.engine.vqa import Execution, batch_to_device, step_seed
+    from mmnas_tpu_torch.models.net import INPUT_KEYS
+    from mmnas_tpu_torch.parallel import mesh as pmesh
+    from mmnas_tpu_torch.train.optimizer import build_net_optimizer
+
+    cfg = dp_train_cfg(world, os.path.join(DP, "shards"))
+    exe = Execution(cfg, dev)
+    dataset = exe.build_dataset("train")
+    loader = Loader(dataset, BATCH, num_workers=cfg.NUM_WORKERS, sampler=SubsetShardSampler(
+        len(dataset), num_replicas=world, rank=rank, shuffle=True))
+    batch = batch_to_device(next(iter(loader)), dev, INPUT_KEYS + exe.TARGET_KEYS)
+    net = exe.build_net(dataset).to(dev)
+    params = dict(net.named_parameters())
+    optim = build_net_optimizer(cfg, DP_TRAIN_STEPS)
+    seen, reduce = [], pmesh.all_reduce_grads
+    pmesh.all_reduce_grads = lambda grads: seen.append([g.detach().clone() for g in grads])
+    try:
+        exe.train_step(net, optim, optim.init(params), params, batch,
+                       torch.Generator(dev).manual_seed(step_seed(cfg.SEED, 0, rank)))
+    finally:
+        pmesh.all_reduce_grads = reduce
+    return seen[0]
+
+
+def dp_check_calls(name, calls, steps, kinds):
+    """Every all_reduce_grads call of a run issued one all_reduce per bucket
+    of its tensors; there were `steps` of them, of `kinds` tensor counts."""
+    bad = [c for c in calls if c["all_reduce"] != c["buckets"]]
+    if len(calls) != steps or bad or not all(c["tensors"] in kinds for c in calls):
+        raise AssertionError(f"{name}: all-reduce calls {calls}")
+
+
+def data_parallel_path(FA, devices, card):
+    """The fixed-net train (5 steps), its eval (2 batches) and the search
+    (5 weight steps, an arch step) single-process, then in a process group
+    over NCCL of the cards the machine has (parallel/mesh.py), through the
+    engines' own loops. World 1 (in this process): losses, parameters and
+    alpha bit for bit the single process's, the same kernel launches, one
+    all_reduce per bucket per step. Two or more cards (spawned, one process
+    a card, world = the cards): the first step's all-reduced gradient is the
+    mean of the ranks' shards' gradients computed here, finite losses, the
+    log written by rank 0 alone, every rank the same search paths and
+    alpha, the eval of the single process's checkpoint in dataset order
+    equal to the single process's. Step ms with and without the group, and
+    the all-reduce's share of the step. `devices`: every card of the
+    machine."""
+    from mmnas_tpu_torch.parallel import mesh as pmesh
+
+    cards, card0 = len(devices), devices[0]
+    alone = dp_runs(card0, 1, os.path.join(DP, "alone"), None)
+    if (len(alone["train"]["calls"]) != DP_TRAIN_STEPS
+            or any(c["all_reduce"] for c in alone["train"]["calls"] + alone["search"]["calls"])):
+        raise AssertionError(f"single process: all-reduce calls {alone['train']['calls']}")
+    ckpt = alone["train"]["ckpt"]
+
+    pmesh.init(0, 1, card0, f"tcp://localhost:{pmesh.free_port()}")
+    try:
+        backend = "nccl" if card0.type == "cuda" else "gloo"
+        if pmesh.world_size() != 1 or torch.distributed.get_backend() != backend:
+            raise AssertionError(f"the world-1 group is not {backend}'s")
+        group = dp_runs(card0, 1, os.path.join(DP, "world1"), ckpt)
+    finally:
+        pmesh.shutdown()
+    name = f"data parallel, world 1 over {backend}"
+    train_calls, search_calls = group["train"]["calls"], group["search"]["calls"]
+    dp_check_calls(f"{name} train", train_calls, DP_TRAIN_STEPS, {len(group["params"])})
+    # 5 weight steps (the sampled path's leaves) and 1 arch step (alpha's 2)
+    dp_check_calls(f"{name} search", search_calls, DP_SEARCH_STEPS + 1, range(1, 10**6))
+    if [c["tensors"] == 2 for c in search_calls] != [False] * DP_SEARCH_STEPS + [True]:
+        raise AssertionError(f"{name}: search all-reduce calls {search_calls}")
+    for key in ("train", "eval", "search"):
+        if group[key]["launches"] != alone[key]["launches"]:
+            raise AssertionError(f"{name} {key}: launches {group[key]['launches']}, the single "
+                                 f"process's {alone[key]['launches']}")
+    unused = [n for n in FA.LAUNCHES
+              if not sum(group[k]["launches"][n] for k in ("train", "eval", "search"))]
+    if unused:
+        raise AssertionError(f"{name}: no launch of {unused}")
+    same = {
+        "train losses": group["train"]["losses"] == alone["train"]["losses"],
+        "train params": all(torch.equal(group["params"][n], p)
+                            for n, p in alone["params"].items()),
+        "eval preds": np.array_equal(group["eval"]["preds"], alone["eval"]["preds"]),
+        "search losses": group["search"]["losses"] == alone["search"]["losses"],
+        "search paths": repr(group["search"]["paths"]) == repr(alone["search"]["paths"]),
+        "search params": all(torch.equal(group["search"]["params"][n], p)
+                             for n, p in alone["search"]["params"].items()),
+        "alpha": all(torch.equal(group["search"]["alpha"][c], a)
+                     for c, a in alone["search"]["alpha"].items())}
+    losses = alone["train"]["losses"] + alone["search"]["losses"]
+    if not all(same.values()) or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{name}: not the single process's bit for bit: {same}")
+    share = group["all_reduce_ms"] / group["step_ms"]
+    print(f"{name}: train losses {[round(x, 3) for x in group['train']['losses']]}, search "
+          f"losses {[round(x, 3) for x in group['search']['losses']]}; bit for bit the single "
+          f"process's ({', '.join(same)}); launches {group['train']['launches']} (train), "
+          f"{group['search']['launches']} (search); all-reduces per step {train_calls[0]} "
+          f"(train), {search_calls[0]} (weight), {search_calls[-1]} (arch)", flush=True)
+    print(f"data parallel train step fp32 BS {BATCH}: {alone['step_ms']:.3f} ms without a group, "
+          f"{group['step_ms']:.3f} ms in the world-1 {backend} group "
+          f"({group['step_ms_no_reduce']:.3f} ms there with the all-reduce left out, in turns); "
+          f"the all-reduce of its {group['grad_bytes'] / 2**20:.1f} MiB of gradients "
+          f"{group['all_reduce_ms']:.3f} ms, {100 * share:.1f}% of the step, on {card}",
+          flush=True)
+    out = {"world1": {"same": same, "launches": {k: group[k]["launches"] for k in
+                                                  ("train", "eval", "search")},
+                      "all_reduce_calls": {"train_step": train_calls[0],
+                                           "weight_step": search_calls[0],
+                                           "arch_step": search_calls[-1]},
+                      "step_ms_alone": alone["step_ms"], "step_ms_group": group["step_ms"],
+                      "step_ms_group_no_reduce": group["step_ms_no_reduce"],
+                      "all_reduce_ms": group["all_reduce_ms"], "all_reduce_share": share,
+                      "grad_bytes": group["grad_bytes"]},
+           "cards": cards}
+    del group
+    alone_preds = alone["eval"]["preds"]
+    del alone
+    torch.cuda.empty_cache()
+    if cards >= 2:
+        out[f"world{cards}"] = dp_several(devices, ckpt, alone_preds, card)
+    return out
+
+
+def dp_several(devices, ckpt, alone_preds, card):
+    """data_parallel_path on every card of `devices`, one spawned process a
+    card."""
+    from mmnas_tpu_torch.parallel import mesh as pmesh
+
+    world, dev = len(devices), devices[0]
+    name = f"data parallel, world {world}"
+    os.makedirs(os.path.join(DP, f"world{world}"), exist_ok=True)
+    t0 = time.perf_counter()
+    pmesh.spawn(dp_member, (world, ckpt), devices)
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(DP, f"world{world}", f"rank{r}.pt"), weights_only=False,
+                        map_location=dev) for r in range(world)]
+    shards = [shard_grads(dev, world, r) for r in range(world)]
+    want = [sum(parts) / world for parts in zip(*shards)]
+    got = [g.to(dev) for g in ranks[0]["first_grads"]]
+    largest = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want)) / largest
+    shards_differ = any(not torch.equal(a, b) for a, b in zip(shards[0], shards[1]))
+    losses = [x for r in ranks for x in r["train"]["losses"] + r["search"]["losses"]]
+    log = ranks[0]["train"]["log"]
+    checks = {
+        "first gradient is the mean of the shards'": err <= DP_GRAD_TOL and shards_differ,
+        "finite losses": all(map(math.isfinite, losses)) and len(
+            ranks[0]["train"]["losses"]) == DP_TRAIN_STEPS,
+        "logged by rank 0 alone": log is not None and log.count("epoch = 1 ") == 1,
+        "every rank the same losses": all(r["train"]["losses"] == ranks[0]["train"]["losses"]
+                                          for r in ranks),
+        "every rank the same search paths and alpha": all(
+            repr(r["search"]["paths"]) == repr(ranks[0]["search"]["paths"])
+            and all(torch.equal(r["search"]["alpha"][c].cpu(), a.cpu())
+                    for c, a in ranks[0]["search"]["alpha"].items()) for r in ranks),
+        "eval preds in dataset order": all(np.array_equal(r["eval"]["preds"], alone_preds)
+                                           for r in ranks)}
+    for r in ranks:
+        dp_check_calls(f"{name} rank {r['rank']} train", r["train"]["calls"], DP_TRAIN_STEPS,
+                       {len(got)})
+    print(f"{name}: {seconds:.1f} s; train losses {[round(x, 3) for x in ranks[0]['train']['losses']]}"
+          f"; first gradient {err:.2e} of the largest from the mean of the {world} shards'; "
+          f"step {ranks[0]['step_ms']:.3f} ms ({ranks[0]['step_ms_no_reduce']:.3f} ms with the "
+          f"all-reduce left out), the all-reduce {ranks[0]['all_reduce_ms']:.3f} ms on {card}; "
+          f"{checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"{name}: {checks}")
+    return {"seconds": seconds, "checks": checks, "grad_err": err,
+            "step_ms": ranks[0]["step_ms"], "step_ms_no_reduce": ranks[0]["step_ms_no_reduce"],
+            "all_reduce_ms": ranks[0]["all_reduce_ms"],
+            "all_reduce_share": ranks[0]["all_reduce_ms"] / ranks[0]["step_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2487,6 +2813,9 @@ def main() -> int:
     phase("the all-ops net: eval, train step")
     device_rel = device_rel_path(FA, dev, card)
     phase("VQA eval on the packed corpus with DEVICE_REL and SHIP_INT8")
+    data_parallel = data_parallel_path(
+        FA, [torch.device("cuda", i) for i in range(torch.cuda.device_count())], card)
+    phase("data parallel: train, eval and search in a process group over NCCL")
     floor = launch_floor(PR, dev)
 
     def pick(rows, Lq, Lk, kind):
@@ -2587,7 +2916,9 @@ def main() -> int:
                for dt, leg in vgd["train"]["legs"].items()},
             "vgd_search_fp32": vgd["search"]["float32_bs128_k1"]["launches"][row["name"]],
             **{f"itm_train_{dt}": leg["launches"][row["name"]] for dt, leg in itm["legs"].items()},
-            "itm_search_fp32": itm["search"]["float32_bs128_k1"]["launches"][row["name"]]}
+            "itm_search_fp32": itm["search"]["float32_bs128_k1"]["launches"][row["name"]],
+            **{f"data_parallel_world1_{k}": launches[row["name"]]
+               for k, launches in data_parallel["world1"]["launches"].items()}}
     rows += [{"name": name, **row} for name, row in probes["rows"].items()]
     for row in rows:          # row 9 beside the launch floor
         if row["name"].startswith("probe_wrblock"):
@@ -2609,7 +2940,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "probes": {k: v for k, v in probes.items() if k != "rows"},
                       "eval": evals, "train": train, "search": search, "vgd": vgd, "itm": itm,
                       "all_ops": all_ops, "device_rel": device_rel,
-                      "launch_floor": floor}))
+                      "data_parallel": data_parallel, "launch_floor": floor}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -518,15 +518,19 @@ def cfg_from_args(task: str, args, search: bool = False) -> Cfg:
     else:
         # reference ties eval batch to train batch (train_vqa.py:134)
         cfg = cfg.replace(EVAL_BATCH_SIZE=cfg.BATCH_SIZE)
-    if cfg.MULTIHOST:
+    # data parallelism, one process per card (parallel/mesh.py launch):
+    # --MULTIHOST joins torchrun's group, several --GPU ids or --NDEV N
+    # spawn a process per card; the launcher refuses cards the machine has not
+    if cfg.MODEL_AXIS != 1:
         raise NotImplementedError(
-            "--MULTIHOST is not ported yet (ROADMAP.md, queue 1: parallel/)")
-    # the port runs on one card: more than one (a mesh, tensor parallelism)
-    # is parallel/'s
-    if cfg.N_DEVICES > 1 or cfg.MODEL_AXIS != 1 or "," in getattr(args, "GPU", "0"):
-        raise NotImplementedError(
-            "--NDEV > 1, --MODEL_AXIS > 1 and several --GPU ids are not ported yet "
-            "(ROADMAP.md, queue 1: parallel/); the port runs on the one card --GPU names")
+            "--MODEL_AXIS > 1 is not ported yet (ROADMAP.md, queue 1: tensor parallelism); "
+            "the port runs data parallel, one process per card")
+    gpus = [g for g in str(getattr(args, "GPU", "0")).split(",") if g.strip()]
+    if len(gpus) > 1 and cfg.N_DEVICES not in (0, len(gpus)):
+        raise ValueError(f"--NDEV {cfg.N_DEVICES} and --GPU {args.GPU} name different worlds")
+    if cfg.MULTIHOST and (len(gpus) > 1 or cfg.N_DEVICES > 1):
+        raise ValueError("--MULTIHOST takes its world from torchrun (one process per card, "
+                         "on cuda:LOCAL_RANK): no --GPU list and no --NDEV")
     # flags the JAX package accepts where no path reads them; the port refuses them there
     if task == "itm" and cfg.DEVICE_REL:
         raise ValueError(

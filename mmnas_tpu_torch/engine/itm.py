@@ -1,5 +1,5 @@
-"""ITM (image-text matching) fixed-net execution on one device (counterpart
-of mmnas_tpu/engine/itm.py).
+"""ITM (image-text matching) fixed-net execution on one device, or
+data-parallel on several (counterpart of mmnas_tpu/engine/itm.py).
 
 `Execution(cfg, device).run()` is the VQA engine's (engine/vqa.py) with the
 task's dataset (Flickr30K/COCO 'precomp', or SynthItmDataset with --SYNTH),
@@ -30,6 +30,14 @@ thread, so no batch of an epoch is assembled from the previous epoch's
 negatives. The host-side functions below are the JAX package's, unchanged
 (tests/test_torch_repair.py holds them to it); `DeviceScores` lets their
 `np.asarray` fetch a tile from the card.
+
+Data parallel, every rank draws the same candidates, and the scorer splits
+each tile of pairs over the ranks and gathers the scores (`score_pairs`;
+the JAX package's sharded_pair_call, itm.py:52-70, and the reference's
+rank-row-sharded score matrix), so every rank ends the mining with the
+same negatives (each rank's loader reads those of its own items) and the
+R@K sweep with the whole score matrix; the triplet step's gradients are
+averaged over the ranks as the VQA engine's are.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from mmnas_tpu_torch.engine.vqa import Execution as VqaExecution
 from mmnas_tpu_torch.models.net import (
     ITM_NEG_KEYS, NetFull, compute_call, compute_dtype, compute_params,
 )
+from mmnas_tpu_torch.parallel import mesh as pmesh
 from mmnas_tpu_torch.utils.itm_loss import bce_triplet_loss, margin_triplet_loss
 
 # tiles of scores enqueued ahead of the host's fetch in the corpus sweeps:
@@ -485,12 +494,21 @@ def score_pairs(decode: Callable, corpus: Dict[str, torch.Tensor],
     """Scores of the pairs (img_idx[p], cap_idx[p]), host index arrays, with
     cap_idx relative to the window `text_enc`: the indices go to the
     device, the pairs' inputs are gathered there and `decode(x_out, x_mask,
-    batch)` (an apply_decoder) scores them. Returns without waiting."""
+    batch)` (an apply_decoder) scores them. Data parallel, each rank scores
+    its contiguous share of the pairs (the last one padded) and every rank
+    gets all the scores by one all_gather. Returns without waiting."""
+    n, world = len(img_idx), pmesh.world_size()
+    if world > 1:
+        share = -(-n // world)
+        mine = slice(pmesh.rank() * share, (pmesh.rank() + 1) * share)
+        img_idx, cap_idx = (np.pad(np.asarray(a), (0, share * world - n))[mine]
+                            for a in (img_idx, cap_idx))
     dev = corpus["caps"].device
     ii, cc = (torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev, non_blocking=True)
               for a in (img_idx, cap_idx))
     batch = {k: corpus[k][ii] for k in ("frcn_feat", "bbox_feat", "rel_img")}
-    return DeviceScores(decode(text_enc["x"][cc], text_enc["mask"][cc], batch))
+    scores = decode(text_enc["x"][cc], text_enc["mask"][cc], batch)
+    return DeviceScores(pmesh.gather_tensor(scores)[:n] if world > 1 else scores)
 
 
 def mine(cfg, dataset, corpus, rng, encode: Callable, decode: Callable) -> None:

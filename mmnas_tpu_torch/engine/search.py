@@ -1,5 +1,5 @@
-"""Bilevel supernet search for VQA on one device (counterpart of
-mmnas_tpu/engine/search.py).
+"""Bilevel supernet search for VQA on one device, or data-parallel on
+several (counterpart of mmnas_tpu/engine/search.py).
 
 `SearchExecution(cfg, device).run()` splits one dataset 80/20 into a weight
 loader and an arch loader (search_vqa.py:560-583), builds `NetSearch` and
@@ -38,8 +38,17 @@ parity tests feed the JAX engine the paths this engine recorded
 `compute_params` (bf16 casts of the fp32 masters); alpha, the gates'
 softmax, Adam and the clip stay fp32.
 
-Not ported: SCAN_STEPS, the dense/unified/hybrid weight steps, the mesh
-(ROADMAP.md).
+Data parallel (parallel/mesh.py): both loaders are rank-strided, so each
+rank takes BATCH_SIZE examples a weight step and an arch step; every rank
+samples the same paths (the host generators' seeds depend on SEED and the
+step, never the rank, and alpha is the same on every rank), so the weight
+step's masked gradients and the arch step's alpha gradients are averaged
+over the ranks in the same buckets before the clip and Adam. Dropout
+draws its own masks on each rank. Rank 0 alone writes the checkpoint, the
+genotype archive and the log; the eval gathers the ranks' predictions.
+
+Not ported: SCAN_STEPS, the dense/unified/hybrid weight steps, tensor
+parallelism (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -54,9 +63,9 @@ import torch
 from torch.func import functional_call
 
 from mmnas_tpu_torch.data.loader import Loader
-from mmnas_tpu_torch.data.sampler import SubsetShardSampler
 from mmnas_tpu_torch.engine.vqa import (
-    batch_to_device, bce_with_logits_sum, check_int8_shipping, step_seed,
+    batch_to_device, bce_with_logits_sum, check_int8_shipping, save_on_writer, shard_sampler,
+    step_seed,
 )
 from mmnas_tpu_torch.genotype import append_genotype
 from mmnas_tpu_torch.models.convert import (
@@ -65,7 +74,8 @@ from mmnas_tpu_torch.models.convert import (
 )
 from mmnas_tpu_torch.models.net import INPUT_KEYS, compute_call, compute_params
 from mmnas_tpu_torch.models.supernet import CELLS, NetSearch
-from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint, save_checkpoint
+from mmnas_tpu_torch.parallel import mesh as pmesh
+from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint
 from mmnas_tpu_torch.train.optimizer import (
     WarmupAdam, build_net_optimizer, clip_by_global_norm, plain_adam,
 )
@@ -133,11 +143,11 @@ class SearchExecution:
         return VqaDataset(cfg, "train")
 
     def make_loader(self, dataset, subset_indices) -> Loader:
-        """Both bilevel loaders shuffle and use BATCH_SIZE (search_vqa.py:560-583)."""
+        """Both bilevel loaders shuffle and use BATCH_SIZE a rank
+        (search_vqa.py:560-583), rank-strided over the split."""
         check_int8_shipping(self.cfg, dataset)
         return Loader(dataset, self.cfg.BATCH_SIZE,
-                      sampler=SubsetShardSampler(len(dataset), shuffle=True,
-                                                 subset_indices=subset_indices),
+                      sampler=shard_sampler(len(dataset), True, subset_indices),
                       num_workers=self.cfg.NUM_WORKERS)
 
     def build_net(self, dataset) -> NetSearch:
@@ -186,6 +196,7 @@ class SearchExecution:
         # a selected parameter the loss does not reach (the text-relation
         # stem) has a zero gradient, as in JAX: Adam still counts its step
         grads = [torch.zeros_like(masters[n]) if g is None else g for n, g in zip(names, grads)]
+        pmesh.all_reduce_grads(grads)   # every rank ran the same paths: the same leaves
         if cfg.NET_GRAD_CLIP > 0:  # net parameters only (search_vqa.py:298)
             clip_by_global_norm(grads, cfg.NET_GRAD_CLIP)
         lr = optim.step(opt_state, masters, dict(zip(names, grads)), mask)
@@ -205,7 +216,8 @@ class SearchExecution:
             lambda b: functional_call(net, params, (b, leaves, idx),
                                       {"mode": mode, "train": True, "generator": generator},
                                       tie_weights=False), batch)
-        grads = torch.autograd.grad(loss, [leaves[c] for c in CELLS])
+        grads = list(torch.autograd.grad(loss, [leaves[c] for c in CELLS]))
+        pmesh.all_reduce_grads(grads)
         alpha_old = {c: a.clone() for c, a in alpha.items()} if mode == "two" else None
         alpha_optim.step(alpha_state, alpha, dict(zip(CELLS, grads)))
         if mode == "two":
@@ -231,11 +243,11 @@ class SearchExecution:
         weight steps' losses (on the device) and the last lr."""
         cfg, net = self.cfg, result.net
         masters = dict(net.named_parameters())
-        losses, lr = [], 0.0
+        losses, lr, rank = [], 0.0, pmesh.rank()
         for step, batch in enumerate(batches):
             sampler = torch.Generator().manual_seed(sample_seed(cfg.SEED, global_step))
             idxs = [net.sample_indices(result.alpha_host, sampler) for _ in range(cfg.KPATH)]
-            generator.manual_seed(step_seed(cfg.SEED, global_step))
+            generator.manual_seed(step_seed(cfg.SEED, global_step, rank))
             loss, lr = self.weight_step(net, optim, result.opt_state, masters, batch, idxs,
                                         generator)
             losses.append(loss)
@@ -246,7 +258,7 @@ class SearchExecution:
                 idx = (net.sample_indices_two(result.alpha_host, sampler)
                        if cfg.ALPHA_BINARY_MODE == "two"
                        else net.sample_indices(result.alpha_host, sampler))
-                generator.manual_seed(step_seed(cfg.SEED, stream))
+                generator.manual_seed(step_seed(cfg.SEED, stream, rank))
                 self.arch_step(net, alpha_optim, result.alpha_state, result.alpha,
                                next_arch_batch(), idx, generator)
                 result.alpha_host = host_copy(result.alpha)
@@ -276,6 +288,7 @@ class SearchExecution:
             start_epoch = int(ckpt["epoch"])
             opt_state = WarmupAdam.set_start_step(opt_state, start_epoch * epoch_steps)
             print(f" ========== Resumed from {cfg.CKPT_FILE_PATH} @ epoch {start_epoch}")
+        pmesh.broadcast_params(list(masters.values()) + [alpha[c] for c in CELLS])
 
         generator = torch.Generator(dev)
         arch_json = os.path.join(cfg.ARCH_ROOT, cfg.VERSION + ".json")
@@ -309,19 +322,22 @@ class SearchExecution:
                                         generator)
             global_step += len(losses)
 
-            epoch_losses = torch.stack(losses).tolist() if losses else []
+            # the global batches' summed losses
+            epoch_losses = (pmesh.sum_over_ranks(torch.stack(losses)).tolist()
+                            if losses else [])
             result.step_losses += epoch_losses
             loss_sum, epoch_finish, dt = sum(epoch_losses), epoch + 1, time.time() - t0
-            result.epoch_losses.append(loss_sum / max(epoch_steps, 1) / cfg.BATCH_SIZE)
+            result.epoch_losses.append(loss_sum / max(epoch_steps, 1) / cfg.BATCH_SIZE
+                                       / pmesh.data_axis_size())
             genotype = net.genotype(result.alpha_host)
             weights = net.genotype_weights(result.alpha_host)
             if epoch_finish % cfg.CKPT_EVERY == 0 or epoch_finish == cfg.MAX_EPOCH:
-                save_checkpoint(ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, epoch_finish),
-                                {"state_dict": to_jax_params(net),
-                                 "net_optim": optim_state_to_jax(result.opt_state, net),
-                                 "alpha": alpha_to_jax(alpha),
-                                 "alpha_optim": alpha_optim_state_to_jax(alpha_state),
-                                 "epoch": epoch_finish})
+                save_on_writer(ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, epoch_finish),
+                               lambda: {"state_dict": to_jax_params(net),
+                                        "net_optim": optim_state_to_jax(result.opt_state, net),
+                                        "alpha": alpha_to_jax(alpha),
+                                        "alpha_optim": alpha_optim_state_to_jax(alpha_state),
+                                        "epoch": epoch_finish})
             msg = (f"epoch = {epoch_finish}  loss = {result.epoch_losses[-1]:.6f}  "
                    f"lr = {float(lr):.8f}  epoch_s = {dt:.1f}")
             print(msg)
@@ -332,9 +348,11 @@ class SearchExecution:
                 self.logger.write(f"{name}: {weights[name]}")
             # per-epoch genotype archive, reset on the first epoch unless
             # resuming (search_vqa.py:379-386, search.py:460-467)
-            if epoch_finish == 1 + start_epoch and not cfg.RESUME and os.path.exists(arch_json):
-                os.remove(arch_json)
-            append_genotype(arch_json, epoch_finish, genotype)
+            if pmesh.is_writer():
+                if (epoch_finish == 1 + start_epoch and not cfg.RESUME
+                        and os.path.exists(arch_json)):
+                    os.remove(arch_json)
+                append_genotype(arch_json, epoch_finish, genotype)
             if cfg.EVAL_EVERY_EPOCH:
                 acc = self.eval(eval_loader, net, result.alpha_host)
                 if acc is not None:
@@ -360,10 +378,13 @@ class SearchExecution:
                     ans.append(batch["ans"])
         if not ans:
             return None
-        # one replica: the sampler keeps the split's order, truncation drops
-        # the loader's pad_to_full tail
-        preds = np.concatenate(preds)[:len(eval_loader.sampler.subset_indices)]
-        scores = np.concatenate(ans)[:len(preds)]
+        # every rank's predictions and labels in the split's order, the
+        # padding dropped (collective: before the writer gate)
+        n_items = len(eval_loader.sampler.subset_indices)
+        preds = pmesh.allgather_host_order(np.concatenate(preds), n_items)
+        scores = pmesh.allgather_host_order(np.concatenate(ans), n_items)
+        if not pmesh.is_writer():
+            return None
         acc = float(np.mean(scores[np.arange(len(preds)), preds]))
         print(f"search eval accuracy = {100.0 * acc:.2f}")
         return acc

@@ -1,5 +1,5 @@
-"""VGD (visual grounding) fixed-net execution on one device (counterpart of
-mmnas_tpu/engine/vgd.py).
+"""VGD (visual grounding) fixed-net execution on one device, or
+data-parallel on several (counterpart of mmnas_tpu/engine/vgd.py).
 
 `Execution(cfg, device).run()` is the VQA engine's (engine/vqa.py) with the
 task's dataset (RefCOCO-family referring expressions, or SynthVgdDataset
@@ -17,10 +17,14 @@ eval:
   forward, the deltas decoded against the proposals and clipped to the
   image, the argmax-score box's IoU with the ground truth, a hit where
   IoU >= OVERLAP_THRESHOLD. The hits stay on the device until the loop
-  ends; the loader's pad items are dropped as the VQA eval drops them.
+  ends; the ranks' hits are gathered into dataset order and the loader's
+  pad items dropped as the VQA eval drops them.
 
-One device, one process: the JAX step's division of the gradients by the
-number of data shards when LOSS_AVG is off is a division by 1 here.
+Data parallel, the gradients are averaged over the ranks as the VQA
+engine's are, with LOSS_AVG too: each rank's loss is then a mean over its
+own masks, and the average of the ranks' means is the reference's DDP step
+(the JAX package's global-batch mean differs from it by the ranks' count
+skew, mmnas_tpu/engine/vgd.py:119-121).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from mmnas_tpu_torch.data.loader import Loader
 from mmnas_tpu_torch.engine.vqa import Execution as VqaExecution
 from mmnas_tpu_torch.engine.vqa import batch_to_device, bce_with_logits_sum
 from mmnas_tpu_torch.models.net import INPUT_KEYS, VGD_KEYS, NetFull, compute_dtype
+from mmnas_tpu_torch.parallel import mesh as pmesh
 from mmnas_tpu_torch.utils.bbox import bbox_overlaps_torch
 from mmnas_tpu_torch.utils.bbox_transform import bbox_transform_inv_torch, clip_boxes_torch
 
@@ -131,8 +136,8 @@ def hits_over(cfg, loader: Loader, net: torch.nn.Module, params: Mapping[str, to
               device: torch.device, extra=()):
     """Per item (hits, IoUs) over the loader's split as numpy arrays, in
     dataset order: each batch's forward and grounding_hits on the device,
-    one copy to the host at the end. One replica keeps the dataset order,
-    and truncation drops the loader's pad_to_full tail."""
+    one copy to the host at the end, the ranks' items gathered into the
+    split's order and the padding dropped (collective)."""
     hits, ious = [], []
     with torch.inference_mode():
         for host_batch in loader:
@@ -144,8 +149,8 @@ def hits_over(cfg, loader: Loader, net: torch.nn.Module, params: Mapping[str, to
         if not hits:
             return np.zeros(0, np.int32), np.zeros(0, np.float32)
         n_items = len(loader.sampler.subset_indices)
-        return (torch.cat(hits).cpu().numpy()[:n_items],
-                torch.cat(ious).cpu().numpy()[:n_items])
+        return (pmesh.allgather_host_order(torch.cat(hits).cpu().numpy(), n_items),
+                pmesh.allgather_host_order(torch.cat(ious).cpu().numpy(), n_items))
 
 
 class GroundingTask:

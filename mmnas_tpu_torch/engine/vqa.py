@@ -1,5 +1,5 @@
-"""VQA fixed-architecture execution on one device (counterpart of
-mmnas_tpu/engine/vqa.py).
+"""VQA fixed-architecture execution on one device, or data-parallel on
+several (counterpart of mmnas_tpu/engine/vqa.py).
 
 `Execution(cfg, device).run()` builds the dataset and loader and the
 genotype's `NetFull`, then
@@ -19,8 +19,15 @@ genotype's `NetFull`, then
   accuracy, the EvalAI result JSON and, where the dataset has annotation
   files, VQAEval (train_vqa.py:352-491).
 
-One device, one process: the JAX package's division of the gradients by
-the number of data shards is a division by 1 here.
+Data parallel (parallel/mesh.py, one process per card): each rank takes
+BATCH_SIZE examples from a rank-strided sampler, so the global batch is
+BATCH_SIZE x world; the per-rank loss is a sum, and the gradients are
+summed over the ranks and divided by the world size before the clip (the
+JAX package's psum / n_shards). Dropout draws its own masks on each rank;
+rank 0 draws what one process draws. The epoch's loss line sums the ranks'
+losses over the global count; rank 0 alone writes logs and checkpoints,
+and every rank waits for the checkpoint before going on; eval outputs are
+gathered into dataset order. With one process all of this is the identity.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from mmnas_tpu_torch.models.convert import (
 from mmnas_tpu_torch.models.net import (
     INPUT_KEYS, NetFull, compute_call, compute_dtype, compute_params,
 )
+from mmnas_tpu_torch.parallel import mesh as pmesh
 from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint, save_checkpoint
 from mmnas_tpu_torch.train.optimizer import WarmupAdam, build_net_optimizer, clip_by_global_norm
 from mmnas_tpu_torch.utils.logger import TextLogger, dump_result_json
@@ -88,11 +96,32 @@ def bce_with_logits_sum(logits, targets):
     return per.sum()
 
 
-def step_seed(seed: int, global_step: int) -> int:
-    """The dropout seed of one train step: a function of the run's seed and
-    the step, so a resumed run draws what an uninterrupted one would (the
-    JAX package folds the step into its key, engine/vqa.py:182)."""
-    return ((seed + 1) * 1_000_003 + global_step) % 2**63
+# apart from any step's seed: a run stays far below 2**40 steps
+RANK_STRIDE = 2**40
+
+
+def step_seed(seed: int, global_step: int, rank: int = 0) -> int:
+    """The dropout seed of one train step on one rank: a function of the
+    run's seed and the step, so a resumed run draws what an uninterrupted
+    one would (the JAX package folds the step into its key,
+    engine/vqa.py:182). Each data-parallel rank draws its own masks; rank 0
+    draws what one process does."""
+    return ((seed + 1) * 1_000_003 + global_step + rank * RANK_STRIDE) % 2**63
+
+
+def shard_sampler(data_size: int, shuffle: bool, subset_indices=None) -> SubsetShardSampler:
+    """This rank's share of a split: rank-strided over the data-parallel
+    ranks (data/sampler.py), the whole split in one process."""
+    return SubsetShardSampler(data_size, num_replicas=pmesh.world_size(), rank=pmesh.rank(),
+                              shuffle=shuffle, subset_indices=subset_indices)
+
+
+def save_on_writer(path: str, state_fn) -> None:
+    """Rank 0 writes the checkpoint state_fn() to `path`; every rank waits
+    until it is on disk, so any rank may read it next."""
+    if pmesh.is_writer():
+        save_checkpoint(path, state_fn())
+    pmesh.barrier()
 
 
 class Execution:
@@ -114,13 +143,13 @@ class Execution:
         return VqaDataset(cfg, run_mode)
 
     def make_loader(self, dataset, batch_size: int, shuffle: bool = False) -> Loader:
-        """One replica; dataset order for eval, the epoch-seeded shuffle of
-        the shared sampler for training."""
+        """This rank's loader of `batch_size` examples a step (the JAX
+        package's per-process loader, engine/vqa.py:78-98): dataset order
+        for eval, the epoch-seeded shuffle of the shared sampler for
+        training."""
         check_int8_shipping(self.cfg, dataset)
-        return Loader(
-            dataset, batch_size,
-            sampler=SubsetShardSampler(len(dataset), shuffle=shuffle),
-            num_workers=self.cfg.NUM_WORKERS)
+        return Loader(dataset, batch_size, sampler=shard_sampler(len(dataset), shuffle),
+                      num_workers=self.cfg.NUM_WORKERS)
 
     # ----------------------------------------------------------------- model
     def build_net(self, dataset) -> NetFull:
@@ -169,7 +198,8 @@ class Execution:
         the forward computes with `compute_params` (bf16 casts of the fp32
         masters under --DTYPE bfloat16, cast once per step), so the gradients,
         the clip and Adam are fp32; `self.forward_loss` is the task's loss.
-        Returns (loss, lr); the loss stays on the device."""
+        The gradients are averaged over the data-parallel ranks before the
+        clip. Returns (loss, lr); the loss (this rank's) stays on the device."""
         cfg = self.cfg
         cast = compute_params(net, cfg) if compute_dtype(cfg) != torch.float32 else None
         loss = self.forward_loss(
@@ -179,6 +209,7 @@ class Execution:
         grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = [torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, grads)]
+        pmesh.all_reduce_grads(grads)
         if cfg.NET_GRAD_CLIP > 0:
             clip_by_global_norm(grads, cfg.NET_GRAD_CLIP)
         lr = optim.step(opt_state, params, dict(zip(names, grads)))
@@ -201,8 +232,10 @@ class Execution:
             start_epoch = int(ckpt["epoch"])
             opt_state = WarmupAdam.set_start_step(opt_state, start_epoch * epoch_steps)
             print(f" ========== Resumed from {cfg.CKPT_FILE_PATH} @ epoch {start_epoch}")
+        pmesh.broadcast_params(list(params.values()))
 
         generator = torch.Generator(self.device)
+        rank, global_bs = pmesh.rank(), cfg.BATCH_SIZE * pmesh.data_axis_size()
         global_step = start_epoch * epoch_steps
         epoch_losses, step_losses = [], []
         for epoch in range(start_epoch, cfg.MAX_EPOCH):
@@ -216,18 +249,20 @@ class Execution:
                 for step, host_batch in enumerate(train_loader):
                     batch = batch_to_device(host_batch, self.device,
                                             INPUT_KEYS + self.TARGET_KEYS)
-                    generator.manual_seed(step_seed(cfg.SEED, global_step))
+                    generator.manual_seed(step_seed(cfg.SEED, global_step, rank))
                     loss, lr = self.train_step(net, optim, opt_state, params, batch, generator)
                     losses.append(loss)
                     global_step += 1
                     if cfg.DEBUG:
                         print(step, float(loss) / cfg.BATCH_SIZE)
-            epoch_step_losses = torch.stack(losses).tolist() if losses else []
+            # the global batches' summed losses
+            epoch_step_losses = (pmesh.sum_over_ranks(torch.stack(losses)).tolist()
+                                 if losses else [])
             step_losses += epoch_step_losses
             loss_sum = sum(epoch_step_losses)
             epoch_finish = epoch + 1
             dt = time.time() - t0
-            n_seen = epoch_steps * cfg.BATCH_SIZE
+            n_seen = epoch_steps * global_bs
             msg = (f"epoch = {epoch_finish}  loss = {loss_sum / max(n_seen, 1):.6f}  "
                    f"lr = {float(lr):.8f}  ips = {n_seen / dt:.1f}")
             print(msg)
@@ -235,10 +270,10 @@ class Execution:
             epoch_losses.append(loss_sum / max(n_seen, 1))
 
             if epoch_finish % cfg.CKPT_EVERY == 0 or epoch_finish == cfg.MAX_EPOCH:
-                save_checkpoint(ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, epoch_finish),
-                                {"state_dict": to_jax_params(net),
-                                 "net_optim": optim_state_to_jax(opt_state, net),
-                                 "epoch": epoch_finish})
+                save_on_writer(ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, epoch_finish),
+                               lambda: {"state_dict": to_jax_params(net),
+                                        "net_optim": optim_state_to_jax(opt_state, net),
+                                        "epoch": epoch_finish})
             if eval_loader is not None and cfg.EVAL_EVERY_EPOCH:
                 self.eval(eval_loader, net=net, valid=True)
         return TrainResult(net, opt_state, epoch_losses, step_losses)
@@ -261,11 +296,16 @@ class Execution:
                 preds.append(logits.argmax(dim=-1).cpu().numpy())
                 if "ans" in batch:
                     ans_scores.append(batch["ans"])
-        seconds = time.perf_counter() - t0
-        # one process, one replica: the sampler keeps dataset order, and
-        # truncation drops the loader's pad_to_full tail
+        # every rank's predictions and labels in dataset order, the padding
+        # dropped (collective: before the writer gate)
         n_items = len(eval_loader.sampler.subset_indices)
-        preds = (np.concatenate(preds) if preds else np.zeros((0,), np.int64))[:n_items]
+        preds = pmesh.allgather_host_order(
+            np.concatenate(preds) if preds else np.zeros((0,), np.int64), n_items)
+        ans_scores = ([pmesh.allgather_host_order(np.concatenate(ans_scores), n_items)]
+                      if ans_scores else [])
+        seconds = time.perf_counter() - t0
+        if not pmesh.is_writer():
+            return EvalResult(None, preds, seconds)
 
         # result JSON in EvalAI format (train_vqa.py:421-430)
         qid_list = getattr(dataset, "qid_list", None)
@@ -281,7 +321,7 @@ class Execution:
         # skipped when the dataset carries placeholder zero scores (real VQA
         # val/test items): VQAEval below is the metric there
         if ans_scores and getattr(dataset, "has_answer_scores", True):
-            scores = np.concatenate(ans_scores)[:n_items]
+            scores = ans_scores[0]
             # VQA accuracy == the soft score of the predicted answer
             accuracy = float(np.mean(scores[np.arange(len(preds)), preds]))
             msg = f"eval accuracy = {100.0 * accuracy:.2f}"

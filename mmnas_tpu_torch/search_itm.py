@@ -1,5 +1,6 @@
 """Supernet architecture search for ITM with the PyTorch port, on one CUDA
-GPU (counterpart of the JAX package's search_itm.py).
+GPU or data-parallel on several (counterpart of the JAX package's
+search_itm.py; --GPU 0,1, --NDEV N, or --MULTIHOST under torchrun).
 
 The same flags as the JAX package's search CLI (make_arg_parser("itm",
 search=True)):
@@ -11,7 +12,7 @@ Per-epoch hard-negative mining with a sampled path, genotypes appended to
 ./arch/<VERSION>.json in the reference schema, the argmax path's R@K on the
 val split; checkpoints are the pickled numpy pytrees either package writes
 and resumes from. --SCAN_STEPS, the dense/unified/hybrid weight steps and
---MULTIHOST are not ported.
+--MODEL_AXIS are not ported.
 """
 
 from __future__ import annotations
@@ -20,16 +21,15 @@ import torch
 
 from mmnas_tpu_torch.config import cfg_from_args, make_arg_parser
 from mmnas_tpu_torch.engine.search_itm import SearchExecution
+from mmnas_tpu_torch.parallel.mesh import launch, run_engine
 
 
 def main(argv=None):
     args = make_arg_parser("itm", search=True).parse_args(argv)
-    if args.MULTIHOST:
-        raise NotImplementedError("--MULTIHOST is not ported (ROADMAP.md, queue 1: parallel/)")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the GPU")
     cfg = cfg_from_args("itm", args, search=True)
-    return SearchExecution(cfg, torch.device("cuda", int(args.GPU))).run()
+    return launch(run_engine, (SearchExecution, cfg), args.GPU, cfg.N_DEVICES, cfg.MULTIHOST)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
 """Supernet architecture search for VQA with the PyTorch port, on one CUDA
-GPU (counterpart of the JAX package's search_vqa.py).
+GPU or data-parallel on several (counterpart of the JAX package's
+search_vqa.py; --GPU 0,1, --NDEV N, or --MULTIHOST under torchrun, as
+train_vqa.py shows).
 
 The same flags as the JAX package's search CLI:
 
@@ -10,7 +12,7 @@ The same flags as the JAX package's search CLI:
 Per-epoch genotypes are appended to ./arch/<VERSION>.json in the reference
 schema {"epochK": {"enc": [[op]x12], "dec": [[op]x18]}}; checkpoints are the
 pickled numpy pytrees either package writes and resumes from. --SCAN_STEPS,
-the dense/unified/hybrid weight steps and --MULTIHOST are not ported.
+the dense/unified/hybrid weight steps and --MODEL_AXIS are not ported.
 """
 
 from __future__ import annotations
@@ -19,16 +21,15 @@ import torch
 
 from mmnas_tpu_torch.config import cfg_from_args, make_arg_parser
 from mmnas_tpu_torch.engine.search import SearchExecution
+from mmnas_tpu_torch.parallel.mesh import launch, run_engine
 
 
 def main(argv=None):
     args = make_arg_parser("vqa", search=True).parse_args(argv)
-    if args.MULTIHOST:
-        raise NotImplementedError("--MULTIHOST is not ported (ROADMAP.md, queue 1: parallel/)")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the GPU")
     cfg = cfg_from_args("vqa", args, search=True)
-    return SearchExecution(cfg, torch.device("cuda", int(args.GPU))).run()
+    return launch(run_engine, (SearchExecution, cfg), args.GPU, cfg.N_DEVICES, cfg.MULTIHOST)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Fixed-architecture ITM (image-text matching) CLI of the PyTorch port, on
-one CUDA GPU.
+one CUDA GPU or data-parallel on several (--GPU 0,1, --NDEV N, or
+--MULTIHOST under torchrun; see train_vqa.py).
 
 The same flags as the JAX package's train_itm.py (make_arg_parser("itm")):
 
@@ -14,7 +15,7 @@ Triplet BCE loss over the positive pair and the mined hard-negative caption
 and image, hard-negative mining before each epoch, R@1/5/10 over the full
 score matrix. Checkpoints are the pickled numpy pytrees either package
 writes; --RESUME --CKPT_PATH continues from either package's. --DTYPE
-bfloat16 computes in bf16 on fp32 master weights; --MULTIHOST is not ported.
+bfloat16 computes in bf16 on fp32 master weights.
 """
 
 from __future__ import annotations
@@ -23,18 +24,17 @@ import torch
 
 from mmnas_tpu_torch.config import cfg_from_args, make_arg_parser
 from mmnas_tpu_torch.engine.itm import Execution
+from mmnas_tpu_torch.parallel.mesh import launch, run_engine
 
 
 def main(argv=None):
     args = make_arg_parser("itm").parse_args(argv)
-    if args.MULTIHOST:
-        raise NotImplementedError("--MULTIHOST is not ported (ROADMAP.md, queue 1: parallel/)")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the GPU")
     cfg = cfg_from_args("itm", args)
     print("Use the GENOTYPE PATH:", cfg.ARCH_PATH)
     print("Use the GENOTYPE EPOCH:", cfg.GENO_EPOCH)
-    return Execution(cfg, torch.device("cuda", int(args.GPU))).run()
+    return launch(run_engine, (Execution, cfg), args.GPU, cfg.N_DEVICES, cfg.MULTIHOST)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Fixed-architecture VGD (visual grounding) CLI of the PyTorch port, on one
-CUDA GPU.
+CUDA GPU or data-parallel on several (--GPU 0,1, --NDEV N, or --MULTIHOST
+under torchrun; see train_vqa.py).
 
 The same flags as the JAX package's train_vgd.py (make_arg_parser("vgd")):
 
@@ -13,7 +14,7 @@ The same flags as the JAX package's train_vgd.py (make_arg_parser("vgd")):
 KLD score loss plus SmoothL1 box regression; eval is IoU@0.5 accuracy.
 Checkpoints are the pickled numpy pytrees either package writes; --RESUME
 --CKPT_PATH continues from either package's. --DTYPE bfloat16 computes in
-bf16 on fp32 master weights; --MULTIHOST is not ported yet.
+bf16 on fp32 master weights.
 """
 
 from __future__ import annotations
@@ -22,18 +23,17 @@ import torch
 
 from mmnas_tpu_torch.config import cfg_from_args, make_arg_parser
 from mmnas_tpu_torch.engine.vgd import Execution
+from mmnas_tpu_torch.parallel.mesh import launch, run_engine
 
 
 def main(argv=None):
     args = make_arg_parser("vgd").parse_args(argv)
-    if args.MULTIHOST:
-        raise NotImplementedError("--MULTIHOST is not ported (ROADMAP.md, queue 1: parallel/)")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the GPU")
     cfg = cfg_from_args("vgd", args)
     print("Use the GENOTYPE PATH:", cfg.ARCH_PATH)
     print("Use the GENOTYPE EPOCH:", cfg.GENO_EPOCH)
-    return Execution(cfg, torch.device("cuda", int(args.GPU))).run()
+    return launch(run_engine, (Execution, cfg), args.GPU, cfg.N_DEVICES, cfg.MULTIHOST)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@
 the epoch ends, writes its trace (Chrome trace-event JSON, host ops and,
 on a CUDA machine, the device's kernels) to
 LOG_ROOT/profile_<VERSION>/trace.json; open it in Perfetto or
-chrome://tracing. Enabled with --PROFILE.
+chrome://tracing. Enabled with --PROFILE. Data parallel, rank 0 alone
+traces (the writer of every file of a run).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import contextlib
 import os
 
 import torch
+
+from mmnas_tpu_torch.parallel.mesh import is_writer
 
 
 @contextlib.contextmanager
@@ -28,7 +31,7 @@ def _trace(log_dir: str):
 
 
 def epoch_trace(cfg, epoch: int, start_epoch: int):
-    if getattr(cfg, "PROFILE", False) and epoch == start_epoch:
+    if getattr(cfg, "PROFILE", False) and epoch == start_epoch and is_writer():
         log_dir = os.path.join(cfg.LOG_ROOT, f"profile_{cfg.VERSION}")
         os.makedirs(log_dir, exist_ok=True)
         return _trace(log_dir)

@@ -29,6 +29,8 @@ from mmnas_tpu.ops.attention import scaled_dot_attention as jax_sda
 from mmnas_tpu_torch.ops import fused_attention as FA
 from mmnas_tpu_torch.ops.attention import scaled_dot_attention
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-5
 B, H, D, RR, R = 2, 2, 16, 4, 8
 RATE = 0.1

@@ -46,6 +46,7 @@ from mmnas_tpu_torch.models.net import NetFull
 from mmnas_tpu_torch.models.supernet import NetSearch
 
 from test_batch_pipeline import vqa_root  # noqa: F401  (the packed corpus fixture)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 GENE = {"enc": [["self_att_64"], ["feed_forward"]],

@@ -38,6 +38,8 @@ from mmnas_tpu_torch.config import Cfg as PortCfg
 from mmnas_tpu_torch.engine.vqa import Execution
 from mmnas_tpu_torch import train_vqa
 
+from _torch_threads import one_thread_env, one_torch_thread  # noqa: F401  (autouse)
+
 SMALL = dict(TASK="vqa", SYNTH=True, SYNTH_SIZE=6, HSIZE=64, ATTFLAT_OUT_SIZE=128,
              ATTFLAT_MLP_SIZE=32, REL_SIZE=8, FRCNFEAT_LEN=8, FRCNFEAT_SIZE=16,
              WORD_EMBED_SIZE=12, MAX_TOKEN=6, DROPOUT_R=0.0, BATCH_SIZE=4,
@@ -108,6 +110,7 @@ def test_port_cpu_eval_never_loads_jax(tmp_path, arch_path):
         print("OK")
     """)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          env=one_thread_env(),
                           timeout=120, cwd=str(Path(__file__).resolve().parents[1]))
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("OK")

@@ -44,6 +44,8 @@ from mmnas_tpu_torch.models.net import NetFull
 from mmnas_tpu_torch.models.supernet import NetSearch
 from mmnas_tpu_torch.utils import itm_loss as PL
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ARCH = "arch/mmnas_itm.json"
 # tests/test_itm.py's tiny sizes, with 12 regions so that some images have
 # pad regions (the synthetic images hold 8 to FRCNFEAT_LEN objects)

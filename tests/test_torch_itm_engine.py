@@ -22,7 +22,8 @@ epoch-1 checkpoints agree in params, optimizer states and alpha (1e-5), the
 R@K lines are the same.
 (e) In a fresh interpreter the port runs a CPU ITM train epoch, an eval and
 a search epoch without loading jax or any module of the JAX package.
-(f) The ITM CLIs refuse the CPU and --MULTIHOST."""
+(f) The ITM CLIs refuse the CPU (with --MULTIHOST too, which
+they take) and --MODEL_AXIS > 1."""
 
 import contextlib
 import copy
@@ -60,6 +61,7 @@ from mmnas_tpu_torch.models.convert import to_jax_params
 from mmnas_tpu_torch.models.supernet import NetSearch
 
 from test_torch_search_engine import NOISY, assert_checkpoints_agree, run_jax_replaying
+from _torch_threads import one_thread_env, one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = str(ROOT / "arch" / "mmnas_itm.json")
@@ -354,6 +356,7 @@ def test_port_cpu_itm_paths_never_load_jax(tmp_path):
         print("OK")
     """)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          env=one_thread_env(),
                           timeout=120, cwd=str(ROOT))
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("OK")
@@ -367,5 +370,10 @@ def test_itm_clis_refuse_the_cpu_and_multihost(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         search_itm.main(["--SYNTH"])
     for main in (train_itm.main, search_itm.main):
-        with pytest.raises(NotImplementedError, match="MULTIHOST"):
+        # --MULTIHOST (data parallel under torchrun) is taken: the CPU is not
+        with pytest.raises(RuntimeError, match="CUDA"):
             main(["--SYNTH", "--MULTIHOST"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for main in (train_itm.main, search_itm.main):
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+            main(["--SYNTH", "--MODEL_AXIS", "2"])

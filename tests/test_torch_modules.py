@@ -17,6 +17,8 @@ from mmnas_tpu_torch.models.convert import from_jax_params
 from mmnas_tpu_torch.ops import modules as TM
 from mmnas_tpu_torch.ops.registry import make_op
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-5
 BATCH, K, T, HS, REL = 2, 8, 6, 128, 8
 JCFG = JM.OpCfg(hsize=HS, dropout_r=0.0, rel_size=REL, attflat_out_size=2 * HS,

@@ -18,6 +18,8 @@ from mmnas_tpu.models.net import NetFull as JaxNetFull
 from mmnas_tpu_torch.models.convert import from_jax_params, to_jax_params
 from mmnas_tpu_torch.models.net import NetFull
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 GENE = {
     "enc": [["self_att_64"], ["feed_forward"]],
     "dec": [["self_att_64"], ["rel_self_att_64"], ["guided_att_64"], ["feed_forward"]],

@@ -30,6 +30,8 @@ from mmnas_tpu_torch.ops import modules as TM
 from mmnas_tpu_torch.ops.primitives import init_parameters
 from mmnas_tpu_torch.ops.registry import OPS, Used_OPS, make_op
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-5
 BATCH, K, T, REL = 2, 7, 5, 8
 # tests/test_torch_modules.py holds these five against JAX

@@ -15,6 +15,8 @@ import jax.numpy as jnp
 from mmnas_tpu.train import optimizer as J
 from mmnas_tpu_torch.train import optimizer as P
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-6
 SHAPES = {"w": (5, 4), "b": (4,), "emb": (3, 6)}
 

@@ -12,6 +12,8 @@ from mmnas_tpu.ops import primitives as JP
 from mmnas_tpu_torch.models.convert import from_jax_params
 from mmnas_tpu_torch.ops import primitives as TP
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-5
 
 

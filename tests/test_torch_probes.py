@@ -24,6 +24,8 @@ import jax.numpy as jnp
 from mmnas_tpu.ops.attention import rsa_log_bias as jax_rsa_log_bias
 from mmnas_tpu_torch.tools import probes
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-5
 
 

@@ -8,7 +8,10 @@ utils, and the host-side mining and recall functions of the ITM engine,
 these up to their docstrings) is the same code as its namesake in the JAX
 package, up to the package name in imports and the module docstring; the
 one deliberate difference is
-`cfg_from_args`, whose --MULTIHOST raises in the port. The
+`cfg_from_args`, which leaves --MULTIHOST to the port's launcher (the JAX
+package initializes jax.distributed there) and refuses --MODEL_AXIS > 1.
+`eval_dataset_order` of parallel/mesh.py is the JAX package's with the world
+size an argument in place of jax.process_count(). The
 box helpers' jnp versions are torch twins in the port (held to them in
 tests/test_torch_vgd.py), and the native C++ IoU is the same file byte for
 byte. The two `Cfg`s agree field for field, and the two packages'
@@ -30,6 +33,8 @@ from mmnas_tpu.data.synth import SynthVqaDataset as JaxSynthVqaDataset
 import mmnas_tpu_torch.config as port_config
 from mmnas_tpu_torch.data.synth import SynthItmDataset, SynthVgdDataset, SynthVqaDataset
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mmnas_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -43,6 +48,9 @@ PARTIAL_COPIES = {"engine/itm.py": [
     "_randomize_suspect_negs", "run_mine_sweeps", "positive_scores", "positive_scores_blocked",
     "score_matrix_sweep", "recall_metrics"]}
 CHANGED = {("config.py", "cfg_from_args")}
+# functions copied with a value the JAX package reads from jax made an
+# argument: (module, name) -> (the JAX package's expression, the argument)
+PARAMETERISED = {("parallel/mesh.py", "eval_dataset_order"): ("jax.process_count()", "world")}
 # the port's torch versions in place of the JAX package's jnp ones
 TWINS = {("utils/bbox.py", "bbox_overlaps_torch"): "bbox_overlaps_jnp",
          ("utils/bbox_transform.py", "bbox_transform_inv_torch"): "bbox_transform_inv_jnp",
@@ -108,6 +116,31 @@ def test_partly_copied_code_has_not_drifted(rel):
         assert name in port and port[name] == ref[name], f"{rel}: {name} differs"
 
 
+@pytest.mark.parametrize("rel,name", sorted(PARAMETERISED))
+def test_parameterised_copies_have_not_drifted(rel, name):
+    """The port's function is its original with the expression replaced by
+    the argument, which the port adds last."""
+    expr, arg = PARAMETERISED[(rel, name)]
+
+    class Substitute(ast.NodeTransformer):
+        def visit_Call(self, node):
+            if ast.unparse(node) == expr:
+                return ast.copy_location(ast.Name(id=arg, ctx=ast.Load()), node)
+            return self.generic_visit(node)
+
+    def function(path):
+        tree = ast.parse(path.read_text())
+        fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name)
+        fn.body = fn.body[1:]      # the docstring
+        return fn
+
+    port, ref = function(ROOT / "mmnas_tpu_torch" / rel), function(ROOT / "mmnas_tpu" / rel)
+    assert [a.arg for a in port.args.args] == [a.arg for a in ref.args.args] + [arg]
+    port.args.args.pop()
+    ref = Substitute().visit(ref)
+    assert ast.dump(port) == ast.dump(ref)
+
+
 def test_native_iou_source_is_the_jax_packages():
     assert ((ROOT / "mmnas_tpu_torch" / "native" / "bbox.cpp").read_bytes()
             == (ROOT / "mmnas_tpu" / "native" / "bbox.cpp").read_bytes())
@@ -122,9 +155,13 @@ def test_cfg_and_synthetic_data_match_the_jax_package():
         want = jax_config.cfg_from_args(task, jax_config.make_arg_parser(task).parse_args(argv))
         got = port_config.cfg_from_args(task, port_config.make_arg_parser(task).parse_args(argv))
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    with pytest.raises(NotImplementedError, match="MULTIHOST"):
+    # --MULTIHOST joins torchrun's group in the launcher, not here;
+    # tensor parallelism is refused
+    assert port_config.cfg_from_args(
+        "vqa", port_config.make_arg_parser("vqa").parse_args(argv + ["--MULTIHOST"])).MULTIHOST
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
         port_config.cfg_from_args(
-            "vqa", port_config.make_arg_parser("vqa").parse_args(argv + ["--MULTIHOST"]))
+            "vqa", port_config.make_arg_parser("vqa").parse_args(argv + ["--MODEL_AXIS", "2"]))
 
     cfg = port_config.Cfg(FRCNFEAT_LEN=12, FRCNFEAT_SIZE=16, WORD_EMBED_SIZE=8, MAX_TOKEN=6)
     for port_cls, jax_cls in ((SynthVqaDataset, JaxSynthVqaDataset),
@@ -150,10 +187,11 @@ def test_cfg_and_synthetic_data_match_the_jax_package():
                                  "tools/probes.py", "engine/vgd.py", "engine/search_vgd.py",
                                  "train_vgd.py", "search_vgd.py", "native/build.py",
                                  "engine/itm.py", "engine/search_itm.py", "train_itm.py",
-                                 "search_itm.py", "utils/itm_loss.py", "data/itm.py"])
+                                 "search_itm.py", "utils/itm_loss.py", "data/itm.py",
+                                 "parallel/mesh.py", "parallel/__init__.py"])
 def test_search_and_probe_modules_are_scanned(rel):
-    """The search, probe, VGD and ITM slices' modules are among the scanned
-    files and import neither package of JAX."""
+    """The search, probe, VGD, ITM and data-parallel slices' modules are
+    among the scanned files and import neither package of JAX."""
     path = ROOT / "mmnas_tpu_torch" / rel
     assert path in PORT_FILES
     assert not [m for m in imported_modules(path) if m.split(".")[0] in ("mmnas_tpu", "jax")]

@@ -47,6 +47,8 @@ from mmnas_tpu_torch.engine.search import SearchExecution
 from mmnas_tpu_torch.models.convert import to_jax_params
 from mmnas_tpu_torch.models.supernet import NetSearch
 
+from _torch_threads import one_thread_env, one_torch_thread  # noqa: F401  (autouse)
+
 SMALL = dict(TASK="vqa", SYNTH=True, SYNTH_SIZE=20, BATCH_SIZE=4, HSIZE=64,
              ATTFLAT_OUT_SIZE=128, ATTFLAT_MLP_SIZE=16, REL_SIZE=8, FRCNFEAT_LEN=8,
              FRCNFEAT_SIZE=16, WORD_EMBED_SIZE=10, MAX_TOKEN=6, NODES=(("enc", 1), ("dec", 2)),
@@ -248,6 +250,7 @@ def test_port_cpu_search_never_loads_jax(tmp_path):
         print("OK")
     """)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          env=one_thread_env(),
                           timeout=120, cwd=str(Path(__file__).resolve().parents[1]))
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("OK")

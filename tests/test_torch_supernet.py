@@ -35,6 +35,8 @@ from mmnas_tpu_torch.models.convert import from_jax_params, to_jax_params
 from mmnas_tpu_torch.models.net import apply_heads, apply_stem
 from mmnas_tpu_torch.models.supernet import NetSearch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 HS, V, A = 128, 24, 6
 TINY = dict(TASK="vqa", HSIZE=HS, ATTFLAT_OUT_SIZE=2 * HS, ATTFLAT_MLP_SIZE=16, REL_SIZE=8,
             FRCNFEAT_LEN=12, FRCNFEAT_SIZE=16, WORD_EMBED_SIZE=10, MAX_TOKEN=6,

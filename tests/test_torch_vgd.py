@@ -41,6 +41,8 @@ from mmnas_tpu_torch.models.net import NetFull
 from mmnas_tpu_torch.utils.bbox import bbox_overlaps_torch
 from mmnas_tpu_torch.utils.bbox_transform import bbox_transform_inv_torch, clip_boxes_torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ARCH = "arch/mmnas_vgd.json"
 SMALL = dict(TASK="vgd", SYNTH=True, HSIZE=64, ATTFLAT_OUT_SIZE=128, ATTFLAT_MLP_SIZE=32,
              REL_SIZE=8, FRCNFEAT_SIZE=32, WORD_EMBED_SIZE=12, LAYERS=1, DROPOUT_R=0.0)

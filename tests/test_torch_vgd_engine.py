@@ -16,7 +16,8 @@ genotype archives have the same bytes, the argmax-path evals print the
 same accuracy.
 (c) In a fresh interpreter the port runs a CPU VGD eval, a train epoch and
 a search epoch without loading jax or any module of the JAX package.
-(d) The VGD CLIs refuse the CPU and --MULTIHOST."""
+(d) The VGD CLIs refuse the CPU (with --MULTIHOST too, which
+they take) and --MODEL_AXIS > 1."""
 
 import contextlib
 import io
@@ -54,6 +55,7 @@ from mmnas_tpu_torch.models.net import INPUT_KEYS, VGD_KEYS
 from mmnas_tpu_torch.models.supernet import NetSearch
 
 from test_torch_search_engine import NOISY, assert_checkpoints_agree, eval_lines, run_jax_replaying
+from _torch_threads import one_thread_env, one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = str(ROOT / "arch" / "mmnas_vgd.json")
@@ -252,6 +254,7 @@ def test_port_cpu_vgd_paths_never_load_jax(tmp_path):
         print("OK")
     """)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          env=one_thread_env(),
                           timeout=120, cwd=str(ROOT))
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("OK")
@@ -265,5 +268,10 @@ def test_vgd_clis_refuse_the_cpu_and_multihost(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         search_vgd.main(["--SYNTH"])
     for main in (train_vgd.main, search_vgd.main):
-        with pytest.raises(NotImplementedError, match="MULTIHOST"):
+        # --MULTIHOST (data parallel under torchrun) is taken: the CPU is not
+        with pytest.raises(RuntimeError, match="CUDA"):
             main(["--SYNTH", "--MULTIHOST"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for main in (train_vgd.main, search_vgd.main):
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+            main(["--SYNTH", "--MODEL_AXIS", "2"])
