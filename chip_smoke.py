@@ -150,7 +150,20 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    alone, every rank the same search paths and alpha, and whose eval gives
    the single process's predictions in dataset order; the train step's ms
    with and without the group and the all-reduce's share of it;
-17. prints one JSON line with every kernel's numbers (with x_library and
+17. drives the tensor-parallel path (`tensor_parallel_path`,
+   parallel/sharding.py): first the forward, dropout-forward, backward
+   and relation-pass kernels at a model rank's shapes (B 64, 4 of 8 heads
+   at head0 0 and 4; the dropout forward draws the whole call's keep mask
+   bit for bit, the RSA chain runs on the block of Wr's rows, the blocks'
+   relation gradients make up the whole call's), then 16's work at model
+   axis 2: on one card two processes share it in a gloo group, on two or
+   more NCCL, data cards // 2 x model 2; at data 1 the losses, the
+   gathered parameters and Adam moments and alpha equal the single
+   process's (1e-5 of the largest), at data 2 or more the first
+   all-reduced gradient the mean of the data shards'; every rank the
+   single process's launches, search paths and eval predictions; the
+   train step's ms with and without the model group's collectives;
+18. prints one JSON line with every kernel's numbers (with x_library and
    x_bound, its time over the library call's and over its bound; `launches`
    from the all-ops net, this slice's main path, each path's own counts
    beside them) and, last, the device line `{"ok": true,
@@ -2450,9 +2463,9 @@ def dp_runs(dev, world, root, eval_ckpt):
 
     reduce, calls, first = pmesh.all_reduce_grads, [], []
 
-    def recorded(grads):
+    def recorded(grads, **kw):
         before = pmesh.COUNTS["all_reduce"]
-        reduce(grads)
+        reduce(grads, **kw)
         calls.append({"tensors": len(grads), "buckets": len(pmesh.buckets(grads)),
                       "all_reduce": pmesh.COUNTS["all_reduce"] - before})
         if not first:
@@ -2508,7 +2521,7 @@ def dp_runs(dev, world, root, eval_ckpt):
     if pmesh.is_initialized():
         times = {True: [], False: []}
         for reducing in (True, False, False, True) * 2:
-            pmesh.all_reduce_grads = reduce if reducing else (lambda grads: None)
+            pmesh.all_reduce_grads = reduce if reducing else (lambda grads, **kw: None)
             try:
                 times[reducing].append(step_ms())
             finally:
@@ -2559,7 +2572,7 @@ def shard_grads(dev, world, rank):
     params = dict(net.named_parameters())
     optim = build_net_optimizer(cfg, DP_TRAIN_STEPS)
     seen, reduce = [], pmesh.all_reduce_grads
-    pmesh.all_reduce_grads = lambda grads: seen.append([g.detach().clone() for g in grads])
+    pmesh.all_reduce_grads = lambda grads, **kw: seen.append([g.detach().clone() for g in grads])
     try:
         exe.train_step(net, optim, optim.init(params), params, batch,
                        torch.Generator(dev).manual_seed(step_seed(cfg.SEED, 0, rank)))
@@ -2589,7 +2602,8 @@ def data_parallel_path(FA, devices, card):
     alpha, the eval of the single process's checkpoint in dataset order
     equal to the single process's. Step ms with and without the group, and
     the all-reduce's share of the step. `devices`: every card of the
-    machine."""
+    machine. Returns (its record, the single process's results that
+    tensor_parallel_path holds the model ranks to)."""
     from mmnas_tpu_torch.parallel import mesh as pmesh
 
     cards, card0 = len(devices), devices[0]
@@ -2660,11 +2674,17 @@ def data_parallel_path(FA, devices, card):
            "cards": cards}
     del group
     alone_preds = alone["eval"]["preds"]
+    reference = {"train_losses": alone["train"]["losses"], "eval_preds": alone_preds,
+                 "search_losses": alone["search"]["losses"], "paths": alone["search"]["paths"],
+                 "launches": {k: alone[k]["launches"] for k in ("train", "eval", "search")},
+                 "train_ckpt": ckpt, "search_ckpt": os.path.join(
+                     DP, "alone", "ckpts", "smoke_dp_search_epoch1.pkl"),
+                 "step_ms": alone["step_ms"], "first_grads": alone["first_grads"]}
     del alone
     torch.cuda.empty_cache()
     if cards >= 2:
         out[f"world{cards}"] = dp_several(devices, ckpt, alone_preds, card)
-    return out
+    return out, reference
 
 
 def dp_several(devices, ckpt, alone_preds, card):
@@ -2715,6 +2735,390 @@ def dp_several(devices, ckpt, alone_preds, card):
             "step_ms": ranks[0]["step_ms"], "step_ms_no_reduce": ranks[0]["step_ms_no_reduce"],
             "all_reduce_ms": ranks[0]["all_reduce_ms"],
             "all_reduce_share": ranks[0]["all_reduce_ms"] / ranks[0]["step_ms"]}
+
+
+TP = os.path.join(WORK, "tp")           # the tensor-parallel phase's checkpoints, logs, rank files
+TP_MODEL_AXIS = 2
+# The model ranks against the single process, fp32: the same function with
+# the partial outputs and gradients added over the model group in another
+# order. The losses and alpha to TP_TOL of the largest.
+TP_TOL = 1e-5
+# The first step's gradient (at data 2 or more, against the mean of the data
+# shards' from one process), over the whole gradient's norm: as the one
+# step's card-vs-plain check (GRAD_TOL's fp32 1e-3). Not entry by entry: a
+# ReLU whose input rounds to the other side of 0 under the other order moves
+# that unit's whole column (a feed_forward fc's, in a CPU run at full width,
+# B 2: 10% of that column's largest entry) and the RSA chain near its 1e-6
+# clamp moves rows (PRE_TOL).
+TP_GRAD_NORM_TOL = 1e-3
+# After the 5 train (or weight) steps: the Adam moments m and v over their
+# norms, bounded by what the gradients' bound gives them (m is a weighted
+# sum of the steps' gradients, v of their squares: 1e-3 and 2e-3); every
+# parameter entry within the two runs' Adam steps of each other (2 x the
+# steps' rates: Adam turns a gradient that differs in sign, at a kink or in
+# rounding noise, into moves of up to lr either way).
+TP_MOMENT_TOL = {"m": 1e-3, "v": 2e-3, "alpha_m": 1e-3}
+# ...but the moments of the RSA chain's weights (Wr, br, the stem's W1, b1)
+# are not held: their gradients run through dpre = ds / pre, which fp32
+# rounding of pre near the 1e-6 clamp moves by whole rows (PR 7,
+# tools/rsa_conditioning.py), and two runs whose parameters part by Adam's
+# steps part there first (measured on the card: m of a Wr 20% of its
+# largest entry apart after 5 weight steps, while the first step's whole
+# gradient was 1.1e-5 apart). They are reported beside the rest.
+TP_CLAMP_LEAVES = ("/wr/", "linear_y_rel/")
+# the model ranks' attention shapes (4 of the fixed net's 8 heads, at head0
+# 0 and 4): the RSA chain at (100,100) and the plain SA / GA shapes
+TP_CASES = [(100, 100, "mask+rel"), (100, 14, "mask"), (14, 14, "mask")]
+
+
+def tp_kernel_cases(FA, dev):
+    """Rows 1-3b at a model rank's shapes: B 64, heads [head0, head0 + 4)
+    of 8 (head0 0 and 4), fp32 and bf16. The dropout forward at head0 draws
+    the whole call's keep mask for its heads bit for bit; the output, the
+    backward and, with the RSA chain on the block of Wr's rows and br, the
+    relation pass agree with their plain versions (KERNEL_TOL, GRAD_TOL);
+    the blocks' dWr rows and their dW1, db1 summed equal the whole call's
+    (GRAD_TOL)."""
+    g = torch.Generator().manual_seed(11)
+    half, rows = H // TP_MODEL_AXIS, []
+    for dt in DTYPES:
+        for Lq, Lk, kind in TP_CASES:
+            args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind, B, H, D))
+            do = torch.randn(B, H, Lq, D, generator=g).to(dev, dt)
+            _, keep_all, pre_all = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=4321,
+                                                    want_pre=r_ is not None)
+            whole_rel = None if r_ is None else FA.attention_bwd(
+                *args, m, b_, r_, keep_all, RATE, do, pre=pre_all)[4]
+            name = f"B{B} H{half} of {H} D{D} {str(dt).replace('torch.', ''):8s} ({Lq:3d},{Lk:3d}) {kind:8s}"
+            blocks, row = [], {"dtype": str(dt).replace("torch.", ""), "B": B, "H": half,
+                               "heads_total": H, "Lq": Lq, "Lk": Lk, "operands": kind}
+            for head0 in (0, half):
+                sl = slice(head0, head0 + half)
+                part = [a[:, sl].contiguous() for a in args]
+                rb = None if r_ is None else (*r_[:3], r_[3][sl].contiguous(),
+                                              r_[4][sl].contiguous())
+                dop = do[:, sl].contiguous()
+                out, keep, pre = FA.attention_fwd(*part, m, b_, rb, dropout_r=RATE, seed=4321,
+                                                  want_pre=rb is not None, head0=head0,
+                                                  heads_total=H)
+                torch.cuda.synchronize()
+                if not torch.equal(keep, keep_all[:, sl]):
+                    raise AssertionError(f"{name} head0 {head0}: the keep mask is not the whole "
+                                         "call's")
+                if dt == torch.float32 and rb is None and not torch.equal(
+                        keep.cpu().bool(), FA.keep_mask_reference(4321, B, half, Lq, Lk, RATE,
+                                                                  head0, H)):
+                    raise AssertionError(f"{name} head0 {head0}: keep bits differ from Philox")
+                if rb is not None:
+                    check_pre(pre, rb, name)
+                ref = FA.fused_attention_reference(*[a.float() for a in part], m,
+                                                   None if rb is None else log_pre(pre),
+                                                   keep=keep, dropout_r=RATE)
+                fwd_err = (out.float() - ref).abs().max().item()
+                dq, dk, dv, _, drel = FA.attention_bwd(*part, m, b_, rb, keep, RATE, dop, pre=pre)
+                leaves = [a.float().requires_grad_() for a in part]
+                pl = None if rb is None else pre.detach().requires_grad_()
+                plain = FA.fused_attention_reference(*leaves, m,
+                                                     None if rb is None else log_pre(pl),
+                                                     keep=keep, dropout_r=RATE)
+                want = list(torch.autograd.grad(plain, leaves + ([pl] if pl is not None else []),
+                                                dop.float()))
+                labels = ["dq", "dk", "dv"]
+                got = [dq, dk, dv]
+                if rb is not None:
+                    want += FA.relation_bwd_reference(*rb, want.pop())[1:]
+                    labels += ["dW1", "db1", "dWr", "dbr"]
+                    got += list(drel[1:])
+                    blocks.append(drel)
+                errs = {lab: rel_err(x, w) for lab, x, w in zip(labels, got, want)}
+                tol, grad_tol = KERNEL_TOL[(dt, rb is not None)], GRAD_TOL[(dt, rb is not None)]
+                bad = [lab for lab, e in errs.items() if not (math.isfinite(e) and e <= grad_tol)]
+                if not (math.isfinite(fwd_err) and fwd_err <= tol) or bad:
+                    raise AssertionError(f"{name} head0 {head0}: forward err {fwd_err} (tol {tol}),"
+                                         f" gradients {errs} (tol {grad_tol})")
+                row[f"head0_{head0}"] = {"fwd_err": fwd_err, "grad_rel_err": errs}
+            if r_ is not None:        # the blocks make up the whole call's relation gradients
+                summed = {"dW1": (blocks[0][1] + blocks[1][1], whole_rel[1]),
+                          "db1": (blocks[0][2] + blocks[1][2], whole_rel[2]),
+                          "dWr": (torch.cat([blocks[0][3], blocks[1][3]]), whole_rel[3]),
+                          "dbr": (torch.cat([blocks[0][4], blocks[1][4]]), whole_rel[4])}
+                row["blocks_vs_whole"] = {k: rel_err(a, b) for k, (a, b) in summed.items()}
+                if not all(e <= GRAD_TOL[(dt, True)] for e in row["blocks_vs_whole"].values()):
+                    raise AssertionError(f"{name}: the head blocks' relation gradients are not "
+                                         f"the whole call's: {row['blocks_vs_whole']}")
+            # the model rank's calls at head0 4, timed
+            part = [a[:, half:].contiguous() for a in args]
+            rb = None if r_ is None else (*r_[:3], r_[3][half:].contiguous(),
+                                          r_[4][half:].contiguous())
+            _, keep, pre = FA.attention_fwd(*part, m, b_, rb, dropout_r=RATE, seed=7,
+                                            want_pre=rb is not None, head0=half, heads_total=H)
+            dop = do[:, half:].contiguous()
+            row["fwd_ms"] = cuda_time_ms(lambda: FA.attention_fwd(
+                *part, m, b_, rb, RATE, 7, want_pre=rb is not None, head0=half, heads_total=H))
+            row["bwd_ms"] = cuda_time_ms(lambda: FA.attention_bwd(*part, m, b_, rb, keep, RATE,
+                                                                  dop, pre=pre))
+            print(f"tensor parallel kernels {name}: keep masks the whole call's at head0 0 and "
+                  f"{half}; errs {row['head0_0']} / {row[f'head0_{half}']}; "
+                  f"{row.get('blocks_vs_whole', '')}; fwd {row['fwd_ms']:.4f} ms, bwd "
+                  f"{row['bwd_ms']:.4f} ms", flush=True)
+            rows.append(row)
+    return rows
+
+
+def tp_member(dev, root, eval_ckpt):
+    """A rank of the tensor-parallel phase: data_parallel_path's train,
+    eval and search through the engines' loops at model axis 2, then the
+    train step on one resident batch, timed with the model group's
+    collectives and with them left out (in turns), and its collectives
+    counted. Saves its record for the parent."""
+    import torch.distributed as dist
+
+    from mmnas_tpu_torch.engine.search import SearchExecution
+    from mmnas_tpu_torch.engine.vqa import Execution, batch_to_device
+    from mmnas_tpu_torch.models.net import INPUT_KEYS
+    from mmnas_tpu_torch.ops import fused_attention as FA
+    from mmnas_tpu_torch.parallel import mesh as pmesh
+    from mmnas_tpu_torch.train.checkpoint import ckpt_path
+    from mmnas_tpu_torch.train.optimizer import build_net_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data, axis = pmesh.data_axis_size(), pmesh.model_axis_size()
+    out = {"rank": pmesh.rank(), "backend": dist.get_backend(),
+           "grid": (pmesh.data_rank(), pmesh.model_rank(), data, axis)}
+    reduce, first = pmesh.all_reduce_grads, []
+
+    def recorded(grads, **kw):
+        reduce(grads, **kw)
+        if not first:
+            first.append([g.detach().cpu().clone() for g in grads])
+
+    pmesh.all_reduce_grads = recorded
+    try:
+        cfg = dp_train_cfg(data, root)
+        zero_launches(FA)
+        pmesh.zero_counts()
+        trained = Execution(cfg, dev).run()
+        torch.cuda.synchronize()
+    finally:
+        pmesh.all_reduce_grads = reduce
+    out["train"] = {"losses": trained.step_losses, "launches": dict(FA.LAUNCHES),
+                    "model_counts": dict(pmesh.MODEL_COUNTS),
+                    "ckpt": ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, 1)}
+    out["first_grads"] = first[0]
+    zero_launches(FA)
+    evaluated = Execution(cfg_for("val", "float32", SYNTH_SIZE=DP_EVAL_BATCHES * BATCH,
+                                  CKPT_PATH=eval_ckpt), dev).run()
+    out["eval"] = {"preds": evaluated.preds, "launches": dict(FA.LAUNCHES)}
+    scfg = dp_search_cfg(data, root)
+    zero_launches(FA)
+    searched = SearchExecution(scfg, dev).run()
+    torch.cuda.synchronize()
+    out["search"] = {"losses": searched.step_losses, "launches": dict(FA.LAUNCHES),
+                     "paths": searched.paths, "ckpt": ckpt_path(scfg.CKPT_ROOT, scfg.VERSION, 1)}
+    del searched
+
+    # the train step alone, with and without the model group's collectives
+    exe = Execution(cfg, dev)
+    batch = batch_to_device(next(iter(exe.make_loader(exe.build_dataset("train"), BATCH))), dev,
+                            INPUT_KEYS + exe.TARGET_KEYS)
+    net, gen = trained.net, torch.Generator(dev).manual_seed(3)
+    params = dict(net.named_parameters())
+    optim = build_net_optimizer(cfg, DP_TRAIN_STEPS)
+    state = optim.init(params)
+
+    def step():
+        exe.train_step(net, optim, state, params, batch, gen)
+
+    before = dict(pmesh.MODEL_COUNTS)
+    step()
+    out["model_collectives_per_step"] = {k: pmesh.MODEL_COUNTS[k] - before[k] for k in before}
+    real = (pmesh.model_all_reduce, pmesh.model_all_gather)
+    times = {True: [], False: []}
+    for on in (True, False, False, True):
+        if not on:        # every rank leaves them out alike; the results are not used
+            pmesh.model_all_reduce = lambda t: t
+            pmesh.model_all_gather = lambda t: [t] * axis
+        try:
+            times[on].append(cuda_time_ms(step, iters=5, warmup=1))
+        finally:
+            pmesh.model_all_reduce, pmesh.model_all_gather = real
+    out["step_ms"], out["step_ms_no_model_collectives"] = (sum(times[k]) / 2 for k in (True, False))
+    del trained, net, params, state
+    torch.cuda.empty_cache()
+    torch.save(out, os.path.join(root, f"rank{pmesh.rank()}.pt"))
+
+
+def tp_first_grad_err(dev, ranks, data, alone_first):
+    """Data shard 0's first all-reduced gradient, its model ranks' shards
+    joined along their split dims, against the single process's first
+    gradient (`alone_first`, at data 1) or the mean of the data shards'
+    that one process computes (shard_grads): the difference's norm over
+    the reference's."""
+    from mmnas_tpu_torch.engine.vqa import Execution
+    from mmnas_tpu_torch.parallel.sharding import split_dim
+
+    cfg = dp_train_cfg(data, os.path.join(TP, "shards"))
+    exe = Execution(cfg, dev)
+    names = [(n, p.dim()) for n, p in exe.build_net(exe.build_dataset("train")).named_parameters()]
+    shards = [r["first_grads"] for r in ranks if r["grid"][0] == 0]
+    if data == 1:
+        want = [g.cpu() for g in alone_first]
+    else:
+        parts = [shard_grads(dev, data, r) for r in range(data)]
+        want = [(sum(p[i] for p in parts) / data).cpu() for i in range(len(names))]
+    diff = ref = 0.0
+    for i, (n, ndim) in enumerate(names):
+        d = split_dim(n, ndim)
+        got = shards[0][i] if d is None else torch.cat([s[i] for s in shards], dim=d)
+        diff += float(((got - want[i]) ** 2).sum())
+        ref += float((want[i] ** 2).sum())
+    return math.sqrt(diff / ref)
+
+
+def tp_tree_errs(got, want, lr_steps):
+    """The checkpoint `got` against `want`: per tree (the parameters, the
+    Adam moments m and v, and alpha with its moment m where present) the
+    largest difference over the largest entry ("max"), the difference's
+    norm over the tree's ("norm") and the leaf of the largest difference;
+    the parameters' largest difference beside the Adam steps' bound
+    2 x lr_steps."""
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}{k}/")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{prefix}{i}/")
+        else:
+            yield prefix[:-1], np.asarray(tree, np.float64)
+
+    trees = {"params": (got["state_dict"], want["state_dict"]),
+             "m": (got["net_optim"]["m"], want["net_optim"]["m"]),
+             "v": (got["net_optim"]["v"], want["net_optim"]["v"])}
+    if "alpha" in got:
+        trees.update(alpha=(got["alpha"], want["alpha"]),
+                     alpha_m=(got["alpha_optim"]["m"], want["alpha_optim"]["m"]))
+    def diffs(pairs):
+        worst = max((float(np.abs(x - y).max()) if x.size else 0.0, path)
+                    for (path, x), (_, y) in pairs)
+        return {"max": worst[0] / max(float(np.abs(y).max()) for _, (_, y) in pairs),
+                "norm": math.sqrt(sum(float(((x - y) ** 2).sum()) for (_, x), (_, y) in pairs)
+                                  / sum(float((y ** 2).sum()) for _, (_, y) in pairs)),
+                "worst_leaf": worst[1], "worst_abs": worst[0]}
+
+    errs = {}
+    for key, (a, b) in trees.items():
+        pairs = list(zip(leaves(a), leaves(b)))
+        if [p for (p, _), (q, _) in pairs if p != q] or not pairs:
+            raise AssertionError(f"tensor parallel: the checkpoint's {key} tree differs")
+        clamp = [pq for pq in pairs if any(s in pq[0][0] + "/" for s in TP_CLAMP_LEAVES)]
+        if key in ("m", "v") and clamp:        # the moments held apart from the chain's
+            errs[f"{key}_rsa_chain"] = diffs(clamp)
+            pairs = [pq for pq in pairs if pq not in clamp]
+        errs[key] = diffs(pairs)
+    errs["params"]["adam_bound"] = 2 * lr_steps
+    return errs
+
+
+def tensor_parallel_path(FA, devices, card, alone):
+    """The kernels at a model rank's shapes (tp_kernel_cases), then
+    data_parallel_path's work at model axis 2 (parallel/sharding.py), one
+    spawned process a rank: on one card the two model ranks share it in a
+    gloo group (NCCL refuses two ranks on a card); on two or more, data
+    cards // 2 x model 2 over NCCL. At data 1 the losses, the gathered
+    parameters and Adam moments (the epoch checkpoints) and alpha equal the
+    single process's (`alone`, data_parallel_path's): the losses and alpha
+    to TP_TOL, the first gradient to TP_GRAD_NORM_TOL, the moments to
+    TP_MOMENT_TOL, every parameter within the runs' Adam steps; at data 2
+    or more the first all-reduced gradient is the mean of the data shards'
+    (TP_GRAD_NORM_TOL). Always: every rank the single process's
+    kernel launches (at 4 heads), search paths and eval predictions (of
+    its checkpoint), data shard 0's losses on each of its model ranks; the
+    train step with and without the model group's collectives."""
+    from mmnas_tpu_torch.parallel import mesh as pmesh
+    from mmnas_tpu_torch.train.checkpoint import load_checkpoint
+
+    kernels = tp_kernel_cases(FA, devices[0])
+    if len(devices) >= 2:
+        ranks_on = devices[:len(devices) - len(devices) % 2]
+        backend = "nccl" if devices[0].type == "cuda" else "gloo"
+    else:
+        ranks_on, backend = [devices[0]] * TP_MODEL_AXIS, "gloo"
+    world, data = len(ranks_on), len(ranks_on) // TP_MODEL_AXIS
+    name = f"tensor parallel, data {data} x model {TP_MODEL_AXIS} over {backend}"
+    root = os.path.join(TP, f"world{world}")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    pmesh.spawn(tp_member, (root, alone["train_ckpt"]), ranks_on, model_axis=TP_MODEL_AXIS,
+                backend=backend)
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    shard0 = [r for r in ranks if r["grid"][0] == 0]
+    checks = {
+        f"the group is {backend}'s": all(r["backend"] == backend for r in ranks),
+        "the grid is the JAX mesh's": all(r["grid"] == (r["rank"] // TP_MODEL_AXIS,
+                                                        r["rank"] % TP_MODEL_AXIS, data,
+                                                        TP_MODEL_AXIS) for r in ranks),
+        # the eval's batches split over the data shards
+        "every rank the single process's launches": all(
+            r[k]["launches"] == alone["launches"][k] for r in ranks for k in ("train", "search"))
+        and all(r["eval"]["launches"] == {n: c // data for n, c in alone["launches"]["eval"].items()}
+                for r in ranks),
+        "every rank the single process's search paths": all(
+            repr(r["search"]["paths"]) == repr(alone["paths"]) for r in ranks),
+        "every rank the single process's eval predictions": all(
+            np.array_equal(r["eval"]["preds"], alone["eval_preds"]) for r in ranks),
+        "a data shard's model ranks the same losses": all(
+            r["train"]["losses"] == shard0[0]["train"]["losses"]
+            and r["search"]["losses"] == shard0[0]["search"]["losses"] for r in shard0),
+        "finite losses": all(math.isfinite(x) for r in ranks
+                             for x in r["train"]["losses"] + r["search"]["losses"]),
+        "the model group's collectives ran": all(
+            r["model_collectives_per_step"]["all_reduce"] > 0 for r in ranks)}
+    errs = {}
+    if data == 1:
+        lr = cfg_for("train", "float32").NET_LR_BASE / 4      # the first warmup rate
+        search_lr = search_cfg("float32", SEARCH_B, 1).NET_LR_BASE / 4
+        for key, want in (("train", alone["train_losses"]), ("search", alone["search_losses"])):
+            got = shard0[0][key]["losses"]
+            errs[f"{key}_losses"] = max(abs(a - b) for a, b in zip(got, want)) / max(
+                abs(b) for b in want) if len(got) == len(want) else math.inf
+        errs["train_ckpt"] = tp_tree_errs(load_checkpoint(shard0[0]["train"]["ckpt"]),
+                                          load_checkpoint(alone["train_ckpt"]),
+                                          DP_TRAIN_STEPS * lr)
+        errs["search_ckpt"] = tp_tree_errs(load_checkpoint(shard0[0]["search"]["ckpt"]),
+                                           load_checkpoint(alone["search_ckpt"]),
+                                           DP_SEARCH_STEPS * search_lr)
+        ckpts = (errs["train_ckpt"], errs["search_ckpt"])
+        checks["losses and alpha the single process's"] = (
+            errs["train_losses"] <= TP_TOL and errs["search_losses"] <= TP_TOL
+            and errs["search_ckpt"]["alpha"]["max"] <= TP_TOL)
+        checks["moments the single process's"] = all(
+            e[k]["norm"] <= tol for e in ckpts for k, tol in TP_MOMENT_TOL.items() if k in e)
+        checks["parameters within the runs' Adam steps"] = all(
+            e["params"]["worst_abs"] <= e["params"]["adam_bound"] for e in ckpts)
+    errs["first_grad_norm"] = tp_first_grad_err(devices[0], ranks, data, alone["first_grads"])
+    checks["the first gradient " + ("the single process's" if data == 1 else
+                                    "the mean of the data shards'")] = (
+        errs["first_grad_norm"] <= TP_GRAD_NORM_TOL)
+    r0 = ranks[0]
+    print(f"{name}: {seconds:.1f} s; train losses {[round(x, 3) for x in r0['train']['losses']]}; "
+          f"errors against the single process {errs}; model-group collectives a train step "
+          f"{r0['model_collectives_per_step']}; train step fp32 BS {BATCH} "
+          f"{r0['step_ms']:.3f} ms a rank ({r0['step_ms_no_model_collectives']:.3f} ms with the "
+          f"model group's collectives left out, in turns; one process {alone['step_ms']:.3f} "
+          f"ms) on {card}; {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"{name}: {checks}")
+    return {"backend": backend, "data": data, "model": TP_MODEL_AXIS, "seconds": seconds,
+            "checks": checks, "errors": errs, "kernels": kernels,
+            "launches_per_rank": {k: r0[k]["launches"] for k in ("train", "eval", "search")},
+            "model_collectives_per_train_step": r0["model_collectives_per_step"],
+            "model_collectives_train_epoch": r0["train"]["model_counts"],
+            "step_ms": r0["step_ms"], "step_ms_no_model_collectives":
+                r0["step_ms_no_model_collectives"], "step_ms_one_process": alone["step_ms"]}
 
 
 def main() -> int:
@@ -2813,9 +3217,11 @@ def main() -> int:
     phase("the all-ops net: eval, train step")
     device_rel = device_rel_path(FA, dev, card)
     phase("VQA eval on the packed corpus with DEVICE_REL and SHIP_INT8")
-    data_parallel = data_parallel_path(
-        FA, [torch.device("cuda", i) for i in range(torch.cuda.device_count())], card)
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    data_parallel, alone = data_parallel_path(FA, cards, card)
     phase("data parallel: train, eval and search in a process group over NCCL")
+    tensor_parallel = tensor_parallel_path(FA, cards, card, alone)
+    phase("tensor parallel: the model ranks' kernels, train, eval and search at model axis 2")
     floor = launch_floor(PR, dev)
 
     def pick(rows, Lq, Lk, kind):
@@ -2918,7 +3324,9 @@ def main() -> int:
             **{f"itm_train_{dt}": leg["launches"][row["name"]] for dt, leg in itm["legs"].items()},
             "itm_search_fp32": itm["search"]["float32_bs128_k1"]["launches"][row["name"]],
             **{f"data_parallel_world1_{k}": launches[row["name"]]
-               for k, launches in data_parallel["world1"]["launches"].items()}}
+               for k, launches in data_parallel["world1"]["launches"].items()},
+            **{f"tensor_parallel_model_rank_{k}": launches[row["name"]]
+               for k, launches in tensor_parallel["launches_per_rank"].items()}}
     rows += [{"name": name, **row} for name, row in probes["rows"].items()]
     for row in rows:          # row 9 beside the launch floor
         if row["name"].startswith("probe_wrblock"):
@@ -2940,7 +3348,8 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "probes": {k: v for k, v in probes.items() if k != "rows"},
                       "eval": evals, "train": train, "search": search, "vgd": vgd, "itm": itm,
                       "all_ops": all_ops, "device_rel": device_rel,
-                      "data_parallel": data_parallel, "launch_floor": floor}))
+                      "data_parallel": data_parallel, "tensor_parallel": tensor_parallel,
+                      "launch_floor": floor}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

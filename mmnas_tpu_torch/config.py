@@ -518,19 +518,22 @@ def cfg_from_args(task: str, args, search: bool = False) -> Cfg:
     else:
         # reference ties eval batch to train batch (train_vqa.py:134)
         cfg = cfg.replace(EVAL_BATCH_SIZE=cfg.BATCH_SIZE)
-    # data parallelism, one process per card (parallel/mesh.py launch):
-    # --MULTIHOST joins torchrun's group, several --GPU ids or --NDEV N
-    # spawn a process per card; the launcher refuses cards the machine has not
-    if cfg.MODEL_AXIS != 1:
-        raise NotImplementedError(
-            "--MODEL_AXIS > 1 is not ported yet (ROADMAP.md, queue 1: tensor parallelism); "
-            "the port runs data parallel, one process per card")
+    # data and tensor parallelism, one process per card (parallel/mesh.py
+    # launch): --MULTIHOST joins torchrun's group, several --GPU ids or
+    # --NDEV N spawn a process per card; the launcher refuses cards the
+    # machine has not. --MODEL_AXIS M lays the world out as world / M data
+    # shards of M model ranks (parallel/sharding.py), refused here with the
+    # JAX package's words (mmnas_tpu/parallel/mesh.py:41-42) where M does
+    # not divide the world, and under --MULTIHOST when the group is joined
     gpus = [g for g in str(getattr(args, "GPU", "0")).split(",") if g.strip()]
     if len(gpus) > 1 and cfg.N_DEVICES not in (0, len(gpus)):
         raise ValueError(f"--NDEV {cfg.N_DEVICES} and --GPU {args.GPU} name different worlds")
     if cfg.MULTIHOST and (len(gpus) > 1 or cfg.N_DEVICES > 1):
         raise ValueError("--MULTIHOST takes its world from torchrun (one process per card, "
                          "on cuda:LOCAL_RANK): no --GPU list and no --NDEV")
+    world = len(gpus) if len(gpus) > 1 else max(cfg.N_DEVICES, 1)
+    if cfg.MODEL_AXIS < 1 or (not cfg.MULTIHOST and world % cfg.MODEL_AXIS):
+        raise ValueError(f"n_devices {world} not divisible by model_axis {cfg.MODEL_AXIS}")
     # flags the JAX package accepts where no path reads them; the port refuses them there
     if task == "itm" and cfg.DEVICE_REL:
         raise ValueError(

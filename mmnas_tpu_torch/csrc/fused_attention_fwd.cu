@@ -45,7 +45,10 @@
 //   over keys j mod 32, then a butterfly), so the probabilities round as
 //   the plain version's do.
 // - Dropout: one Philox4x32-10 call, keyed by a 64-bit seed at counter
-//   (j / 4, i, b*H + h, 0), gives the bits of four keys (word j mod 4);
+//   (j / 4, i, b*heads_total + head0 + h, 0), gives the bits of four keys
+//   (word j mod 4). A tensor-parallel rank that runs heads [head0, head0 +
+//   H) of heads_total draws the unsplit call's bits for its heads; head0 0
+//   and heads_total H are the whole call's counter b*H + h. Each key is
 //   kept when below keep_thr, as at pallas_attention.py:205-207. The two
 //   threads that hold a row pair's keys j..j+3 each draw one row's call and
 //   swap the halves by a shuffle. The mask is written as a uint8 residual.
@@ -101,6 +104,7 @@ struct Args {
   unsigned char* keep;        // [B, H, Lq, Lk] keep mask out, or null (no dropout)
   float* pre;                 // [B, H, Lq, Lk] relation chain out, or null
   int H, Lq, Lk, D, Rr, R;
+  int head0, heads_total;     // dropout: these H heads are [head0, head0 + H) of heads_total
   int tiles;                  // with the chain: 16-row tiles per block
   float scale;
   unsigned long long seed;    // dropout: Philox key
@@ -137,12 +141,15 @@ __device__ __forceinline__ void tile_dropout(float (&p)[2 * KTM][4], const Args<
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int Lq = a.Lq, Lk = a.Lk;
   const unsigned int mine = static_cast<unsigned int>(row0 + g + 8 * (t & 1));
+  // the Philox counter's (b, h) word: head h of this call is head head0 + h
+  // of heads_total
+  const unsigned int ctr =
+      static_cast<unsigned int>((bh / a.H) * a.heads_total + a.head0 + bh % a.H);
 #pragma unroll
   for (int n = 0; n < 2 * KTM; ++n)
     if (n < 2 * KT) {
       // keys 8n + 4 (t / 2) .. + 3 share one call; lane t & 1 draws row g + 8 (t & 1)
-      const uint4 w = philox(a.seed, static_cast<unsigned int>(2 * n + t / 2), mine,
-                             static_cast<unsigned int>(bh));
+      const uint4 w = philox(a.seed, static_cast<unsigned int>(2 * n + t / 2), mine, ctr);
       const unsigned int give0 = (t & 1) ? w.x : w.z, give1 = (t & 1) ? w.y : w.w;
       const unsigned int got0 = __shfl_xor_sync(0xffffffffu, give0, 1);
       const unsigned int got1 = __shfl_xor_sync(0xffffffffu, give1, 1);
@@ -408,8 +415,8 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    const void* mask, const void* raw, const void* w1, const void* b1,
                    const void* wr, const void* br, void* out, void* keep, void* pre, int B,
-                   int H, int Lq, int Lk, int D, int Rr, int R, float scale,
-                   unsigned long long seed, unsigned int keep_thr, float keep_p,
+                   int H, int Lq, int Lk, int D, int Rr, int R, int head0, int heads_total,
+                   float scale, unsigned long long seed, unsigned int keep_thr, float keep_p,
                    cudaStream_t stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 16 || D > kMaxD || D % 16 != 0)
     return cudaErrorInvalidValue;
@@ -417,6 +424,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
     return cudaErrorInvalidValue;
   if (raw == nullptr && pre != nullptr) return cudaErrorInvalidValue;
   if (keep != nullptr && !(keep_p > 0.f && keep_p <= 1.f)) return cudaErrorInvalidValue;
+  if (head0 < 0 || heads_total < head0 + H) return cudaErrorInvalidValue;
   const Args<T> a{static_cast<const T*>(q),  static_cast<const T*>(k),
                   static_cast<const T*>(v),  static_cast<const T*>(bias),
                   static_cast<const unsigned char*>(mask),
@@ -424,7 +432,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
                   static_cast<const T*>(b1), static_cast<const T*>(wr),
                   static_cast<const T*>(br), static_cast<T*>(out),
                   static_cast<unsigned char*>(keep), static_cast<float*>(pre),
-                  H, Lq, Lk, D, Rr, R, 1, scale, seed, keep_thr, keep_p};
+                  H, Lq, Lk, D, Rr, R, head0, heads_total, 1, scale, seed, keep_thr, keep_p};
   if (D > 128) return launch_wide<T>(a, B, stream);
   return D <= 64 ? launch_d<T, 64>(a, B, stream) : launch_d<T, 128>(a, B, stream);
 }
@@ -435,7 +443,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 // (bias, mask, raw together with w1/b1/wr/br, keep: no dropout, pre: no
 // relation chain written out). With keep, the kernel draws the mask for
 // `seed`, keeps an element when its bits are below keep_thr, scales kept
-// probabilities by 1 / keep_p and writes the mask to keep. With raw and pre
+// probabilities by 1 / keep_p and writes the mask to keep; the mask of head h
+// is the one of head head0 + h in a call of heads_total heads (0 and H: this
+// call's own). With raw and pre
 // it also writes the relation chain pre [B, H, Lq, Lk] fp32 for the
 // backward. Returns the CUDA error code of the launch (0 = launched;
 // cudaErrorInvalidValue for a shape outside the limits above); the kernel
@@ -446,14 +456,16 @@ extern "C" int mmnas_fused_attention_fwd(int dtype, const void* q, const void* k
                                          const void* w1, const void* b1, const void* wr,
                                          const void* br, void* out, void* keep, void* pre,
                                          int B, int H, int Lq, int Lk, int D, int Rr, int R,
-                                         float scale, unsigned long long seed,
+                                         int head0, int heads_total, float scale,
+                                         unsigned long long seed,
                                          unsigned int keep_thr, float keep_p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, bias, mask, raw, w1, b1, wr, br, out, keep, pre, B, H, Lq,
-                         Lk, D, Rr, R, scale, seed, keep_thr, keep_p, s);
+                         Lk, D, Rr, R, head0, heads_total, scale, seed, keep_thr, keep_p, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, bias, mask, raw, w1, b1, wr, br, out, keep, pre, B,
-                                 H, Lq, Lk, D, Rr, R, scale, seed, keep_thr, keep_p, s);
+                                 H, Lq, Lk, D, Rr, R, head0, heads_total, scale, seed, keep_thr,
+                                 keep_p, s);
   return cudaErrorInvalidValue;
 }

@@ -37,7 +37,9 @@ the JAX package's sharded_pair_call, itm.py:52-70, and the reference's
 rank-row-sharded score matrix), so every rank ends the mining with the
 same negatives (each rank's loader reads those of its own items) and the
 R@K sweep with the whole score matrix; the triplet step's gradients are
-averaged over the ranks as the VQA engine's are.
+averaged over the ranks as the VQA engine's are. Under tensor parallelism
+the pairs split over the data shards, and the model ranks of each score
+its share together (engine/vqa.py).
 """
 
 from __future__ import annotations
@@ -494,13 +496,14 @@ def score_pairs(decode: Callable, corpus: Dict[str, torch.Tensor],
     """Scores of the pairs (img_idx[p], cap_idx[p]), host index arrays, with
     cap_idx relative to the window `text_enc`: the indices go to the
     device, the pairs' inputs are gathered there and `decode(x_out, x_mask,
-    batch)` (an apply_decoder) scores them. Data parallel, each rank scores
-    its contiguous share of the pairs (the last one padded) and every rank
-    gets all the scores by one all_gather. Returns without waiting."""
-    n, world = len(img_idx), pmesh.world_size()
+    batch)` (an apply_decoder) scores them. Data parallel, each data shard
+    scores its contiguous share of the pairs (the last one padded; the
+    model ranks of a shard score it together) and every rank gets all the
+    scores by one all_gather. Returns without waiting."""
+    n, world = len(img_idx), pmesh.data_axis_size()
     if world > 1:
         share = -(-n // world)
-        mine = slice(pmesh.rank() * share, (pmesh.rank() + 1) * share)
+        mine = slice(pmesh.data_rank() * share, (pmesh.data_rank() + 1) * share)
         img_idx, cap_idx = (np.pad(np.asarray(a), (0, share * world - n))[mine]
                             for a in (img_idx, cap_idx))
     dev = corpus["caps"].device

@@ -47,8 +47,15 @@ over the ranks in the same buckets before the clip and Adam. Dropout
 draws its own masks on each rank. Rank 0 alone writes the checkpoint, the
 genotype archive and the log; the eval gathers the ranks' predictions.
 
-Not ported: SCAN_STEPS, the dense/unified/hybrid weight steps, tensor
-parallelism (ROADMAP.md).
+Tensor parallel (--MODEL_AXIS M > 1, parallel/sharding.py): the supernet
+is built whole from the seed and sliced to the model rank's shard; the
+loaders, the dropout seeds, the loss sums, the all-reduces and the eval
+gathers go by data shard (engine/vqa.py), and every rank samples the same
+paths, so the weight step's mask selects the same leaves, whole or
+sharded, on every rank. The clip's norm is the whole gradient's; the
+checkpoint holds the gathered, unsharded pytree.
+
+Not ported: SCAN_STEPS, the dense/unified/hybrid weight steps (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -70,12 +77,14 @@ from mmnas_tpu_torch.engine.vqa import (
 from mmnas_tpu_torch.genotype import append_genotype
 from mmnas_tpu_torch.models.convert import (
     alpha_from_jax, alpha_optim_state_from_jax, alpha_optim_state_to_jax, alpha_to_jax,
-    from_jax_params, optim_state_from_jax, optim_state_to_jax, to_jax_params,
 )
 from mmnas_tpu_torch.models.net import INPUT_KEYS, compute_call, compute_params
 from mmnas_tpu_torch.models.supernet import CELLS, NetSearch
 from mmnas_tpu_torch.parallel import mesh as pmesh
-from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint
+from mmnas_tpu_torch.parallel.sharding import shard_module, split_flags
+from mmnas_tpu_torch.train.checkpoint import (
+    ckpt_path, load_checkpoint, load_optim_state, load_params, optim_tree, params_tree,
+)
 from mmnas_tpu_torch.train.optimizer import (
     WarmupAdam, build_net_optimizer, clip_by_global_norm, plain_adam,
 )
@@ -153,7 +162,7 @@ class SearchExecution:
     def build_net(self, dataset) -> NetSearch:
         init_dict = {"token_size": dataset.token_size, "ans_size": dataset.ans_size,
                      "pretrained_emb": getattr(dataset, "pretrained_emb", None)}
-        return NetSearch(self.cfg, init_dict, task=self.TASK).to(self.device)
+        return shard_module(NetSearch(self.cfg, init_dict, task=self.TASK)).to(self.device)
 
     # ----------------------------------------------------------------- steps
     def loss(self, pred, batch):
@@ -198,7 +207,7 @@ class SearchExecution:
         grads = [torch.zeros_like(masters[n]) if g is None else g for n, g in zip(names, grads)]
         pmesh.all_reduce_grads(grads)   # every rank ran the same paths: the same leaves
         if cfg.NET_GRAD_CLIP > 0:  # net parameters only (search_vqa.py:298)
-            clip_by_global_norm(grads, cfg.NET_GRAD_CLIP)
+            clip_by_global_norm(grads, cfg.NET_GRAD_CLIP, split_flags(net, names))
         lr = optim.step(opt_state, masters, dict(zip(names, grads)), mask)
         return loss.detach(), lr
 
@@ -243,7 +252,7 @@ class SearchExecution:
         weight steps' losses (on the device) and the last lr."""
         cfg, net = self.cfg, result.net
         masters = dict(net.named_parameters())
-        losses, lr, rank = [], 0.0, pmesh.rank()
+        losses, lr, rank = [], 0.0, pmesh.data_rank()
         for step, batch in enumerate(batches):
             sampler = torch.Generator().manual_seed(sample_seed(cfg.SEED, global_step))
             idxs = [net.sample_indices(result.alpha_host, sampler) for _ in range(cfg.KPATH)]
@@ -281,8 +290,8 @@ class SearchExecution:
         start_epoch = 0
         if cfg.RESUME:
             ckpt = load_checkpoint(cfg.CKPT_FILE_PATH)
-            net.load_state_dict(from_jax_params(ckpt["state_dict"]), strict=True)
-            opt_state = optim_state_from_jax(ckpt["net_optim"], dev)
+            load_params(net, ckpt["state_dict"])
+            opt_state = load_optim_state(net, ckpt["net_optim"], dev)
             alpha = alpha_from_jax(ckpt["alpha"], dev)
             alpha_state = alpha_optim_state_from_jax(ckpt["alpha_optim"], dev)
             start_epoch = int(ckpt["epoch"])
@@ -333,8 +342,8 @@ class SearchExecution:
             weights = net.genotype_weights(result.alpha_host)
             if epoch_finish % cfg.CKPT_EVERY == 0 or epoch_finish == cfg.MAX_EPOCH:
                 save_on_writer(ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, epoch_finish),
-                               lambda: {"state_dict": to_jax_params(net),
-                                        "net_optim": optim_state_to_jax(result.opt_state, net),
+                               lambda: {"state_dict": params_tree(net),
+                                        "net_optim": optim_tree(result.opt_state, net),
                                         "alpha": alpha_to_jax(alpha),
                                         "alpha_optim": alpha_optim_state_to_jax(alpha_state),
                                         "epoch": epoch_finish})

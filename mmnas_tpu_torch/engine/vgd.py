@@ -20,11 +20,15 @@ eval:
   ends; the ranks' hits are gathered into dataset order and the loader's
   pad items dropped as the VQA eval drops them.
 
-Data parallel, the gradients are averaged over the ranks as the VQA
-engine's are, with LOSS_AVG too: each rank's loss is then a mean over its
-own masks, and the average of the ranks' means is the reference's DDP step
-(the JAX package's global-batch mean differs from it by the ranks' count
-skew, mmnas_tpu/engine/vgd.py:119-121).
+Data parallel, as the JAX package: with LOSS_AVG each data shard divides
+its summed losses by the GLOBAL batch's mask counts (one sum of two
+scalars over the data group), so the shards' gradients summed are the
+gradient of the global batch's mean. The fixed net keeps that sum
+(mmnas_tpu/engine/vgd.py:119-122: no division by the shards); the search,
+as for every task, divides it by the data shards
+(mmnas_tpu/engine/search.py:134). Without LOSS_AVG the losses are sums
+and both divide, as the VQA engines do. Under tensor parallelism the
+model ranks of a data shard compute the same loss.
 """
 
 from __future__ import annotations
@@ -66,7 +70,10 @@ def smooth_l1_sum(pred, target):
 
 def vgd_loss(cfg, pred_scores, pred_reg, batch: Mapping[str, torch.Tensor]):
     """The summed score and box losses of one batch (train_vgd.py:316-334,
-    mmnas_tpu/engine/vgd.py:48-69)."""
+    mmnas_tpu/engine/vgd.py:48-69). With LOSS_AVG each is divided by the
+    global batch's count (its mask's, or under 'bce' its size): the data
+    shards' counts summed over the data group, this batch's in one
+    process."""
     scores, scores_mask = batch["scores"], batch["scores_mask"]         # [B, L], [B, 1]
     tb, bbox_mask = batch["transformed_bbox"], batch["bbox_mask"]       # [B, L, 4], [B, L, 1]
     if cfg.SCORES_LOSS == "bce":
@@ -75,11 +82,12 @@ def vgd_loss(cfg, pred_scores, pred_reg, batch: Mapping[str, torch.Tensor]):
         loss_scores = kld_sum(pred_scores * scores_mask, scores * scores_mask)
     loss_reg = smooth_l1_sum(pred_reg * bbox_mask, tb * bbox_mask)
     if cfg.LOSS_AVG:
+        counts = pmesh.sum_over_ranks(torch.stack([scores_mask.sum(), bbox_mask.sum()]))
         if cfg.SCORES_LOSS == "bce":
-            loss_scores = loss_scores / pred_scores.shape[0]
+            loss_scores = loss_scores / (pred_scores.shape[0] * pmesh.data_axis_size())
         else:
-            loss_scores = loss_scores / torch.clamp(scores_mask.sum(), min=1.0)
-        loss_reg = loss_reg / torch.clamp(bbox_mask.sum(), min=1.0)
+            loss_scores = loss_scores / torch.clamp(counts[0], min=1.0)
+        loss_reg = loss_reg / torch.clamp(counts[1], min=1.0)
     return loss_scores + cfg.LOSS_LAMBDA * loss_reg
 
 
@@ -181,6 +189,12 @@ class GroundingResult:
 
 
 class Execution(GroundingTask, VqaExecution):
+    def mean_grads(self) -> bool:
+        """LOSS_AVG's losses are means over the global batch already: their
+        gradients summed over the data shards are the step's
+        (mmnas_tpu/engine/vgd.py:119-122)."""
+        return not self.cfg.LOSS_AVG
+
     def eval(self, eval_loader: Loader, net: Optional[NetFull] = None,
              valid: bool = False) -> GroundingResult:
         cfg = self.cfg

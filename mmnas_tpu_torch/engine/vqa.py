@@ -28,6 +28,15 @@ rank 0 draws what one process draws. The epoch's loss line sums the ranks'
 losses over the global count; rank 0 alone writes logs and checkpoints,
 and every rank waits for the checkpoint before going on; eval outputs are
 gathered into dataset order. With one process all of this is the identity.
+
+Tensor parallel (--MODEL_AXIS M > 1, parallel/sharding.py): the ranks form
+world / M data shards of M model ranks. The net is built whole from the
+seed, then sliced to the rank's shard; the batch, the dropout seeds, the
+loss sums, the gradients' all-reduce (divided by the data shards) and the
+eval gathers go by data shard, so the model ranks of one data shard take
+the same batch and draw the same masks; the clip's norm is the whole
+gradient's. Checkpoints hold the gathered, unsharded pytree
+(train/checkpoint.py), so every rank takes part in writing one.
 """
 
 from __future__ import annotations
@@ -43,14 +52,15 @@ import torch
 from mmnas_tpu_torch.data.loader import Loader
 from mmnas_tpu_torch.data.sampler import SubsetShardSampler
 from mmnas_tpu_torch.genotype import load_genotype
-from mmnas_tpu_torch.models.convert import (
-    from_jax_params, optim_state_from_jax, optim_state_to_jax, to_jax_params,
-)
 from mmnas_tpu_torch.models.net import (
     INPUT_KEYS, NetFull, compute_call, compute_dtype, compute_params,
 )
 from mmnas_tpu_torch.parallel import mesh as pmesh
-from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint, save_checkpoint
+from mmnas_tpu_torch.parallel.sharding import shard_module, split_flags
+from mmnas_tpu_torch.train.checkpoint import (
+    ckpt_path, load_checkpoint, load_optim_state, load_params, optim_tree, params_tree,
+    save_checkpoint,
+)
 from mmnas_tpu_torch.train.optimizer import WarmupAdam, build_net_optimizer, clip_by_global_norm
 from mmnas_tpu_torch.utils.logger import TextLogger, dump_result_json
 from mmnas_tpu_torch.utils.profiling import epoch_trace
@@ -104,22 +114,29 @@ def step_seed(seed: int, global_step: int, rank: int = 0) -> int:
     """The dropout seed of one train step on one rank: a function of the
     run's seed and the step, so a resumed run draws what an uninterrupted
     one would (the JAX package folds the step into its key,
-    engine/vqa.py:182). Each data-parallel rank draws its own masks; rank 0
-    draws what one process does."""
+    engine/vqa.py:182). Each data shard draws its own masks (`rank` is the
+    data shard: its model ranks draw the same ones); data shard 0 draws
+    what one process does."""
     return ((seed + 1) * 1_000_003 + global_step + rank * RANK_STRIDE) % 2**63
 
 
 def shard_sampler(data_size: int, shuffle: bool, subset_indices=None) -> SubsetShardSampler:
-    """This rank's share of a split: rank-strided over the data-parallel
-    ranks (data/sampler.py), the whole split in one process."""
-    return SubsetShardSampler(data_size, num_replicas=pmesh.world_size(), rank=pmesh.rank(),
-                              shuffle=shuffle, subset_indices=subset_indices)
+    """This rank's share of a split: rank-strided over the data shards
+    (data/sampler.py), the whole split in one process."""
+    return SubsetShardSampler(data_size, num_replicas=pmesh.data_axis_size(),
+                              rank=pmesh.data_rank(), shuffle=shuffle,
+                              subset_indices=subset_indices)
 
 
 def save_on_writer(path: str, state_fn) -> None:
     """Rank 0 writes the checkpoint state_fn() to `path`; every rank waits
-    until it is on disk, so any rank may read it next."""
-    if pmesh.is_writer():
+    until it is on disk, so any rank may read it next. Under tensor
+    parallelism every rank calls state_fn, which gathers the shards."""
+    if pmesh.model_axis_size() > 1:
+        state = state_fn()
+        if pmesh.is_writer():
+            save_checkpoint(path, state)
+    elif pmesh.is_writer():
         save_checkpoint(path, state_fn())
     pmesh.barrier()
 
@@ -153,6 +170,8 @@ class Execution:
 
     # ----------------------------------------------------------------- model
     def build_net(self, dataset) -> NetFull:
+        """The genotype's NetFull from the seed, sliced to this model rank's
+        shard under tensor parallelism."""
         cfg = self.cfg
         genotype = load_genotype(cfg.ARCH_PATH, cfg.GENO_EPOCH)
         init_dict = {
@@ -160,7 +179,7 @@ class Execution:
             "ans_size": dataset.ans_size,
             "pretrained_emb": getattr(dataset, "pretrained_emb", None),
         }
-        return NetFull(cfg, genotype, init_dict, task=self.TASK)
+        return shard_module(NetFull(cfg, genotype, init_dict, task=self.TASK))
 
     def load_masters(self, dataset) -> NetFull:
         """build_net + the checkpoint at CKPT_FILE_PATH, fp32, on the device,
@@ -168,8 +187,7 @@ class Execution:
         if not self.cfg.CKPT_FILE_PATH:
             raise ValueError("eval needs a checkpoint: pass --CKPT_PATH")
         net = self.build_net(dataset)
-        ckpt = load_checkpoint(self.cfg.CKPT_FILE_PATH)
-        net.load_state_dict(from_jax_params(ckpt["state_dict"]), strict=True)
+        load_params(net, load_checkpoint(self.cfg.CKPT_FILE_PATH)["state_dict"])
         return net.to(self.device).eval()
 
     def load_net(self, dataset) -> NetFull:
@@ -186,6 +204,13 @@ class Execution:
         forward on a batch `b` with the step's parameters and generator. One
         forward and `self.loss`; ITM runs three forwards (engine/itm.py)."""
         return self.loss(run(batch), batch)
+
+    def mean_grads(self) -> bool:
+        """Whether the train step divides the gradients summed over the data
+        shards by their count (the JAX package's / n_shards,
+        mmnas_tpu/engine/vqa.py:122): the per-shard losses are sums. VGD's
+        LOSS_AVG means over the global batch are not divided."""
+        return True
 
     def on_epoch_start(self, net: NetFull, dataset, epoch: int) -> None:
         """Per-epoch task hook, before the epoch's loader starts (ITM's
@@ -209,9 +234,9 @@ class Execution:
         grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = [torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, grads)]
-        pmesh.all_reduce_grads(grads)
+        pmesh.all_reduce_grads(grads, mean=self.mean_grads())
         if cfg.NET_GRAD_CLIP > 0:
-            clip_by_global_norm(grads, cfg.NET_GRAD_CLIP)
+            clip_by_global_norm(grads, cfg.NET_GRAD_CLIP, split_flags(net, names))
         lr = optim.step(opt_state, params, dict(zip(names, grads)))
         return loss.detach(), lr
 
@@ -227,15 +252,15 @@ class Execution:
         start_epoch = 0
         if cfg.RESUME:
             ckpt = load_checkpoint(cfg.CKPT_FILE_PATH)
-            net.load_state_dict(from_jax_params(ckpt["state_dict"]), strict=True)
-            opt_state = optim_state_from_jax(ckpt["net_optim"], self.device)
+            load_params(net, ckpt["state_dict"])
+            opt_state = load_optim_state(net, ckpt["net_optim"], self.device)
             start_epoch = int(ckpt["epoch"])
             opt_state = WarmupAdam.set_start_step(opt_state, start_epoch * epoch_steps)
             print(f" ========== Resumed from {cfg.CKPT_FILE_PATH} @ epoch {start_epoch}")
         pmesh.broadcast_params(list(params.values()))
 
         generator = torch.Generator(self.device)
-        rank, global_bs = pmesh.rank(), cfg.BATCH_SIZE * pmesh.data_axis_size()
+        rank, global_bs = pmesh.data_rank(), cfg.BATCH_SIZE * pmesh.data_axis_size()
         global_step = start_epoch * epoch_steps
         epoch_losses, step_losses = [], []
         for epoch in range(start_epoch, cfg.MAX_EPOCH):
@@ -271,8 +296,8 @@ class Execution:
 
             if epoch_finish % cfg.CKPT_EVERY == 0 or epoch_finish == cfg.MAX_EPOCH:
                 save_on_writer(ckpt_path(cfg.CKPT_ROOT, cfg.VERSION, epoch_finish),
-                               lambda: {"state_dict": to_jax_params(net),
-                                        "net_optim": optim_state_to_jax(opt_state, net),
+                               lambda: {"state_dict": params_tree(net),
+                                        "net_optim": optim_tree(opt_state, net),
                                         "epoch": epoch_finish})
             if eval_loader is not None and cfg.EVAL_EVERY_EPOCH:
                 self.eval(eval_loader, net=net, valid=True)

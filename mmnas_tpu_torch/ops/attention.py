@@ -25,12 +25,16 @@ __all__ = ["rsa_log_bias", "scaled_dot_attention"]
 
 def scaled_dot_attention(q, k, v, mask=None, log_bias=None, *, rel=None,
                          dropout_r: float = 0.0, train: bool = False,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None, heads=None):
     """q,k,v: [B, H, Lq|Lk, D]; mask: [B, 1, 1, Lk] bool (True = pad);
     log_bias: [B, H, Lq, Lk] additive pre-softmax bias (already logged);
     rel: (raw, W1, b1, Wr, br), the RSA chain computed inside the kernel.
     In train mode the attention weights are dropped at dropout_r, with the
-    mask drawn from `generator` (modules.py:197)."""
+    mask drawn from `generator` (modules.py:197). heads: (head0,
+    heads_total) when these H heads are a model rank's share of a call of
+    heads_total, whose dropout masks they draw; None outside tensor
+    parallelism."""
     rate = dropout_r if train else 0.0
+    extra = {} if heads is None else {"head0": heads[0], "heads_total": heads[1]}
     return fused_attention(q, k, v, mask, log_bias, rel=rel, dropout_r=rate,
-                           generator=generator)
+                           generator=generator, **extra)

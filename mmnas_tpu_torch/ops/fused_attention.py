@@ -18,8 +18,11 @@ called through ctypes:
   ([B,H,Lq,Lk] fp32 `pre`) for the backward;
 - `fused_attention_fwd_dropout`: the same kernel drawing the keep mask with
   a counter-based Philox4x32-10 (key: a 64-bit seed, counter: (j // 4, i,
-  b*H+h, 0), word j % 4) and emitting it as a uint8 [B,H,Lq,Lk] residual
-  (replaces the dropout variant, :201-210);
+  b*heads_total + head0 + h, 0), word j % 4; head0 0 and heads_total H
+  outside tensor parallelism, where a model rank runs heads [head0, head0 +
+  H) of heads_total and so draws the unsplit call's masks for them) and
+  emitting it as a uint8 [B,H,Lq,Lk] residual (replaces the dropout
+  variant, :201-210);
 - `fused_attention_bwd` (csrc/fused_attention_bwd.cu): dq, dk, dv, dbias
   and, with the RSA chain (read from the forward's `pre`), dpre = d s / d
   pre (replaces `_bwd_kernel`, :325-467, without its relation reductions);
@@ -144,12 +147,17 @@ def keep_threshold(dropout_r: float) -> int:
     return min(int((1.0 - dropout_r) * 4294967296.0), 4294967295)
 
 
-def keep_mask_reference(seed: int, B: int, H: int, Lq: int, Lk: int, dropout_r: float):
+def keep_mask_reference(seed: int, B: int, H: int, Lq: int, Lk: int, dropout_r: float,
+                        head0: int = 0, heads_total: int = None):
     """The keep mask [B,H,Lq,Lk] (bool) that the dropout kernel draws for
-    `seed`: word j % 4 of Philox4x32-10 at counter (j // 4, i, b*H+h, 0), so
-    one call serves four keys."""
+    `seed`: word j % 4 of Philox4x32-10 at counter (j // 4, i,
+    b*heads_total + head0 + h, 0), so one call serves four keys. Heads
+    [head0, head0 + H) of a call of heads_total (default H) heads: a model
+    rank's heads draw the unsplit call's masks."""
+    heads_total = H if heads_total is None else heads_total
     groups = -(-Lk // 4)
-    bh, i, c = np.meshgrid(np.arange(B * H), np.arange(Lq), np.arange(groups), indexing="ij")
+    bh = (np.arange(B)[:, None] * heads_total + head0 + np.arange(H)[None, :]).reshape(-1)
+    bh, i, c = np.meshgrid(bh, np.arange(Lq), np.arange(groups), indexing="ij")
     counter = np.stack([c, i, bh, np.zeros_like(c)], axis=-1)
     bits = philox4x32_10(counter, seed).reshape(B * H, Lq, 4 * groups)[..., :Lk]
     return torch.from_numpy(bits < keep_threshold(dropout_r)).reshape(B, H, Lq, Lk)
@@ -173,14 +181,21 @@ def draw_seed(generator: torch.Generator) -> int:
 # ---------------------------------------------------------------------------
 
 def fused_attention(q, k, v, mask=None, log_bias=None, *, rel=None,
-                    dropout_r: float = 0.0, generator=None):
+                    dropout_r: float = 0.0, generator=None, head0: int = 0,
+                    heads_total: int = None):
     """q [B,H,Lq,D]; k, v [B,H,Lk,D]; mask [B,1,1,Lk] bool (True = pad);
     log_bias [B,H,Lq,Lk] additive pre-softmax bias; rel (RSA fusion):
     (raw [B,Lq,Lk,Rr], W1 [R,Rr], b1 [R], Wr [H,R], br [H]), the whole bias
     chain computed in the kernels. dropout_r > 0 applies attention-weight
     dropout with a mask drawn from `generator` (a CPU tensor draws the mask
-    itself, a CUDA tensor a seed for the kernel). Returns o [B,H,Lq,D] in
-    q's dtype, differentiable in q, k, v, log_bias and the rel weights."""
+    itself, a CUDA tensor a seed for the kernel). head0, heads_total: these
+    H heads are heads [head0, head0 + H) of a call of heads_total (default
+    H), and draw that call's dropout masks (a model rank's share of the
+    heads under tensor parallelism). Returns o [B,H,Lq,D] in q's dtype,
+    differentiable in q, k, v, log_bias and the rel weights."""
+    heads_total = q.shape[1] if heads_total is None else heads_total
+    if head0 < 0 or head0 + q.shape[1] > heads_total:
+        raise ValueError(f"heads [{head0}, {head0 + q.shape[1]}) are not within {heads_total}")
     if rel is not None and log_bias is not None:
         raise ValueError("pass log_bias or rel, not both")
     if dropout_r > 0.0 and generator is None:
@@ -188,8 +203,10 @@ def fused_attention(q, k, v, mask=None, log_bias=None, *, rel=None,
     if q.device.type == "cpu":
         keep = None
         if dropout_r > 0.0:
-            shape = (q.shape[0], q.shape[1], q.shape[2], k.shape[2])
-            keep = torch.rand(shape, generator=generator) < 1.0 - dropout_r
+            # the whole call's draw, this call's heads taken
+            shape = (q.shape[0], heads_total, q.shape[2], k.shape[2])
+            keep = (torch.rand(shape, generator=generator) < 1.0 - dropout_r
+                    )[:, head0:head0 + q.shape[1]]
         return fused_attention_reference(q, k, v, mask, log_bias, rel=rel, keep=keep,
                                          dropout_r=dropout_r)
     if dropout_r > 0.0 and generator.device.type != q.device.type:
@@ -201,7 +218,7 @@ def fused_attention(q, k, v, mask=None, log_bias=None, *, rel=None,
     want_pre = rel is not None and torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (q, k, v, log_bias, *rel))
     return FusedAttentionFn.apply(q, k, v, mask, log_bias, raw, w1, b1, wr, br,
-                                  float(dropout_r), seed, want_pre)
+                                  float(dropout_r), seed, want_pre, head0, heads_total)
 
 
 class FusedAttentionFn(torch.autograd.Function):
@@ -213,10 +230,11 @@ class FusedAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, log_bias, raw, w1, b1, wr, br, dropout_r, seed,
-                want_pre=True):
+                want_pre=True, head0=0, heads_total=None):
         rel = None if raw is None else (raw, w1, b1, wr, br)
         out, keep, pre = attention_fwd(q, k, v, mask, log_bias, rel, dropout_r, seed,
-                                       want_pre=want_pre and rel is not None)
+                                       want_pre=want_pre and rel is not None, head0=head0,
+                                       heads_total=heads_total)
         ctx.save_for_backward(q, k, v, mask, log_bias, raw, w1, b1, wr, br, keep, pre)
         ctx.dropout_r = dropout_r
         return out
@@ -236,7 +254,7 @@ class FusedAttentionFn(torch.autograd.Function):
                                                 ctx.dropout_r, do.contiguous(), need_draw,
                                                 need_rel, pre=pre)
         drel = drel if drel is not None else (None,) * 5
-        return (dq, dk, dv, None, dbias, *drel, None, None, None)
+        return (dq, dk, dv, None, dbias, *drel, None, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +266,7 @@ def _fwd_kernel():
     from mmnas_tpu_torch.csrc import build
 
     fn = build.load("fused_attention_fwd").mmnas_fused_attention_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -360,12 +378,15 @@ def _raise_on(err, name):
 
 
 def attention_fwd(q, k, v, mask=None, log_bias=None, rel=None, dropout_r: float = 0.0,
-                  seed: int = 0, want_pre: bool = False):
+                  seed: int = 0, want_pre: bool = False, head0: int = 0,
+                  heads_total: int = None):
     """Launch the forward kernel: (o [B,H,Lq,D] in q's dtype; with
-    dropout_r > 0 the keep mask it drew for `seed` (uint8 [B,H,Lq,Lk]), else
-    None; with rel and want_pre the relation chain pre ([B,H,Lq,Lk] fp32,
-    the backward's residual), else None)."""
+    dropout_r > 0 the keep mask it drew for `seed` (uint8 [B,H,Lq,Lk]; the
+    masks of heads [head0, head0 + H) of a call of heads_total, default H),
+    else None; with rel and want_pre the relation chain pre ([B,H,Lq,Lk]
+    fp32, the backward's residual), else None)."""
     B, H, Lq, Lk, D, Rr, R = _validate(q, k, v, mask, log_bias, rel)
+    heads_total = H if heads_total is None else heads_total
     if not 0.0 <= dropout_r < 1.0:
         raise ValueError(f"dropout rate {dropout_r} outside [0, 1)")
     raw, w1, b1, wr, br = rel if rel is not None else (None,) * 5
@@ -378,8 +399,8 @@ def attention_fwd(q, k, v, mask=None, log_bias=None, rel=None, dropout_r: float 
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fwd_kernel()(_DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(log_bias),
                             _ptr(mask), _ptr(raw), _ptr(w1), _ptr(b1), _ptr(wr), _ptr(br),
-                            _ptr(out), _ptr(keep), _ptr(pre), B, H, Lq, Lk, D, Rr, R,
-                            1.0 / math.sqrt(D), seed & (2**64 - 1),
+                            _ptr(out), _ptr(keep), _ptr(pre), B, H, Lq, Lk, D, Rr, R, head0,
+                            heads_total, 1.0 / math.sqrt(D), seed & (2**64 - 1),
                             keep_threshold(dropout_r) if keep is not None else 0,
                             1.0 - dropout_r, stream)
     name = "fused_attention_fwd_dropout" if keep is not None else "fused_attention_fwd"

@@ -19,10 +19,14 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mmnas_tpu_torch.ops import primitives as P
 from mmnas_tpu_torch.ops.attention import scaled_dot_attention
+from mmnas_tpu_torch.parallel.sharding import (
+    copy_to_model, gather_from_model, reduce_from_model,
+)
 
 
 @dataclass(frozen=True)
@@ -71,7 +75,16 @@ def _merge_heads(t):
 class MHAtt(nn.Module):
     """Projections `wv`, `wk`, `wq` [hsize -> inside], `wm` [inside -> hsize]
     (no bias), inside = hsize * hsize_k (hsize without hsize_k), in heads of
-    `base`; `wr` [REL_SIZE -> heads] for the relation op."""
+    `base`; `wr` [REL_SIZE -> heads] for the relation op.
+
+    Split over the model group (parallel/sharding.py), a rank holds its
+    block of wv/wk/wq's output columns and of wm's input rows: H / M heads,
+    run through the kernels with `wr`'s rows of those heads, the partial
+    outputs summed over the group. When M does not divide the heads the op
+    runs whole on every rank, on the projections gathered for the step."""
+
+    SPLIT = ("wv.weight", "wk.weight", "wq.weight", "wm.weight")
+    tp = None           # the model rank's Shard once split
 
     def __init__(self, cfg: OpCfg, base: int, with_rel: bool = False,
                  hsize_k: Optional[float] = None):
@@ -88,13 +101,64 @@ class MHAtt(nn.Module):
         if with_rel:
             self.wr = nn.Linear(cfg.rel_size, self.n_heads)
 
+    def shard_model(self, shard) -> tuple:
+        """Keep this model rank's block of the projections (wv, wk, wq by
+        output columns, wm by input rows); returns the split leaves."""
+        block = shard.block(self.wq.weight.shape[0])
+        for lin in (self.wv, self.wk, self.wq):
+            lin.weight = nn.Parameter(lin.weight.detach()[block].clone())
+        self.wm.weight = nn.Parameter(self.wm.weight.detach()[:, block].clone())
+        self.tp = shard
+        return self.SPLIT
+
     def attend(self, v, k, q, mask, train, generator, rel=None):
+        if self.tp is not None:
+            if self.n_heads % self.tp.size:
+                return self.attend_whole(v, k, q, mask, train, generator, rel)
+            return self.attend_split(v, k, q, mask, train, generator, rel)
         vh = _split_heads(self.wv(v), self.n_heads)
         kh = _split_heads(self.wk(k), self.n_heads)
         qh = _split_heads(self.wq(q), self.n_heads)
         atted = scaled_dot_attention(qh, kh, vh, mask, rel=rel, dropout_r=self.dropout_r,
                                      train=train, generator=generator)
         return self.wm(_merge_heads(atted))
+
+    def attend_split(self, v, k, q, mask, train, generator, rel=None):
+        """This model rank's heads, their partial output summed over the
+        group. The replicated inputs (each distinct activation once, and
+        the relation chain's W1, b1, wr, br, of which the rank uses wr's
+        rows) pass the megatron f, so their gradients are summed."""
+        heads = self.n_heads // self.tp.size
+        h0 = self.tp.rank * heads
+        distinct = list({id(t): t for t in (v, k, q)}.values())
+        chain = () if rel is None else tuple(rel[1:]) + ((rel[0],) if rel[0].requires_grad
+                                                        else ())
+        copied = copy_to_model(*distinct, *chain)
+        by_id = {id(t): c for t, c in zip(distinct, copied)}
+        v, k, q = by_id[id(v)], by_id[id(k)], by_id[id(q)]
+        if rel is not None:
+            w1, b1, wr, br = copied[len(distinct):len(distinct) + 4]
+            raw = copied[-1] if rel[0].requires_grad else rel[0]
+            rel = (raw, w1, b1, wr[h0:h0 + heads], br[h0:h0 + heads])
+        vh = _split_heads(self.wv(v), heads)
+        kh = _split_heads(self.wk(k), heads)
+        qh = _split_heads(self.wq(q), heads)
+        atted = scaled_dot_attention(qh, kh, vh, mask, rel=rel, dropout_r=self.dropout_r,
+                                     train=train, generator=generator,
+                                     heads=(h0, self.n_heads))
+        return reduce_from_model(self.wm(_merge_heads(atted)))
+
+    def attend_whole(self, v, k, q, mask, train, generator, rel=None):
+        """Every head on every model rank, with the projections gathered
+        from the ranks' blocks (each rank keeps its block's gradient)."""
+        wv, wk, wq = (gather_from_model(lin.weight, 0) for lin in (self.wv, self.wk, self.wq))
+        wm = gather_from_model(self.wm.weight, 1)
+        vh = _split_heads(F.linear(v, wv), self.n_heads)
+        kh = _split_heads(F.linear(k, wk), self.n_heads)
+        qh = _split_heads(F.linear(q, wq), self.n_heads)
+        atted = scaled_dot_attention(qh, kh, vh, mask, rel=rel, dropout_r=self.dropout_r,
+                                     train=train, generator=generator)
+        return F.linear(_merge_heads(atted), wm)
 
 
 class SelfAtt(MHAtt):

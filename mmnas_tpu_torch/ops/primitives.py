@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmnas_tpu_torch.parallel.sharding import copy_to_model, reduce_from_model
+
 MASK_FILL = -1e9
 
 
@@ -51,17 +53,24 @@ class LayerNorm(nn.Module):
 # dropout, FC / MLP (reference modules.py:13-41)
 # ---------------------------------------------------------------------------
 
-def dropout(x, rate: float, train: bool, generator: Optional[torch.Generator] = None):
+def dropout(x, rate: float, train: bool, generator: Optional[torch.Generator] = None,
+            cols=None):
     """Inverted dropout (torch semantics). No-op when eval or rate == 0.
     The keep mask is drawn from `generator`, which lives on x's device (a
-    CPU generator cannot draw a CUDA tensor)."""
+    CPU generator cannot draw a CUDA tensor). cols: (block, width) when x
+    holds the columns `block` of a `width`-wide activation (a model rank's
+    hidden shard): the whole activation's mask is drawn and its columns
+    taken, so the shard drops what the unsplit layer drops."""
     if not train or rate <= 0.0:
         return x
     if generator is not None and generator.device.type != x.device.type:
         raise ValueError(f"dropout of a {x.device.type} tensor needs a generator on that "
                          f"device, got one on {generator.device}")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if cols is None else (*x.shape[:-1], cols[1])
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if cols is not None:
+        mask = mask[..., cols[0]]
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -74,7 +83,13 @@ def fc(linear: nn.Linear, x, dropout_r: float, use_relu: bool, train: bool,
 
 
 class MLP(nn.Module):
-    """fc (linear + relu + dropout) -> linear; params `fc`, `linear`."""
+    """fc (linear + relu + dropout) -> linear; params `fc`, `linear`.
+
+    Named `mlp` in a net, the pair is split over the model group
+    (parallel/sharding.py): fc by output columns, linear by input rows."""
+
+    SPLIT = ("fc.weight", "linear.weight")
+    tp = None           # the model rank's Shard once split
 
     def __init__(self, in_size: int, mid_size: int, out_size: int,
                  dropout_r: float = 0.0, use_relu: bool = True):
@@ -84,8 +99,30 @@ class MLP(nn.Module):
         self.dropout_r = dropout_r
         self.use_relu = use_relu
 
+    def shard_model(self, shard) -> tuple:
+        """Keep this model rank's block of fc's output columns and of
+        linear's input rows (the biases stay whole); returns the split
+        leaves."""
+        cols = shard.block(self.fc.weight.shape[0])
+        self.fc.weight = nn.Parameter(self.fc.weight.detach()[cols].clone())
+        self.linear.weight = nn.Parameter(self.linear.weight.detach()[:, cols].clone())
+        self.tp = shard
+        return self.SPLIT
+
     def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
-        return self.linear(fc(self.fc, x, self.dropout_r, self.use_relu, train, generator))
+        if self.tp is None:
+            return self.linear(fc(self.fc, x, self.dropout_r, self.use_relu, train, generator))
+        # this rank's hidden columns: fc's block with its block of the
+        # replicated bias, then linear's rows, summed over the model group
+        # before linear's bias
+        width = self.fc.weight.shape[0] * self.tp.size
+        cols = self.tp.block(width)
+        x, bias = copy_to_model(x, self.fc.bias)
+        h = F.linear(x, self.fc.weight, bias[cols])
+        if self.use_relu:
+            h = torch.relu(h)
+        h = dropout(h, self.dropout_r, train, generator, cols=(cols, width))
+        return reduce_from_model(F.linear(h, self.linear.weight)) + self.linear.bias
 
 
 # ---------------------------------------------------------------------------

@@ -21,17 +21,31 @@
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from mmnas_tpu_torch.parallel import mesh as pmesh
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        split: Optional[Sequence[bool]] = None):
     """torch.nn.utils.clip_grad_norm_ semantics (train_vqa.py:310), in place:
     grads *= min(1, max_norm / (norm + 1e-6)). Returns (grads, norm); the
-    norm stays a device tensor, so nothing waits for the device."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norm stays a device tensor, so nothing waits for the device.
+
+    split: under tensor parallelism, which grads are a model rank's shard
+    of a split leaf (parallel/sharding.py `split_flags`): the norm is then
+    the whole gradient's, the squares of the shards summed over the model
+    group and the replicated leaves (whole on every rank) counted once."""
+    if split is None or not any(split):
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        squares = torch.stack(torch._foreach_norm(grads)) ** 2
+        is_split = torch.tensor(list(split), device=squares.device)
+        sharded = pmesh.model_all_reduce(squares[is_split].sum())
+        norm = torch.sqrt(squares[~is_split].sum() + sharded)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     torch._foreach_mul_(grads, scale)
     return grads, norm

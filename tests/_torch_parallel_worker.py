@@ -11,9 +11,10 @@ group; each runs, through the engines' own loops:
   rank 0's epoch-1 checkpoint for a second, and the eval of the epoch-2
   checkpoint;
 - the VQA search for one epoch at KPATH 1 'full' and at KPATH 2 'two';
-- the VGD eval of a checkpoint, and one VGD train step;
+- the VGD eval of a checkpoint, one VGD train step and one VGD search
+  weight step (an epoch each from an epoch-0 checkpoint);
 - the ITM mining of epoch 0, one triplet train step on the mined negatives
-  and the R@K eval.
+  and the R@K eval, and one ITM train step from an epoch-0 checkpoint.
 
 With --fail in place of SPEC, rank 1 raises while rank 0 waits for it.
 
@@ -46,8 +47,8 @@ def one_step_grads(exe, net, batch_keys, loader):
     seen = []
     reduce = pmesh.all_reduce_grads
 
-    def recording(grads):
-        reduce(grads)
+    def recording(grads, **kw):
+        reduce(grads, **kw)
         seen.append([g.detach().clone().numpy() for g in grads])
 
     params = dict(net.named_parameters())
@@ -67,7 +68,8 @@ def member(device, spec_path):
     from mmnas_tpu_torch.engine import itm as PI
     from mmnas_tpu_torch.engine import vgd as PV
     from mmnas_tpu_torch.engine.search import SearchExecution
-    from mmnas_tpu_torch.engine.vqa import Execution
+    from mmnas_tpu_torch.engine.search_vgd import SearchExecution as VgdSearchExecution
+    from mmnas_tpu_torch.engine.vqa import Execution, batch_to_device
     from mmnas_tpu_torch.models.net import INPUT_KEYS
     from mmnas_tpu_torch.train.checkpoint import ckpt_path
 
@@ -100,13 +102,17 @@ def member(device, spec_path):
                     "counts": dict(pmesh.COUNTS),
                     "alpha": {c: a.numpy().copy() for c, a in result.alpha.items()}}
 
-    # VGD: the eval's hits, one train step's gradient
+    # VGD: the eval's hits, one train step, one search weight step
     cfg = Cfg(**spec["vgd"])
-    exe = PV.Execution(cfg, device)
-    out["vgd_hits"] = exe.run().hits
-    ds = exe.build_dataset("train")
-    out["vgd_grads"] = one_step_grads(exe, exe.load_masters(ds), INPUT_KEYS + exe.TARGET_KEYS,
-                                      exe.make_loader(ds, cfg.BATCH_SIZE, shuffle=True))
+    out["vgd_hits"] = PV.Execution(cfg, device).run().hits
+    exe = PV.Execution(Cfg(**spec["vgd_step"]), device)
+    out["vgd_step"] = exe.run().step_losses
+    loader = exe.make_loader(exe.build_dataset("train"), exe.cfg.BATCH_SIZE, shuffle=True)
+    loader.sampler.set_epoch(0)
+    batch = batch_to_device(next(iter(loader)), device, exe.TARGET_KEYS)
+    out["vgd_mask_counts"] = (float(batch["scores_mask"].sum()), float(batch["bbox_mask"].sum()))
+    out["vgd_search"] = {"paths": VgdSearchExecution(SearchCfg(**spec["vgd_search"]),
+                                                     device).run().paths}
 
     # ITM: the mining of epoch 0, one triplet step on its negatives, R@K
     cfg = Cfg(**spec["itm"])
@@ -119,6 +125,7 @@ def member(device, spec_path):
                                       exe.make_loader(ds, cfg.BATCH_SIZE, shuffle=True))
     recall = exe.eval(exe.make_loader(ds, cfg.EVAL_BATCH_SIZE), net=exe.load_masters(ds))
     out["itm_scores"], out["itm_stats"] = recall.scores, recall.stats
+    out["itm_step"] = PI.Execution(Cfg(**spec["itm_step"]), device).run().step_losses
 
     out["loaded"] = sorted(m for m in sys.modules
                            if m.split(".")[0] in ("jax", "jaxlib", "mmnas_tpu"))

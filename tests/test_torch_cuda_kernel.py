@@ -177,6 +177,71 @@ def test_backward_matches_plain_autograd(dev, B, H, Lq, Lk, D, kind, Rr, dt, dro
         assert torch.equal(x, y)                 # no atomics: the same bits every run
 
 
+HEAD_BLOCK_CASES = [  # B, H of heads_total, Lq, Lk, operands, dtype
+    (2, 4, 8, 100, 100, "mask+rel", torch.float32),
+    (3, 4, 8, 100, 14, "mask", torch.float32),
+    (2, 2, 4, 36, 36, "mask+rel", torch.bfloat16),
+    (2, 1, 2, 33, 17, "mask", torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,H,heads_total,Lq,Lk,kind,dt", HEAD_BLOCK_CASES)
+def test_a_model_ranks_head_block_draws_the_whole_calls_mask_and_gradients(
+        dev, B, H, heads_total, Lq, Lk, kind, dt):
+    """Tensor parallelism: heads [head0, head0 + H) of heads_total, with the
+    relation chain on the block of Wr's rows and br. The dropout forward at
+    head0 draws the whole call's keep mask for its heads (and the Philox
+    bits of keep_mask_reference at head0); its output and its backward,
+    relation pass included, equal the plain version on that block; the
+    blocks' dWr, dbr rows and their dW1, db1 summed are the whole call's."""
+    (args, m, _, r) = on(dev, dt, *make(B, heads_total, Lq, Lk, 64, kind, R=16, seed=5))
+    do = torch.randn(B, heads_total, Lq, 64, generator=torch.Generator().manual_seed(6)
+                     ).to(dev, dt)
+    _, keep_all, pre_all = FA.attention_fwd(*args, m, None, r, dropout_r=RATE, seed=77,
+                                            want_pre=r is not None)
+    whole = FA.attention_bwd(*args, m, None, r, keep_all, RATE, do, pre=pre_all)[4]
+    tol = 2e-2 if dt == torch.bfloat16 else (1e-3 if r is not None else 1e-4)
+    fwd_tol = 5e-2 if dt == torch.bfloat16 else (1e-3 if r is not None else 1e-4)
+    blocks = []
+    for head0 in range(0, heads_total, H):
+        sl = slice(head0, head0 + H)
+        part = [t[:, sl].contiguous() for t in args]
+        rb = None if r is None else (*r[:3], r[3][sl].contiguous(), r[4][sl].contiguous())
+        dop = do[:, sl].contiguous()
+        out, keep, pre = FA.attention_fwd(*part, m, None, rb, dropout_r=RATE, seed=77,
+                                          want_pre=rb is not None, head0=head0,
+                                          heads_total=heads_total)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, keep_all[:, sl])
+        assert torch.equal(keep.cpu().bool(), FA.keep_mask_reference(
+            77, B, H, Lq, Lk, RATE, head0, heads_total))
+        want = FA.fused_attention_reference(*[t.float() for t in part], m,
+                                            rel=None if rb is None else tuple(map(f32, rb)),
+                                            keep=keep, dropout_r=RATE)
+        torch.testing.assert_close(out.float(), want, rtol=0, atol=fwd_tol)
+        dq, dk, dv, _, drel = FA.attention_bwd(*part, m, None, rb, keep, RATE, dop, pre=pre)
+        got = [dq, dk, dv] + ([] if rb is None else list(drel[1:]))
+        wants = plain_grads(part, m, None, rb, keep, RATE, dop)
+        wants = list(wants[:3]) + ([] if rb is None else list(wants[4:]))
+        for i, (g, w) in enumerate(zip(got, wants)):
+            err = (g.float() - w).abs().max().item() / max(w.abs().max().item(), 1e-6)
+            assert err <= tol, (head0, i, err)
+        blocks.append(drel)
+    if r is not None:
+        for i, by_rows in ((1, False), (2, False), (3, True), (4, True)):
+            got = torch.cat([b[i] for b in blocks]) if by_rows else sum(b[i] for b in blocks)
+            err = (got.float() - whole[i].float()).abs().max().item() / max(
+                whole[i].abs().max().item(), 1e-6)
+            assert err <= tol, (i, err)
+
+
+def test_wrapper_refuses_heads_outside_the_whole_call(dev):
+    (args, m, _, _) = on(dev, torch.float32, *make(2, 4, 8, 8, 64, "mask"))
+    with pytest.raises(ValueError, match="not within"):
+        FA.fused_attention(*args, m, dropout_r=RATE, generator=torch.Generator(dev),
+                           head0=2, heads_total=5)
+
+
 def test_autograd_function_runs_the_kernels(dev):
     (args, m, _, r) = on(dev, torch.float32, *make(2, 8, 100, 100, 64, "mask+rel", 4, R=64))
     leaves = [t.clone().requires_grad_() for t in args]

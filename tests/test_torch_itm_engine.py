@@ -23,7 +23,7 @@ R@K lines are the same.
 (e) In a fresh interpreter the port runs a CPU ITM train epoch, an eval and
 a search epoch without loading jax or any module of the JAX package.
 (f) The ITM CLIs refuse the CPU (with --MULTIHOST too, which
-they take) and --MODEL_AXIS > 1."""
+they take), take --MODEL_AXIS 2 over 4 cards and refuse it over 1 or 3."""
 
 import contextlib
 import copy
@@ -374,6 +374,13 @@ def test_itm_clis_refuse_the_cpu_and_multihost(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["--SYNTH", "--MULTIHOST"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    for main in (train_itm.main, search_itm.main):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            main(["--SYNTH", "--MODEL_AXIS", "2"])
+    for cli in (train_itm, search_itm):
+        # tensor parallelism: taken where the model axis divides the cards,
+        # refused with the JAX package's words where it does not
+        launched = []
+        monkeypatch.setattr(cli, "launch", lambda *a: launched.append(a))
+        cli.main(["--SYNTH", "--NDEV", "4", "--MODEL_AXIS", "2"])
+        assert launched[0][1][1].MODEL_AXIS == 2 and launched[0][2:] == ("0", 4, False)
+        for bad in (["--MODEL_AXIS", "2"], ["--NDEV", "3", "--MODEL_AXIS", "2"]):
+            with pytest.raises(ValueError, match="not divisible by model_axis 2"):
+                cli.main(["--SYNTH"] + bad)

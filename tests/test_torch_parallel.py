@@ -20,17 +20,23 @@ sizes, DROPOUT_R 0:
     Adam's step, as tests/test_torch_engine.py and
     tests/test_torch_search_engine.py hold them), the losses to 1e-5, the
     eval predictions are equal;
+  - VGD and ITM against the JAX engines at N_DEVICES=2 in the same way: one
+    VGD train step and one VGD search weight step (the two ranks' halves
+    hold different mask counts, so LOSS_AVG's global-batch means differ from
+    the mean of the halves' means) and one ITM train step, from epoch-0
+    checkpoints, their epoch-1 checkpoints to 1e-5 (the gradient-free
+    leaves to Adam's step);
   - VGD and ITM against the port's single-process run, which the other
     files hold to the JAX package: the VGD eval hits, ITM's mined negatives
-    and R@K are the same, and one VGD and one ITM train step's all-reduced
-    gradient is the mean of the gradients of the two ranks' halves computed
-    here in one process, to 1e-6 of the largest;
+    and R@K are the same, and one ITM train step's all-reduced gradient is
+    the mean of the gradients of the two ranks' halves computed here in one
+    process, to 1e-6 of the largest;
   - both ranks sample the same paths and end with the same alpha; rank 0
     alone writes the log; the all-reduces are one per bucket per step.
 (d) The workers load no jax and no mmnas_tpu module.
 (e) A rank that raises ends the group at once.
 (f) The CLIs' configuration takes --MULTIHOST, --NDEV N and several --GPU
-ids, refuses --MODEL_AXIS > 1 naming tensor parallelism; the launcher
+ids, and --MODEL_AXIS 2 over 2 cards, refusing it over 3; the launcher
 refuses cards the machine has not, joins torchrun's group under
 --MULTIHOST, and each CLI hands its engine and cards to it."""
 
@@ -54,7 +60,10 @@ from mmnas_tpu.config import Cfg, SearchCfg
 from mmnas_tpu.data.loader import Loader as JaxLoader
 from mmnas_tpu.data.sampler import SubsetShardSampler as JaxSampler
 from mmnas_tpu.data.synth import SynthVqaDataset
+from mmnas_tpu.engine import itm as JI
+from mmnas_tpu.engine import vgd as JV
 from mmnas_tpu.engine.search import SearchExecution as JaxSearchExecution
+from mmnas_tpu.engine.search_vgd import SearchExecution as JaxVgdSearchExecution
 from mmnas_tpu.engine.vqa import Execution as JaxExecution
 from mmnas_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
 from mmnas_tpu.train.optimizer import build_net_optimizer as jax_build_net_optimizer
@@ -65,6 +74,8 @@ from mmnas_tpu_torch.config import SearchCfg as PortSearchCfg
 from mmnas_tpu_torch.config import cfg_from_args, make_arg_parser
 from mmnas_tpu_torch.data.loader import Loader
 from mmnas_tpu_torch.data.sampler import SubsetShardSampler
+from mmnas_tpu_torch.data.synth import SynthItmDataset as PortSynthItmDataset
+from mmnas_tpu_torch.data.synth import SynthVgdDataset as PortSynthVgdDataset
 from mmnas_tpu_torch.data.synth import SynthVqaDataset as PortSynthVqaDataset
 from mmnas_tpu_torch.engine import itm as PI
 from mmnas_tpu_torch.engine import vgd as PV
@@ -84,6 +95,8 @@ from test_torch_engine import SMALL as VQA_SMALL
 from test_torch_itm_engine import TRAIN as ITM_TRAIN
 from test_torch_search_engine import SMALL as SEARCH_SMALL
 from test_torch_search_engine import assert_checkpoints_agree, run_jax_replaying
+from test_torch_vgd_engine import SEARCH as VGD_SEARCH
+from test_torch_vgd_engine import SEARCH_NOISY as VGD_SEARCH_NOISY
 from test_torch_vgd_engine import TRAIN as VGD_TRAIN
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -99,6 +112,17 @@ SEARCH = dict(SEARCH_SMALL, SYNTH_SIZE=40, VERSION="dp-search")
 # 10 items, eval batches of 3: a pad item in each rank's last batch
 VGD = dict(VGD_TRAIN, SYNTH_SIZE=10, EVAL_BATCH_SIZE=3, VERSION="dp-vgd")
 ITM = dict(ITM_TRAIN, VERSION="dp-itm")
+# one train step a run (one global batch of 2 x 4 items, of 2 x 5 captions
+# with random negatives) on the small genotype; the VGD search's weight
+# split of 8 is one step, no arch step in its one epoch
+STEPS = {"vgd_step": dict(VGD, SYNTH_SIZE=8, VERSION="dp-vgd-step"),
+         "itm_step": dict(ITM, SYNTH_SIZE=10, BATCH_SIZE=5, NEG_START_EPOCH=1,
+                          VERSION="dp-itm-step"),
+         "vgd_search": dict(VGD_SEARCH, SYNTH_SIZE=10, ALPHA_START=1, VERSION="dp-vgd-search")}
+# the leaves whose true gradient is 0, held to one warmup Adam step (lr / 4)
+# either way: the AttFlat glimpse biases and VGD's proj_scores bias
+STEP_INVARIANT = {("attflat_x", "mlp", "linear", "b"), ("attflat_y", "mlp", "linear", "b"),
+                  ("proj_scores", "b")}
 # params and moments of the VQA train after its 4 Adam steps: the same fp32
 # sums in other orders (tests/test_torch_engine.py)
 TRAIN_TOL = 1e-5
@@ -189,6 +213,26 @@ def write_starts(tmp, arch):
         save_checkpoint(str(tmp / f"{task}.pkl"),
                         {"state_dict": to_jax_params(net), "net_optim": None, "epoch": 0})
 
+    for name, ds_cls in (("vgd_step", PortSynthVgdDataset), ("itm_step", PortSynthItmDataset)):
+        cfg = PortCfg(**dict(STEPS[name], ARCH_PATH=arch))
+        ds = ds_cls(cfg, size=cfg.SYNTH_SIZE, seed=cfg.SEED)
+        params = to_jax_params(NetFull(cfg.replace(SEED=4), load_genotype(arch), {
+            "token_size": ds.token_size, "ans_size": 1, "pretrained_emb": ds.pretrained_emb},
+            task=cfg.TASK))
+        jax_save_checkpoint(str(tmp / f"{name}_epoch0.pkl"), {
+            "state_dict": params,
+            "net_optim": jax_build_net_optimizer(Cfg(**STEPS[name]), 1).init(params), "epoch": 0})
+    scfg = PortSearchCfg(**STEPS["vgd_search"])
+    ds = PortSynthVgdDataset(scfg, size=scfg.SYNTH_SIZE, seed=scfg.SEED)
+    net = NetSearch(scfg.replace(SEED=5), {"token_size": ds.token_size, "ans_size": 1,
+                                           "pretrained_emb": ds.pretrained_emb}, task="vgd")
+    params, alpha = to_jax_params(net), {c: a.numpy() for c, a in net.init_alpha().items()}
+    jcfg = SearchCfg(**STEPS["vgd_search"])
+    jax_save_checkpoint(str(tmp / "vgd_search_epoch0.pkl"), {
+        "state_dict": params, "net_optim": jax_build_net_optimizer(jcfg, 1).init(params),
+        "alpha": alpha, "alpha_optim": jax_plain_adam(jcfg.ALPHA_LR_BASE, jcfg.ALPHA_OPT_BETAS,
+                                                      eps=1e-8).init(alpha), "epoch": 0})
+
 
 def specs(tmp, arch):
     """The worker's configurations (keyword arguments of Cfg / SearchCfg)."""
@@ -209,6 +253,10 @@ def specs(tmp, arch):
                           **dirs("search_k2")),
         "vgd": dict(VGD, RUN_MODE="val", CKPT_FILE_PATH=str(tmp / "vgd.pkl"), **dirs("vgd")),
         "itm": dict(ITM, RUN_MODE="val", CKPT_FILE_PATH=str(tmp / "itm.pkl"), **dirs("itm")),
+        **{name: dict(STEPS[name], ARCH_PATH=arch, RUN_MODE="train", RESUME=True, MAX_EPOCH=1,
+                      EVAL_EVERY_EPOCH=False, CKPT_FILE_PATH=str(tmp / f"{name}_epoch0.pkl"),
+                      ARCH_ROOT=str(tmp / "port" / name / "arch"), **dirs(name))
+           for name in STEPS},
     }
 
 
@@ -236,10 +284,20 @@ def jax_train_and_eval(tmp, spec):
     return history, preds[0]
 
 
+def jax_steps(tmp, spec):
+    """The JAX engines' VGD and ITM train steps at N_DEVICES=2 (their
+    epoch-1 checkpoints)."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(JaxExecution, "make_loader", rank_major_loader)
+        for name, mod in (("vgd_step", JV), ("itm_step", JI)):
+            mod.Execution(Cfg(**dict(spec[name], N_DEVICES=WORLD, CKPT_ROOT=str(
+                tmp / "jax" / name), LOG_ROOT=str(tmp / "jax" / name / "log")))).run()
+
+
 def single_process(tmp, spec):
     """The port in this process, no group: the VGD eval's hits, ITM's
     mining of epoch 0 and its R@K, and the gradient of each rank's half of
-    one VGD and one ITM train step."""
+    one ITM train step."""
     cpu = torch.device("cpu")
     out = {}
     for task, mod in (("vgd", PV), ("itm", PI)):
@@ -254,10 +312,10 @@ def single_process(tmp, spec):
             out["itm_negatives"] = (ds.neg_caps_idx_tensor.copy(), ds.neg_imgs_idx_tensor.copy())
             recall = exe.eval(exe.make_loader(ds, cfg.EVAL_BATCH_SIZE), net=exe.load_masters(ds))
             out["itm_scores"], out["itm_stats"] = recall.scores, recall.stats
-        out[f"{task}_halves"] = [one_step_grads(
-            exe, exe.load_masters(ds), INPUT_KEYS + exe.TARGET_KEYS,
-            Loader(ds, cfg.BATCH_SIZE, num_workers=1, sampler=SubsetShardSampler(
-                len(ds), num_replicas=WORLD, rank=r, shuffle=True))) for r in range(WORLD)]
+            out[f"{task}_halves"] = [one_step_grads(
+                exe, exe.load_masters(ds), INPUT_KEYS + exe.TARGET_KEYS,
+                Loader(ds, cfg.BATCH_SIZE, num_workers=1, sampler=SubsetShardSampler(
+                    len(ds), num_replicas=WORLD, rank=r, shuffle=True))) for r in range(WORLD)]
     return out
 
 
@@ -277,6 +335,7 @@ def runs(tmp_path_factory):
                                   env=one_thread_env(), start_new_session=True)
         try:         # this process's runs while the workers run theirs
             jax_history, jax_preds = jax_train_and_eval(tmp, spec["vqa_train"])
+            jax_steps(tmp, spec)
             single = single_process(tmp, spec)
             worker.wait(timeout=WORKER_TIMEOUT_S - (time.time() - t0))
         finally:     # the spawned ranks too, should the worker be left running
@@ -296,6 +355,13 @@ def runs(tmp_path_factory):
             m.setattr(JaxSearchExecution, "make_loader", rank_major_loader)
             run_jax_replaying(cfg, ranks[0][leg]["paths"], m)
         jax_logs[leg] = (tmp / "jax" / leg / "log" / f"log_{cfg.VERSION}.txt").read_text()
+    cfg = SearchCfg(**dict(spec["vgd_search"], N_DEVICES=WORLD,
+                           CKPT_ROOT=str(tmp / "jax" / "vgd_search"),
+                           ARCH_ROOT=str(tmp / "jax" / "vgd_search" / "arch"),
+                           LOG_ROOT=str(tmp / "jax" / "vgd_search" / "log")))
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(JaxVgdSearchExecution, "make_loader", rank_major_loader)
+        run_jax_replaying(cfg, ranks[0]["vgd_search"]["paths"], m, JaxVgdSearchExecution)
     return {"tmp": tmp, "ranks": ranks, "jax_history": jax_history, "jax_preds": jax_preds,
             "jax_logs": jax_logs, "single": single}
 
@@ -419,11 +485,40 @@ def test_one_all_reduce_per_bucket_and_step(runs):
 
 
 def test_vgd_hits_and_train_step_gradient_match_one_process(runs):
-    (r0, r1), single = runs["ranks"], runs["single"]
+    """The hits against the port's single process; the train and search
+    steps (LOSS_AVG over the global batch's mask counts) against the JAX
+    engines at N_DEVICES=2."""
+    tmp, (r0, r1), single = runs["tmp"], runs["ranks"], runs["single"]
     assert len(single["vgd_hits"]) == VGD["SYNTH_SIZE"]
     for r in (r0, r1):
         np.testing.assert_array_equal(r["vgd_hits"], single["vgd_hits"])
-    assert_mean_of_halves(r0["vgd_grads"], r1["vgd_grads"], single["vgd_halves"])
+    # the two halves hold different mask counts
+    assert r0["vgd_mask_counts"] != r1["vgd_mask_counts"]
+    assert r0["vgd_step"] == r1["vgd_step"] and len(r0["vgd_step"]) == 1
+    assert_step_agrees(tmp, "vgd_step", "dp-vgd-step", PortCfg(**VGD).NET_LR_BASE)
+    assert pickle.dumps(r0["vgd_search"]["paths"]) == pickle.dumps(r1["vgd_search"]["paths"])
+    assert [kind for kind, _, _ in r0["vgd_search"]["paths"]] == ["weight"]
+    assert_checkpoints_agree(load_pickle(tmp / "port" / "vgd_search" / "dp-vgd-search_epoch1.pkl"),
+                             load_pickle(tmp / "jax" / "vgd_search" / "dp-vgd-search_epoch1.pkl"),
+                             noisy=VGD_SEARCH_NOISY)
+
+
+def assert_step_agrees(tmp, name, version, lr):
+    """The port's epoch-1 checkpoint of one train step `name` against the
+    JAX engine's: every leaf to TRAIN_TOL, STEP_INVARIANT's to one warmup
+    Adam step either way."""
+    got = load_pickle(tmp / "port" / name / f"{version}_epoch1.pkl")
+    want = load_pickle(tmp / "jax" / name / f"{version}_epoch1.pkl")
+    assert got["epoch"] == want["epoch"] == 1 and int(got["net_optim"]["step"]) == 1
+    for key in ("state_dict", "net_optim"):
+        assert jax.tree_util.tree_structure(got[key]) == jax.tree_util.tree_structure(want[key])
+        for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(got[key]),
+                                jax.tree_util.tree_leaves(want[key])):
+            names = tuple(getattr(k, "key", None) for k in path)
+            step = key == "state_dict" and names in STEP_INVARIANT
+            np.testing.assert_allclose(a, b, rtol=TRAIN_TOL,
+                                       atol=2 * lr / 4 if step else TRAIN_TOL,
+                                       err_msg=jax.tree_util.keystr(path))
 
 
 def test_itm_mining_recall_and_train_step_gradient_match_one_process(runs):
@@ -435,6 +530,9 @@ def test_itm_mining_recall_and_train_step_gradient_match_one_process(runs):
         assert r["itm_stats"] == single["itm_stats"]
     assert r0["itm_scores"].shape == (4, 20)
     assert_mean_of_halves(r0["itm_grads"], r1["itm_grads"], single["itm_halves"])
+    # one train step against the JAX engine at N_DEVICES=2
+    assert r0["itm_step"] == r1["itm_step"] and len(r0["itm_step"]) == 1
+    assert_step_agrees(runs["tmp"], "itm_step", "dp-itm-step", PortCfg(**ITM).NET_LR_BASE)
 
 
 def assert_mean_of_halves(got0, got1, halves):
@@ -473,11 +571,17 @@ def parse(task, argv, search=False):
 
 
 def test_cli_config_takes_data_parallel_flags_and_refuses_tensor_parallel():
+    """Tensor parallelism is taken where the model axis divides the world
+    (--MULTIHOST: checked when torchrun's group is joined), refused with the
+    JAX package's words where it does not."""
     for argv in (["--MULTIHOST"], ["--NDEV", "2"], ["--GPU", "0,1"], ["--GPU", "0,1", "--NDEV", "2"]):
         parse("vqa", argv)
     assert parse("vqa", ["--NDEV", "4"]).N_DEVICES == 4
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        parse("vqa", ["--MODEL_AXIS", "2", "--NDEV", "2"])
+    for argv in (["--NDEV", "2"], ["--GPU", "0,1"], ["--MULTIHOST"]):
+        assert parse("vqa", ["--MODEL_AXIS", "2"] + argv).MODEL_AXIS == 2
+    for argv in (["--NDEV", "3"], ["--GPU", "0,1,2"], []):
+        with pytest.raises(ValueError, match="not divisible by model_axis 2"):
+            parse("vqa", ["--MODEL_AXIS", "2"] + argv)
     with pytest.raises(ValueError, match="different worlds"):
         parse("vqa", ["--GPU", "0,1", "--NDEV", "3"])
     with pytest.raises(ValueError, match="torchrun"):

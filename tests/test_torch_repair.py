@@ -9,9 +9,13 @@ these up to their docstrings) is the same code as its namesake in the JAX
 package, up to the package name in imports and the module docstring; the
 one deliberate difference is
 `cfg_from_args`, which leaves --MULTIHOST to the port's launcher (the JAX
-package initializes jax.distributed there) and refuses --MODEL_AXIS > 1.
+package initializes jax.distributed there) and refuses a --MODEL_AXIS that
+does not divide the world there, as the JAX package's `get_mesh` does.
 `eval_dataset_order` of parallel/mesh.py is the JAX package's with the world
-size an argument in place of jax.process_count(). The
+size an argument in place of jax.process_count(). The tensor-parallel
+rules of parallel/sharding.py (`spec_for_path`, scanned here) are held to
+the JAX package's `_spec_for_path` leaf by leaf, on every net, in
+tests/test_torch_tensor_parallel.py. The
 box helpers' jnp versions are torch twins in the port (held to them in
 tests/test_torch_vgd.py), and the native C++ IoU is the same file byte for
 byte. The two `Cfg`s agree field for field, and the two packages'
@@ -156,12 +160,18 @@ def test_cfg_and_synthetic_data_match_the_jax_package():
         got = port_config.cfg_from_args(task, port_config.make_arg_parser(task).parse_args(argv))
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
     # --MULTIHOST joins torchrun's group in the launcher, not here;
-    # tensor parallelism is refused
+    # tensor parallelism is taken where the model axis divides the world,
+    # refused with the JAX package's words where it does not
     assert port_config.cfg_from_args(
         "vqa", port_config.make_arg_parser("vqa").parse_args(argv + ["--MULTIHOST"])).MULTIHOST
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        port_config.cfg_from_args(
-            "vqa", port_config.make_arg_parser("vqa").parse_args(argv + ["--MODEL_AXIS", "2"]))
+    tp = argv + ["--NDEV", "4", "--MODEL_AXIS", "2"]
+    want = jax_config.cfg_from_args("vqa", jax_config.make_arg_parser("vqa").parse_args(tp))
+    got = port_config.cfg_from_args("vqa", port_config.make_arg_parser("vqa").parse_args(tp))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want) and got.MODEL_AXIS == 2
+    for bad in (["--MODEL_AXIS", "2"], ["--NDEV", "3", "--MODEL_AXIS", "2"]):
+        with pytest.raises(ValueError, match="not divisible by model_axis 2"):
+            port_config.cfg_from_args(
+                "vqa", port_config.make_arg_parser("vqa").parse_args(argv + bad))
 
     cfg = port_config.Cfg(FRCNFEAT_LEN=12, FRCNFEAT_SIZE=16, WORD_EMBED_SIZE=8, MAX_TOKEN=6)
     for port_cls, jax_cls in ((SynthVqaDataset, JaxSynthVqaDataset),
@@ -188,7 +198,8 @@ def test_cfg_and_synthetic_data_match_the_jax_package():
                                  "train_vgd.py", "search_vgd.py", "native/build.py",
                                  "engine/itm.py", "engine/search_itm.py", "train_itm.py",
                                  "search_itm.py", "utils/itm_loss.py", "data/itm.py",
-                                 "parallel/mesh.py", "parallel/__init__.py"])
+                                 "parallel/mesh.py", "parallel/__init__.py",
+                                 "parallel/sharding.py"])
 def test_search_and_probe_modules_are_scanned(rel):
     """The search, probe, VGD, ITM and data-parallel slices' modules are
     among the scanned files and import neither package of JAX."""
