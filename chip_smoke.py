@@ -99,12 +99,12 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    and the search's 4;
 12. drives the ITM paths of `arch/mmnas_itm.json` at full width (HSIZE 512,
    36 regions of 2048, 50-token captions; `itm_path`): `--RUN train --SYNTH
-   --BS 64 --SYNTH_SIZE 1000` in fp32 and bf16 on fp32 masters, mining
-   before the epoch (NEG_RANDSIZE 64, NEG_HARDSIZE 5: 24 scorer tiles of
-   3,200 pairs), 16 triplet train steps (three forwards each) and the R@K
-   eval over the full 200 x 1,000 score matrix, with exact launches from
+   --BS 64 --SYNTH_SIZE 500` in fp32 and bf16 on fp32 masters, mining
+   before the epoch (NEG_RANDSIZE 64, NEG_HARDSIZE 5: 12 scorer tiles of
+   3,200 pairs), 8 triplet train steps (three forwards each) and the R@K
+   eval over the full 100 x 500 score matrix, with exact launches from
    the genotype and the sweeps' sizes; `--RUN val --CKPT_PATH` on the epoch
-   checkpoint, its score matrix's 20 x 100 corner against the CPU's; the
+   checkpoint, its score matrix's 10 x 40 corner against the CPU's; the
    mined negatives of the first items against the CPU's ranking; the split
    trunk against the forward; one fp32 step against the CPU and the plain
    versions as in 7; the train step, mining, text encoder and scorer
@@ -134,10 +134,17 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    tools/pack_features.py (run as programs), per item, with --DEVICE_REL
    (the whole-batch loader) and with --DEVICE_REL --SHIP_INT8 (int8
    features), each with exact launches and logits against the CPU, and
-   each loader's steady-state examples/s (16 passes over the eval set, the
+   each loader's steady-state examples/s (8 passes over the eval set, the
    first batch left out); and times an empty kernel beside probe_wrblock
    (the launch floor);
-16. drives the data-parallel path (`data_parallel_path`, parallel/mesh.py):
+16. runs the accuracy rehearsal's runners (`rehearsal_path`,
+   mmnas_tpu_torch/tools/rehearsal.py) on 15's corpus with the stub GloVe
+   cache and its features packed (fp32): `run_vqa` for 6 epochs and
+   `run_vgd` for 8 at full width (HSIZE 512, bf16 on fp32 masters, BS 64,
+   arch/mcan.json), VQAEval on val and IoU@0.5 on val and testA, each at
+   least 90 on val with its last epoch's loss under half its first, with
+   exact launches;
+17. drives the data-parallel path (`data_parallel_path`, parallel/mesh.py):
    arch/mmnas_vqa.json at HSIZE 512, fp32, DROPOUT_R 0.1, 5 train steps of
    64 and an eval of 2 batches, then the fp32 search leg (BS 128, KPATH 1) for
    5 weight steps and an arch step, single-process and then through the same
@@ -150,12 +157,12 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    alone, every rank the same search paths and alpha, and whose eval gives
    the single process's predictions in dataset order; the train step's ms
    with and without the group and the all-reduce's share of it;
-17. drives the tensor-parallel path (`tensor_parallel_path`,
+18. drives the tensor-parallel path (`tensor_parallel_path`,
    parallel/sharding.py): first the forward, dropout-forward, backward
    and relation-pass kernels at a model rank's shapes (B 64, 4 of 8 heads
    at head0 0 and 4; the dropout forward draws the whole call's keep mask
    bit for bit, the RSA chain runs on the block of Wr's rows, the blocks'
-   relation gradients make up the whole call's), then 16's work at model
+   relation gradients make up the whole call's), then 17's work at model
    axis 2: on one card two processes share it in a gloo group, on two or
    more NCCL, data cards // 2 x model 2; at data 1 the losses, the
    gathered parameters and Adam moments and alpha equal the single
@@ -163,7 +170,7 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    all-reduced gradient the mean of the data shards'; every rank the
    single process's launches, search paths and eval predictions; the
    train step's ms with and without the model group's collectives;
-18. prints one JSON line with every kernel's numbers (with x_library and
+19. prints one JSON line with every kernel's numbers (with x_library and
    x_bound, its time over the library call's and over its bound; `launches`
    from the all-ops net, this slice's main path, each path's own counts
    beside them) and, last, the device line `{"ok": true,
@@ -183,6 +190,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -234,14 +242,14 @@ SEARCH_CASES = [(14, 14, "mask"), (100, 14, "mask"), (100, 100, "mask"), (100, 1
 SEARCH_STEPS, ALPHA_EVERY = 10, 5
 SEARCH_LEGS = (("float32", 128, 1), ("bfloat16", 256, 8))   # dtype, batch, KPATH
 VGD_SEARCH_LEGS = (("float32", 128, 1),)
-# ITM (arch/mmnas_itm.json): a corpus of 1,000 captions over 200 images,
+# ITM (arch/mmnas_itm.json): a corpus of 500 captions over 100 images,
 # 50-token captions (3 to 12 of them words) and 36 regions (8 to 36 of them
 # objects), mined at NEG_RANDSIZE 64 / NEG_HARDSIZE 5; its attention:
 # text SA 50x50, region SA and RSA 36x36, GA 36x50, at the train step's
 # B 64 H 8, the eval scorer's 256 pairs (EVAL_BATCH_SIZE * 2), the search's
 # B 128 H 4, and the mining's tiles (NEG_BATCHSIZE * NEG_RANDSIZE pairs, the
 # decoder's shapes, at either net's heads)
-ITM_SIZE = 1000
+ITM_SIZE = 500
 ITM_RELOAD_SIZE = 320             # the eval of the epoch checkpoint: 64 images
 ITM_SCORER_B = 256
 PAD_VALID = {50: (3, 12), 36: (8, 36)}   # valid keys of a "padmask" row, by Lk
@@ -249,8 +257,8 @@ ITM_CASES = [(50, 50, "padmask"), (36, 36, "padmask"), (36, 36, "padmask+rel"),
              (36, 50, "padmask")]
 ITM_DECODER_CASES = ITM_CASES[1:]       # a scorer tile runs the decoder alone
 ITM_SEARCH_LEGS = (("float32", 128, 1),)
-ITM_CORNER = (20, 100)            # images x captions of the card-vs-CPU score check
-ITM_MINE_CHECK = (4, 8)           # images, captions whose mined negatives the CPU re-ranks
+ITM_CORNER = (10, 40)             # images x captions of the card-vs-CPU score check
+ITM_MINE_CHECK = (2, 4)           # images, captions whose mined negatives the CPU re-ranks
 # the ITM CLI's configuration the fixed-net leg must run (make_arg_parser("itm"))
 ITM_CFG = {"HSIZE": 512, "MAX_TOKEN": 50, "FRCNFEAT_LEN": 36, "NEG_RANDSIZE": 64,
            "NEG_HARDSIZE": 5, "DROPOUT_R": RATE, "EVAL_EVERY_EPOCH": True,
@@ -496,12 +504,26 @@ def device_time_ms(fn, iters=10, graph=None):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [ev for ev in prof.key_averages() if ev.device_type.name == "CUDA"]
-        us = sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
-                 for ev in events)
-        if us and all(ev.count >= iters for ev in events):
+        events = device_events(prof)
+        us = sum(us for _, us in events)
+        counts = Counter(name for name, _ in events)
+        if us and all(n >= iters for n in counts.values()):
             return us / 1e3 / iters, "profiler"
     return (graph() if graph else graph_time_ms(fn, iters)), "cuda graph"
+
+
+def device_events(prof):
+    """(name, us) of every activity on the card that the finished profiler
+    `prof` recorded, read from its raw kineto events. torch's own event tree
+    (`key_averages`) costs seconds per few thousand events, which a profiled
+    train step reaches; the raw list costs milliseconds."""
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type().name != "CUDA" or getattr(ev, "is_user_annotation", lambda: False)():
+            continue
+        ns = ev.duration_ns() if hasattr(ev, "duration_ns") else ev.duration_us() * 1e3
+        out.append((ev.name(), ns / 1e3))
+    return out
 
 
 def graph_time_ms(fn, iters=10, replays=5):
@@ -1075,7 +1097,7 @@ def train_path(FA, dev, card, task):
     state = optim.init(params)
     gen = torch.Generator(dev).manual_seed(3)
     step_ms = cuda_time_ms(lambda: exe.train_step(net, optim, state, params, batch, gen),
-                           iters=10, warmup=2)
+                           iters=5, warmup=1)
     split = profile_step(lambda: exe.train_step(net, optim, state, params, batch, gen))
     print(f"{task} train step fp32 BS {BATCH}: {step_ms:.2f} ms, {BATCH / step_ms * 1000:.1f} "
           f"examples/s on {card}; device time split {split}", flush=True)
@@ -1597,7 +1619,7 @@ def search_step_times(cfg, result, dev, card, engine):
 
     weight_ms = cuda_time_ms(weight, iters=5, warmup=1)
     arch_ms = cuda_time_ms(arch, iters=4, warmup=1)
-    loop_ms = cuda_time_ms(loop, iters=1, warmup=1)
+    loop_ms = cuda_time_ms(loop, iters=1, warmup=0)      # warm: the steps above ran it
     ex_s = SEARCH_STEPS * bs / loop_ms * 1000
     split_w, split_a = profile_step(weight), profile_step(arch)
     print(f"search {cfg.TASK} {cfg.DTYPE} BS {bs} KPATH {cfg.KPATH} on {card}: weight step "
@@ -1708,12 +1730,12 @@ def vgd_eval_path(FA, dev, card):
 
 def itm_path(FA, dev, card):
     """`Execution.run()` of `--RUN train --SYNTH --ARCH_PATH
-    ./arch/mmnas_itm.json --BS 64 --SYNTH_SIZE 1000` at full width (HSIZE
+    ./arch/mmnas_itm.json --BS 64 --SYNTH_SIZE 500` at full width (HSIZE
     512, 36 regions of 2048, 50-token captions), fp32 and bf16 on fp32
     masters: hard-negative mining before the epoch (NEG_RANDSIZE 64,
-    NEG_HARDSIZE 5) over the corpus of 200 images, a triplet train step per
+    NEG_HARDSIZE 5) over the corpus of 100 images, a triplet train step per
     batch of 64 (three forwards, DROPOUT_R 0.1), then the R@K eval over the
-    full 200 x 1,000 score matrix; exact launches, finite losses, fp32
+    full 100 x 500 score matrix; exact launches, finite losses, fp32
     masters and Adam moments. Per leg then: the epoch checkpoint evaluated
     again (`--RUN val --CKPT_PATH`, ITM_RELOAD_SIZE captions) with exact
     launches, its score matrix's ITM_CORNER against the CPU's; the negatives
@@ -1906,7 +1928,7 @@ ALL_OPS_EVAL_SIZE = 2 * BATCH
 # the ops that read neither y nor the relation go to the encoder
 DECODER_OPS = ("rel_self_att_", "guided_att_", "uniimg_att_", "self_att_256")
 REHEARSAL = os.path.join(WORK, "rehearsal")   # the small packed corpus (device_rel_path)
-LOADER_PASSES = 16          # passes over its 200 questions: 50 batches of 64 a loader
+LOADER_PASSES = 8           # passes over its 200 questions: 25 batches of 64 a loader
 
 
 def all_ops_genotype():
@@ -2206,6 +2228,100 @@ def device_rel_path(FA, dev, card):
     return out
 
 
+# rehearsal_path's epochs: its train loops are the per-item loaders' (about
+# 140 items/s from the npz files while a bf16 step runs, on an H100 80GB HBM3
+# at 700 W), so 20 epochs of each task's 1,000 items would take ~290 s. From
+# the packed stores (fp32, the npz values) they run at 200-260 items/s, and the
+# tools' 20-epoch runs had converged by these epochs (docs/evidence/
+# rehearsal_torch_{vqa,vgd}.json: VQA's loss 0.046 at epoch 5 of 3.89,
+# VGD's 0.0045 at epoch 8 of 0.060)
+REHEARSAL_EPOCHS = {"vqa": 6, "vgd": 8}
+# the pass marks of rehearsal_path at full width (the JAX package's TPU runs
+# of 20 epochs read 100.0 and 100.0 / 100.0, docs/evidence/
+# rehearsal_{vqa,vgd}.json); the last epoch's loss under this share of the first
+REHEARSAL_MIN = {"vqa": 90.0, "vgd": 90.0}
+REHEARSAL_LOSS_DROP = 0.5
+
+
+def rehearsal_sizes():
+    """{task: (train items, [eval items per split])} of the small corpus
+    (device_rel_path's), read from its files: VQA's train annotations and
+    val questions, VGD's train refs and val / testA refs."""
+    def count(*parts, key=None):
+        with open(os.path.join(REHEARSAL, *parts)) as f:
+            data = json.load(f)
+        return len(data[key] if key else data)
+
+    anno, refs = ("vqa", "annotations"), ("vgd", "refcoco")
+    return {"vqa": (count(*anno, "v2_mscoco_train2014_annotations.json", key="annotations"),
+                    [count(*anno, "v2_OpenEnded_mscoco_val2014_questions.json",
+                           key="questions")]),
+            "vgd": (count(*refs, "train.json"), [count(*refs, "val.json"),
+                                                 count(*refs, "testA.json")])}
+
+
+def rehearsal_path(FA, dev, card):
+    """The accuracy rehearsal's runners (mmnas_tpu_torch/tools/rehearsal.py)
+    on the small corpus device_rel_path made, with the stub GloVe cache
+    (mmnas_tpu_torch/tools/make_glove_cache.py, run as a program) and its
+    region features in packed stores (fp32: VQA's splits in one, VGD's in
+    another): run_vqa and run_vgd (REHEARSAL_EPOCHS each) at full width
+    (HSIZE 512, bf16 on fp32 masters, BS 64, arch/mcan.json: 6 SA in the
+    encoder, 6 SA and 6 GA in the decoder, DROPOUT_R 0.1), then VQAEval on
+    val and IoU@0.5 on val and testA. Each must reach REHEARSAL_MIN on val
+    with its last epoch's loss under REHEARSAL_LOSS_DROP of its first, with
+    exact launches: per train step a dropout forward and a backward per
+    attention op, per eval batch a forward."""
+    from mmnas_tpu_torch.genotype import load_genotype
+    from mmnas_tpu_torch.tools import rehearsal as RH
+
+    t0 = time.perf_counter()
+    for task in ("vqa", "vgd"):
+        subprocess.run([sys.executable, "-m", "mmnas_tpu_torch.tools.make_glove_cache",
+                        "--task", task, "--data_root", REHEARSAL, "--stub"], check=True,
+                       capture_output=True, text=True, cwd=HERE)
+    RH.pack_splits(os.path.join(REHEARSAL, "vqa", "bua-r101-max100"),
+                   ("train2014", "val2014", "test2015"), "float32")
+    RH.pack_splits(os.path.join(REHEARSAL, "vgd"), ("bua-r101-fix100",), "float32")
+    print(f"stub GloVe caches and packed stores in {time.perf_counter() - t0:.1f} s", flush=True)
+    arch = os.path.join(HERE, "arch", "mcan.json")
+    n_att, n_rsa = genotype_launches(load_genotype(arch))
+    out = {}
+    for task, (n_train, n_evals) in rehearsal_sizes().items():
+        runner, metric = {"vqa": (RH.run_vqa, "value"), "vgd": (RH.run_vgd, "acc_iou0.5_val")}[task]
+        zero_launches(FA)
+        t = time.perf_counter()
+        epochs = REHEARSAL_EPOCHS[task]
+        result = runner(REHEARSAL, epochs, arch_path=arch, version=f"smoke_rehearsal_{task}",
+                        device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        steps = epochs * math.ceil(n_train / BATCH)
+        want = {"fused_attention_fwd": n_att * sum(math.ceil(n / BATCH) for n in n_evals),
+                "fused_attention_fwd_dropout": n_att * steps,
+                "fused_attention_bwd": n_att * steps, "fused_attention_bwd_rel": n_rsa * steps}
+        launches = {k: FA.LAUNCHES[k] for k in want}
+        losses = result["train_loss_per_example"]
+        print(f"rehearsal {task}: {metric} {result[metric]}"
+              + (f", test {result['acc_iou0.5_test']}" if task == "vgd" else "")
+              + f" after {epochs} epochs of {n_train} items in {seconds:.1f} s "
+              f"(train {result['train_wall_s']} s, {result['train_ex_per_s']} ex/s) on {card}; "
+              f"loss per example {losses}; launches {launches}", flush=True)
+        if launches != want:
+            raise AssertionError(f"rehearsal {task}: launches {launches}, expected {want}")
+        if not (result[metric] is not None and result[metric] >= REHEARSAL_MIN[task]
+                and all(map(math.isfinite, losses))
+                and losses[-1] < REHEARSAL_LOSS_DROP * losses[0]):
+            raise AssertionError(f"rehearsal {task}: {metric} {result[metric]} (at least "
+                                 f"{REHEARSAL_MIN[task]}), losses {losses}")
+        out[task] = {metric: result[metric], "epochs": epochs, "seconds": seconds,
+                     "launches": launches,
+                     **{k: result[k] for k in ("train_loss_per_example", "train_wall_s",
+                                               "train_ex_per_s")},
+                     **({"acc_iou0.5_test": result["acc_iou0.5_test"]} if task == "vgd" else {})}
+    return out
+
+
 def launch_floor(PR, dev):
     """Device time of an empty kernel (csrc/probes.cu `mmnas_probe_empty`,
     one block of 32 threads), the least any launch takes on this card: by
@@ -2397,16 +2513,13 @@ def profile_step(step):
 
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             step()
         torch.cuda.synchronize()
     split = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
-        if ev.device_type.name != "CUDA" or not us:
-            continue
-        name = ev.key.lower()
+    for name, us in device_events(prof):
+        name = name.lower()
         kind = ("port_kernels" if "fused_attention" in name else
                 "gemm" if any(s in name for s in ("gemm", "cublas", "cutlass", "xmma", "sm90",
                                                   "nvjet"))
@@ -2940,7 +3053,7 @@ def tp_member(dev, root, eval_ckpt):
             pmesh.model_all_reduce = lambda t: t
             pmesh.model_all_gather = lambda t: [t] * axis
         try:
-            times[on].append(cuda_time_ms(step, iters=5, warmup=1))
+            times[on].append(cuda_time_ms(step, iters=3, warmup=1))
         finally:
             pmesh.model_all_reduce, pmesh.model_all_gather = real
     out["step_ms"], out["step_ms_no_model_collectives"] = (sum(times[k]) / 2 for k in (True, False))
@@ -3217,6 +3330,8 @@ def main() -> int:
     phase("the all-ops net: eval, train step")
     device_rel = device_rel_path(FA, dev, card)
     phase("VQA eval on the packed corpus with DEVICE_REL and SHIP_INT8")
+    rehearsal = rehearsal_path(FA, dev, card)
+    phase("rehearsal: run_vqa and run_vgd on the small corpus")
     cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     data_parallel, alone = data_parallel_path(FA, cards, card)
     phase("data parallel: train, eval and search in a process group over NCCL")
@@ -3313,6 +3428,8 @@ def main() -> int:
             "all_ops_eval_bf16": all_ops["eval_bfloat16"]["launches"][row["name"]],
             "all_ops_train_bf16": all_ops["train_bfloat16"]["launches"][row["name"]],
             "device_rel_int8_eval": device_rel["device_rel_int8"]["launches"] if fwd_only else 0,
+            **{f"rehearsal_{task}": leg["launches"][row["name"]]
+               for task, leg in rehearsal.items()},
             "itm_fixed_fp32": itm["legs"]["float32"]["launches"][row["name"]],
             "eval_fp32": evals["float32"]["launches"] if fwd_only else 0,
             **{f"train_{dt}": leg["launches"][row["name"]] for dt, leg in train["legs"].items()},
@@ -3347,7 +3464,7 @@ def main() -> int:
     print(f"kernel cases: {os.path.relpath(details, HERE)}")
     print(json.dumps({"kernels": rows, "probes": {k: v for k, v in probes.items() if k != "rows"},
                       "eval": evals, "train": train, "search": search, "vgd": vgd, "itm": itm,
-                      "all_ops": all_ops, "device_rel": device_rel,
+                      "all_ops": all_ops, "device_rel": device_rel, "rehearsal": rehearsal,
                       "data_parallel": data_parallel, "tensor_parallel": tensor_parallel,
                       "launch_floor": floor}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,7 +21,10 @@ tests/test_torch_vgd.py), and the native C++ IoU is the same file byte for
 byte. The two `Cfg`s agree field for field, and the two packages'
 `SynthVqaDataset`s, `SynthVgdDataset`s and `SynthItmDataset`s give
 identical items for one seed (ITM's train items with their negatives, after
-the epoch's draw). Exact comparisons: these are copies."""
+the epoch's draw). The port's tools copy scripts of tools/: all of
+make_glove_cache.py, and the rehearsal's knob and scaling helpers and the
+cross-modal op count (tools/rehearsal.py, tools/debug/_xmodal_k1_search_only.py);
+each is held to its script. Exact comparisons: these are copies."""
 
 import ast
 import dataclasses
@@ -60,6 +63,14 @@ TWINS = {("utils/bbox.py", "bbox_overlaps_torch"): "bbox_overlaps_jnp",
          ("utils/bbox_transform.py", "bbox_transform_inv_torch"): "bbox_transform_inv_jnp",
          ("utils/bbox_transform.py", "clip_boxes_torch"): "clip_boxes_jnp",
          ("data/relations.py", "relation_embedding_torch"): "relation_embedding_jnp"}
+
+
+# scripts of tools/ the port's tools copied: (port module, script, the
+# top-level functions and constants copied; None: every function)
+TOOL_COPIES = [("tools/make_glove_cache.py", "tools/make_glove_cache.py", None),
+               ("tools/rehearsal.py", "tools/rehearsal.py", ["_knobs", "_small"]),
+               ("tools/rehearsal.py", "tools/debug/_xmodal_k1_search_only.py",
+                ["XMODAL_OPS", "dec_xmodal_count"])]
 
 
 def imported_modules(path):
@@ -108,6 +119,30 @@ def code_without_docstrings(path):
                 and isinstance(body[0].value.value, str)):
             node.body = body[1:] or [ast.Pass()]
     return {n.name: ast.dump(n) for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+
+def top_level_code(path):
+    """Top-level function, class and single-name assignment -> its AST dump,
+    the port's package name made the JAX package's."""
+    out = {}
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            out[n.name] = n
+        elif isinstance(n, ast.Assign) and len(n.targets) == 1 and isinstance(n.targets[0],
+                                                                              ast.Name):
+            out[n.targets[0].id] = n
+    return {k: ast.dump(n).replace("mmnas_tpu_torch", "mmnas_tpu") for k, n in out.items()}
+
+
+@pytest.mark.parametrize("rel,script,names", TOOL_COPIES)
+def test_copied_tool_code_has_not_drifted(rel, script, names):
+    port = top_level_code(ROOT / "mmnas_tpu_torch" / rel)
+    ref = top_level_code(ROOT / script)
+    if names is None:
+        names = [n for n in ref if n in top_level_defs(ROOT / script)]
+        assert sorted(names) == sorted(top_level_defs(ROOT / "mmnas_tpu_torch" / rel))
+    for name in names:
+        assert name in port and port[name] == ref[name], f"{rel}: {name} differs from {script}"
 
 
 @pytest.mark.parametrize("rel", sorted(PARTIAL_COPIES))
@@ -199,7 +234,8 @@ def test_cfg_and_synthetic_data_match_the_jax_package():
                                  "engine/itm.py", "engine/search_itm.py", "train_itm.py",
                                  "search_itm.py", "utils/itm_loss.py", "data/itm.py",
                                  "parallel/mesh.py", "parallel/__init__.py",
-                                 "parallel/sharding.py"])
+                                 "parallel/sharding.py", "tools/rehearsal.py",
+                                 "tools/xmodal_contract.py", "tools/make_glove_cache.py"])
 def test_search_and_probe_modules_are_scanned(rel):
     """The search, probe, VGD, ITM and data-parallel slices' modules are
     among the scanned files and import neither package of JAX."""
