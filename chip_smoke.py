@@ -46,7 +46,15 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    full width (HSIZE 512, 100 regions of 2048), in fp32 and bf16, from a
    checkpoint written in the JAX package's pickle format from a seeded port
    init: 16 forward launches per batch (5 encoder SA, 6 GA, 4 RSA, 1 decoder
-   SA), finite logits that match the same net and batch on the CPU;
+   SA), finite logits that match the same net and batch on the CPU; then
+   the serving export (`export_path`, mmnas_tpu_torch/tools/export_serving.py):
+   the same net's eval forward (fp32, batch 64, a fresh seeded init)
+   through torch.export with a static and with a symbolic batch, 16 nodes
+   of the custom op `mmnas_tpu_torch::fused_attention_fwd` in each graph,
+   saved, reloaded and called at 64 (and 32): each call bit for bit the
+   in-process forward with exactly 16 forward launches, the output within
+   1e-3 of the CPU's on the same weights; the export's seconds, the
+   artifact's MB and the reloaded and in-process forwards' ms;
 7. drives the training path, `Execution(cfg, cuda).run()` for `--RUN train
    --SYNTH --ARCH_PATH ./arch/mmnas_vqa.json --BS 64 --MAX_EPOCH 1
    --SYNTH_SIZE 640` (10 steps, DROPOUT_R 0.1, the per-epoch eval on), in
@@ -1024,6 +1032,78 @@ def eval_path(FA, dev, card):
         out[dtype] = {"launches": launches["fused_attention_fwd"],
                       "examples_per_s": SYNTH_SIZE / result.seconds, "forward_ms": fwd_ms,
                       "logit_diff": diff}
+    return out
+
+
+EXPORT_BATCHES = (BATCH, BATCH // 2)   # the symbolic artifact's calls
+
+
+def export_path(FA, dev, card):
+    """The serving export (tools/export_serving.py) of arch/mmnas_vqa.json's
+    eval forward at HSIZE 512, fp32, batch 64: exported with a static and
+    with a symbolic batch, saved, loaded back and called (at 64, and 32 for
+    the symbolic one), each call bit for bit the in-process forward with
+    exactly eval_path's launches of the forward kernel, through the custom
+    op; the output against the CPU's forward on the same weights; the
+    export's seconds, the artifact's MB, and the reloaded and in-process
+    forwards' ms."""
+    from mmnas_tpu_torch.tools import export_serving as ES
+
+    net, example = ES.build_eval_fwd("vqa", ARCHS["vqa"], "", BATCH, dev)
+    want_launches = {"fused_attention_fwd": LAUNCHES_PER_BATCH, "fused_attention_fwd_dropout": 0,
+                     "fused_attention_bwd": 0, "fused_attention_bwd_rel": 0}
+    out = {}
+    with torch.no_grad():
+        for symbolic in (False, True):
+            label = "symbolic" if symbolic else "static"
+            t0 = time.perf_counter()
+            program = ES.export_artifact(net, example, symbolic)
+            export_s = time.perf_counter() - t0
+            if ES.attention_nodes(program) != LAUNCHES_PER_BATCH:
+                raise AssertionError(f"export {label}: {ES.attention_nodes(program)} attention "
+                                     f"op nodes, expected {LAUNCHES_PER_BATCH}")
+            path = os.path.join(WORK, f"mmnas_vqa_{label}.pt2")
+            torch.export.save(program, path)
+            served = torch.export.load(path).module()
+            leg = {"export_s": export_s, "mb": os.path.getsize(path) / 1e6, "calls": {}}
+            for n in EXPORT_BATCHES if symbolic else (BATCH,):
+                b = ES.sub_batch(example, n)
+                want = net(b)
+                zero_launches(FA)
+                got = served(b)
+                torch.cuda.synchronize()
+                launches = dict(FA.LAUNCHES)
+                if launches != want_launches:
+                    raise AssertionError(f"export {label} at batch {n}: launches {launches}, "
+                                         f"expected {want_launches}")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"export {label} at batch {n}: the reloaded output "
+                                         f"differs from the in-process forward by "
+                                         f"{float((got - want).abs().max())}")
+                leg["calls"][n] = {"launches": launches["fused_attention_fwd"],
+                                   "served_ms": cuda_time_ms(lambda: served(b), iters=10),
+                                   "served_device_ms": device_time_ms(lambda: served(b))}
+            out[label] = leg
+        b = ES.sub_batch(example, BATCH)
+        inproc = {"ms": cuda_time_ms(lambda: net(b), iters=10),
+                  "device_ms": device_time_ms(lambda: net(b))}
+        # the symbolic artifact on 8 items against the CPU's forward on the same weights
+        n = min(8, BATCH)
+        cpu_net, cpu_example = ES.build_eval_fwd("vqa", ARCHS["vqa"], "", n, "cpu")
+        cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+        diff = float((served(ES.sub_batch(example, n)).cpu() - cpu_net(cpu_example)).abs().max())
+    if not diff <= LOGIT_TOL["float32"]:
+        raise AssertionError(f"export: the reloaded card output differs from the CPU by {diff}")
+    out.update(in_process=inproc, logit_diff_vs_cpu=diff)
+    for label in ("static", "symbolic"):
+        leg = out[label]
+        print(f"export {label}: {leg['export_s']:.1f} s, {leg['mb']:.1f} MB; " + "; ".join(
+            f"batch {n}: {c['launches']} forward launches, reloaded {c['served_ms']:.3f} ms "
+            f"(device {fmt(*c['served_device_ms'])})" for n, c in leg["calls"].items())
+            + f" on {card}", flush=True)
+    print(f"export: in-process forward at batch {BATCH} {inproc['ms']:.3f} ms (device "
+          f"{fmt(*inproc['device_ms'])}) on {card}; reloaded output vs the CPU max abs diff "
+          f"{diff:.3e} (tol {LOGIT_TOL['float32']:g})", flush=True)
     return out
 
 
@@ -3295,6 +3375,8 @@ def main() -> int:
     phase("kernels at the search's shapes")
     evals = eval_path(FA, dev, card)
     phase("eval")
+    export = export_path(FA, dev, card)
+    phase("export: the eval forward through torch.export, saved and reloaded")
     train = train_path(FA, dev, card, "vqa")
     phase("train")
     search = search_path(FA, dev, card, "vqa", SEARCH_LEGS)
@@ -3432,6 +3514,7 @@ def main() -> int:
                for task, leg in rehearsal.items()},
             "itm_fixed_fp32": itm["legs"]["float32"]["launches"][row["name"]],
             "eval_fp32": evals["float32"]["launches"] if fwd_only else 0,
+            "export_reloaded_fp32": export["static"]["calls"][BATCH]["launches"] if fwd_only else 0,
             **{f"train_{dt}": leg["launches"][row["name"]] for dt, leg in train["legs"].items()},
             **{f"search_{leg}": v["launches"][row["name"]] for leg, v in search.items()},
             "vgd_eval_fp32": vgd["eval"]["float32"]["launches"] if fwd_only else 0,
@@ -3463,7 +3546,8 @@ def main() -> int:
                    "new_train": new_train}, f)
     print(f"kernel cases: {os.path.relpath(details, HERE)}")
     print(json.dumps({"kernels": rows, "probes": {k: v for k, v in probes.items() if k != "rows"},
-                      "eval": evals, "train": train, "search": search, "vgd": vgd, "itm": itm,
+                      "eval": evals, "export": export, "train": train, "search": search,
+                      "vgd": vgd, "itm": itm,
                       "all_ops": all_ops, "device_rel": device_rel, "rehearsal": rehearsal,
                       "data_parallel": data_parallel, "tensor_parallel": tensor_parallel,
                       "launch_floor": floor}))

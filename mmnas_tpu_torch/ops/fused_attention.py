@@ -37,14 +37,19 @@ The kernels take heads of 16 to 256 (multiples of 16) and, with the RSA
 chain, up to 32 heads: every shape the ported ops reach. Past that the
 wrapper raises; nothing falls back to the plain version.
 
-`FusedAttentionFn` is the counterpart of the custom VJP (:572-599).
-Dispatch follows the tensor: a CUDA tensor goes through the kernels (or
-raises), a CPU tensor through `fused_attention_reference`, whose autograd
-is the plain backward. In bf16 the kernels run their products on tensor
-cores (fp32 accumulation), in fp32 as register-tiled FMAs (no TF32). The
-kernels add the -1e9 pad row to the scores while the plain version
-replaces masked scores with -1e9 (mmnas_tpu/ops/primitives.py:113-117);
-the two agree whenever a row has at least one valid key.
+`FusedAttentionFn` is the counterpart of the custom VJP (:572-599). Traced
+by torch.export (tools/export_serving.py), a call that needs no gradient and
+no dropout goes instead through the custom op
+`mmnas_tpu_torch::fused_attention_fwd` (`fused_attention_fwd_op`), the
+forward kernel as one node of the exported graph; eager calls keep the
+Function. Dispatch follows the tensor: a CUDA tensor goes
+through the kernels (or raises), a CPU tensor through
+`fused_attention_reference`, whose autograd is the plain backward. In bf16
+the kernels run their products on tensor cores (fp32 accumulation), in
+fp32 as register-tiled FMAs (no TF32). The kernels add the -1e9 pad row to
+the scores while the plain version replaces masked scores with -1e9
+(mmnas_tpu/ops/primitives.py:113-117); the two agree whenever a row has at
+least one valid key.
 
 `LAUNCHES` counts launches per kernel, so a run can show that its attention
 went through the kernels.
@@ -200,6 +205,13 @@ def fused_attention(q, k, v, mask=None, log_bias=None, *, rel=None,
         raise ValueError("pass log_bias or rel, not both")
     if dropout_r > 0.0 and generator is None:
         raise ValueError("attention dropout needs a generator")
+    rel_args = rel if rel is not None else (None,) * 5
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, log_bias, *rel_args))
+    if (torch.compiler.is_compiling() and dropout_r == 0.0 and not needs_grad
+            and q.device.type in ("cpu", "cuda")):
+        # traced by torch.export: the forward as one op, one node of the graph
+        return torch.ops.mmnas_tpu_torch.fused_attention_fwd(q, k, v, mask, log_bias, *rel_args)
     if q.device.type == "cpu":
         keep = None
         if dropout_r > 0.0:
@@ -213,11 +225,9 @@ def fused_attention(q, k, v, mask=None, log_bias=None, *, rel=None,
         raise ValueError(f"attention dropout of a {q.device.type} tensor needs a generator "
                          f"on that device, got one on {generator.device}")
     seed = draw_seed(generator) if dropout_r > 0.0 else 0
-    raw, w1, b1, wr, br = rel if rel is not None else (None,) * 5
     # the relation chain is kept for the backward only when one will run
-    want_pre = rel is not None and torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (q, k, v, log_bias, *rel))
-    return FusedAttentionFn.apply(q, k, v, mask, log_bias, raw, w1, b1, wr, br,
+    want_pre = rel is not None and needs_grad
+    return FusedAttentionFn.apply(q, k, v, mask, log_bias, *rel_args,
                                   float(dropout_r), seed, want_pre, head0, heads_total)
 
 
@@ -309,10 +319,7 @@ def _check(t, name, shape, like, dtype=None, rows=False):
     16-byte boundary."""
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, q on {like.device}")
-    if t.dtype != (dtype or like.dtype):
-        raise TypeError(f"{name} is {t.dtype}, expected {dtype or like.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    _check_shape(t, name, shape, dtype or like.dtype)
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if rows and t.data_ptr() % 16:
@@ -320,46 +327,79 @@ def _check(t, name, shape, like, dtype=None, rows=False):
                          "by 16-byte loads)")
 
 
-def _validate(q, k, v, mask, log_bias, rel):
-    """Checks what the kernels take; returns (B, H, Lq, Lk, D, Rr, R)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention has no kernel for device {q.device}")
+def _check_shape(t, name, shape, dtype):
+    """t's dtype (TypeError; a mask's ValueError) and shape (ValueError)."""
+    if t.dtype != dtype:
+        raise (ValueError if name == "mask" else TypeError)(
+            f"{name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _shapes(q, k, v, mask, log_bias, rel):
+    """The shape and dtype checks of the kernels' inputs, without the device,
+    layout and pointer checks, so that the op's fake runs them on fake
+    tensors (a symbolic batch is not held to its bound); the kernels' limits
+    on head width, relation channels and heads apply to CUDA tensors.
+    Returns (B, H, Lq, Lk, D, Rr, R)."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_attention takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q, k, v must be [B, H, L, D]")
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
-    if min(B, H, Lq, Lk, D) < 1 or B > 65535 or H > 65535 or Lq > 65535 or Lk > 65535:
+    limits = q.device.type == "cuda"
+    if (min(H, Lq, Lk, D) < 1 or H > 65535 or Lq > 65535 or Lk > 65535
+            or isinstance(B, int) and not 1 <= B <= 65535):
         raise ValueError(f"unsupported attention shape q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if D % 16 or D > MAX_HEAD_DIM:
+    if limits and (D % 16 or D > MAX_HEAD_DIM):
         raise ValueError(f"head width {D}: the kernels take multiples of 16 up to "
                          f"{MAX_HEAD_DIM}")
-    _check(q, "q", (B, H, Lq, D), q, rows=True)
-    _check(k, "k", (B, H, Lk, D), q, rows=True)
-    _check(v, "v", (B, H, Lk, D), q, rows=True)
-    if log_bias is not None:
-        _check(log_bias, "log_bias", (B, H, Lq, Lk), q)
-    if mask is not None and (mask.dtype != torch.bool or tuple(mask.shape) != (B, 1, 1, Lk)
-                             or mask.device != q.device or not mask.is_contiguous()):
-        raise ValueError(f"mask must be a contiguous bool [B,1,1,Lk] on {q.device}, got "
-                         f"{mask.dtype} {tuple(mask.shape)} on {mask.device}")
+    for t, name, shape, dtype in ((q, "q", (B, H, Lq, D), None), (k, "k", (B, H, Lk, D), None),
+                                  (v, "v", (B, H, Lk, D), None),
+                                  (log_bias, "log_bias", (B, H, Lq, Lk), None),
+                                  (mask, "mask", (B, 1, 1, Lk), torch.bool)):
+        if t is not None:
+            _check_shape(t, name, shape, dtype or q.dtype)
     Rr = R = 0
     if rel is not None:
         raw, w1, b1, wr, br = rel
         if raw.dim() != 4 or w1.dim() != 2:
             raise ValueError("rel must be (raw [B,Lq,Lk,Rr], W1 [R,Rr], b1 [R], Wr [H,R], br [H])")
         Rr, R = raw.shape[3], w1.shape[0]
-        if not 1 <= Rr <= MAX_REL_CHANNELS:
+        if limits and not 1 <= Rr <= MAX_REL_CHANNELS:
             raise ValueError(f"raw has {Rr} channels; the kernel takes 1..{MAX_REL_CHANNELS}")
-        if H > MAX_REL_HEADS:
+        if limits and H > MAX_REL_HEADS:
             raise ValueError(f"the relation chain takes at most {MAX_REL_HEADS} heads, got {H}")
+        for t, name, shape in ((raw, "raw", (B, Lq, Lk, Rr)), (w1, "W1", (R, Rr)),
+                               (b1, "b1", (R,)), (wr, "Wr", (H, R)), (br, "br", (H,))):
+            _check_shape(t, name, shape, q.dtype)
+    return B, H, Lq, Lk, D, Rr, R
+
+
+def _validate(q, k, v, mask, log_bias, rel):
+    """Checks what the kernels take (`_shapes`, then device, layout and
+    alignment); returns (B, H, Lq, Lk, D, Rr, R)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention has no kernel for device {q.device}")
+    dims = _shapes(q, k, v, mask, log_bias, rel)
+    B, H, Lq, Lk, D, Rr, R = dims
+    _check(q, "q", (B, H, Lq, D), q, rows=True)
+    _check(k, "k", (B, H, Lk, D), q, rows=True)
+    _check(v, "v", (B, H, Lk, D), q, rows=True)
+    if log_bias is not None:
+        _check(log_bias, "log_bias", (B, H, Lq, Lk), q)
+    if mask is not None and (mask.device != q.device or not mask.is_contiguous()):
+        raise ValueError(f"mask must be a contiguous bool [B,1,1,Lk] on {q.device}, got "
+                         f"{mask.dtype} {tuple(mask.shape)} on {mask.device}")
+    if rel is not None:
+        raw, w1, b1, wr, br = rel
         _check(raw, "raw", (B, Lq, Lk, Rr), q)
         _check(w1, "W1", (R, Rr), q)
         _check(b1, "b1", (R,), q)
         _check(wr, "Wr", (H, R), q)
         _check(br, "br", (H,), q)
-    return B, H, Lq, Lk, D, Rr, R
+    return dims
 
 
 def _ptr(t):
@@ -407,6 +447,37 @@ def attention_fwd(q, k, v, mask=None, log_bias=None, rel=None, dropout_r: float 
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out, keep, pre
+
+
+# the forward without dropout as a custom op: torch.export keeps a call as one
+# node of its graph (the kernel launches through ctypes on data pointers,
+# which the export tracer cannot follow), and a reloaded program calls the
+# kernel through it. Calls that need a gradient go through FusedAttentionFn.
+@torch.library.custom_op(
+    "mmnas_tpu_torch::fused_attention_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? mask=None, Tensor? log_bias=None, "
+           "Tensor? raw=None, Tensor? w1=None, Tensor? b1=None, Tensor? wr=None, "
+           "Tensor? br=None) -> Tensor")
+def fused_attention_fwd_op(q, k, v, mask=None, log_bias=None, raw=None, w1=None, b1=None,
+                           wr=None, br=None):
+    """The forward kernel (`attention_fwd`, counted in LAUNCHES) on CUDA
+    tensors, its plain version on CPU tensors; rel as five tensors."""
+    rel = None if raw is None else (raw, w1, b1, wr, br)
+    return attention_fwd(q, k, v, mask, log_bias, rel)[0]
+
+
+@fused_attention_fwd_op.register_kernel("cpu")
+def _fused_attention_fwd_cpu(q, k, v, mask=None, log_bias=None, raw=None, w1=None, b1=None,
+                             wr=None, br=None):
+    rel = None if raw is None else (raw, w1, b1, wr, br)
+    return fused_attention_reference(q, k, v, mask, log_bias, rel=rel)
+
+
+@fused_attention_fwd_op.register_fake
+def _fused_attention_fwd_fake(q, k, v, mask=None, log_bias=None, raw=None, w1=None, b1=None,
+                              wr=None, br=None):
+    _shapes(q, k, v, mask, log_bias, None if raw is None else (raw, w1, b1, wr, br))
+    return torch.empty_like(q)
 
 
 def attention_bwd(q, k, v, mask, log_bias, rel, keep, dropout_r: float, do,

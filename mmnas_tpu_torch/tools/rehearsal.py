@@ -168,14 +168,15 @@ def timed_search(ex, scfg):
 
 def run_vqa(data_root: str, epochs: int, hsize: int = 0,
             arch_path: str = "./arch/mcan.json", geno_epoch: int = 0,
-            version: str = "rehearsal_vqa", device="cuda", seed: int = SEED):
+            version: str = "rehearsal_vqa", device="cuda", seed: int = SEED,
+            overrides=None):
     cfg = Cfg(TASK="vqa", DATA_ROOT=data_root, RUN_MODE="train",
               BATCH_SIZE=64, EVAL_BATCH_SIZE=64, NUM_WORKERS=2,
               MAX_EPOCH=epochs, SEED=seed, VERSION=version,
               ARCH_PATH=arch_path, GENO_EPOCH=geno_epoch,
               CKPT_EVERY=max(1, epochs),     # the final checkpoint only
               DTYPE="bfloat16", EVAL_EVERY_EPOCH=False)
-    cfg = _small(cfg, hsize)
+    cfg = _small(cfg, hsize).replace(**(overrides or {}))
     ex = VqaExecution(cfg, device)
     train_set = ex.build_dataset("train")
     train_loader = ex.make_loader(train_set, cfg.BATCH_SIZE, shuffle=True)
@@ -215,13 +216,14 @@ def run_vgd(data_root: str, epochs: int, hsize: int = 0,
     return out
 
 
-def run_itm(data_root: str, epochs: int, hsize: int = 0,
+def itm_cfg(data_root: str, epochs: int, hsize: int = 0,
             lr: float = 0.0, mine_from: int = 0,
             decay_at: int = 0, decay_r: float = 0.0,
             loss: str = "bce", semihard: bool = False, skiptop: int = 0,
             noise_q: float = 0.0,
             arch_path: str = "./arch/mcan.json", geno_epoch: int = 0,
-            version: str = "rehearsal_itm", device="cuda", seed: int = SEED):
+            version: str = "rehearsal_itm", seed: int = SEED) -> Cfg:
+    """The Cfg of `run_itm`'s fixed-net run."""
     # the JAX runner's schedule (tools/rehearsal.py:133-164): a low lr, whose
     # first Adam steps keep the init's representation; hard mining from 2/5
     # of the run; one lr milestone (decay_r > 1 raises the lr there)
@@ -241,7 +243,14 @@ def run_itm(data_root: str, epochs: int, hsize: int = 0,
               ARCH_PATH=arch_path, GENO_EPOCH=geno_epoch,
               CKPT_EVERY=max(1, epochs),     # the final checkpoint only
               DTYPE="bfloat16", EVAL_EVERY_EPOCH=False)
-    cfg = _small(cfg, hsize)
+    return _small(cfg, hsize)
+
+
+def run_itm(data_root: str, epochs: int, hsize: int = 0, device="cuda", overrides=None,
+            **kw):
+    """ITM trained on the JAX runner's schedule (`itm_cfg`'s keywords), then
+    R@K on the test split; `overrides` replaces fields of the Cfg."""
+    cfg = itm_cfg(data_root, epochs, hsize, **kw).replace(**(overrides or {}))
     ex = ItmExecution(cfg, device)
     train_set = ex.build_dataset("train")
     train_loader = ex.make_loader(train_set, cfg.BATCH_SIZE, shuffle=True)
@@ -263,7 +272,7 @@ def run_itm(data_root: str, epochs: int, hsize: int = 0,
         floors[f"t2i_r{k}_floor"] = round(100.0 * min(1.0, k / n_imgs), 2)
     out = {"metric": "itm_R@K(test)",
            "scores_loss": cfg.SCORES_LOSS,
-           "net_lr_base": cfg.NET_LR_BASE, "mine_from_epoch": mine_from,
+           "net_lr_base": cfg.NET_LR_BASE, "mine_from_epoch": cfg.NEG_START_EPOCH,
            "lr_decay_list": list(cfg.NET_LR_DECAY_LIST),
            "lr_decay_r": cfg.NET_LR_DECAY_R,
            "mine_semihard": cfg.MINE_SEMIHARD,

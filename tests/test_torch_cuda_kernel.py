@@ -261,6 +261,26 @@ def test_autograd_function_runs_the_kernels(dev):
         assert (g - w).abs().max().item() <= 1e-3 * w.abs().max().item()
 
 
+@pytest.mark.parametrize("kind", ["mask", "mask+rel", "bias"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_custom_op_is_the_forward_kernel(dev, kind, dt):
+    """`mmnas_tpu_torch::fused_attention_fwd` on CUDA tensors: attention_fwd's
+    output bit for bit, one launch counted, as `fused_attention`'s eager
+    no-gradient call through the autograd Function."""
+    (args, m, b, r) = on(dev, dt, *make(2, 8, 36, 50 if kind == "mask" else 36, 64, kind, R=64))
+    want = FA.attention_fwd(*args, m, b, r)[0]
+    rel = r if r is not None else (None,) * 5
+    for call in (lambda: torch.ops.mmnas_tpu_torch.fused_attention_fwd(*args, m, b, *rel),
+                 lambda: FA.fused_attention(*args, m, b, rel=r)):
+        before = dict(FA.LAUNCHES)
+        got = call()
+        torch.cuda.synchronize()
+        assert {n: FA.LAUNCHES[n] - before[n] for n in before} == {
+            "fused_attention_fwd": 1, "fused_attention_fwd_dropout": 0,
+            "fused_attention_bwd": 0, "fused_attention_bwd_rel": 0}
+        assert torch.equal(got, want)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     q, k, v, mask, _, rel = make(2, 2, 8, 8, 64, "mask+rel", Rr=9)
     q, k, v = (t.to(dev) for t in (q, k, v))

@@ -195,6 +195,25 @@ def test_runner_configs_equal_the_jax_tools(monkeypatch, tmp_path, case):
         assert pcfg == jcfg
 
 
+@pytest.mark.parametrize("task", ["vqa", "itm"])
+def test_runner_overrides_replace_cfg_fields(monkeypatch, tmp_path, task):
+    """A runner's `overrides` (how tests/_torch_rehearsal_split.py reaches
+    the runners) replace those fields of its Cfg and leave every other;
+    `itm_cfg` is run_itm's Cfg."""
+    record = []
+    execution, _ = fake_engines(record, port=True)
+    monkeypatch.setattr(RH, {"vqa": "VqaExecution", "itm": "ItmExecution"}[task], execution)
+    runner = {"vqa": RH.run_vqa, "itm": RH.run_itm}[task]
+    over = {"DTYPE": "float32", "CKPT_EVERY": 26}
+    runner(str(tmp_path), 40, device="cpu")
+    runner(str(tmp_path), 40, device="cpu", overrides=over)
+    (_, plain), (_, got) = record
+    assert plain["DTYPE"] == "bfloat16" and plain["CKPT_EVERY"] == 40
+    assert got == dict(plain, **over)
+    if task == "itm":
+        assert dataclasses.asdict(RH.itm_cfg(str(tmp_path), 40)) == plain
+
+
 @pytest.mark.parametrize("case", ["vqa", "vgd_lr_tag", "itm_noise_q", "search_vqa_compare",
                                   "search_vgd", "search_itm", "all"])
 def test_evidence_has_the_jax_keys_under_a_port_name(monkeypatch, tmp_path, case):

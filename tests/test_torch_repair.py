@@ -235,7 +235,8 @@ def test_cfg_and_synthetic_data_match_the_jax_package():
                                  "search_itm.py", "utils/itm_loss.py", "data/itm.py",
                                  "parallel/mesh.py", "parallel/__init__.py",
                                  "parallel/sharding.py", "tools/rehearsal.py",
-                                 "tools/xmodal_contract.py", "tools/make_glove_cache.py"])
+                                 "tools/xmodal_contract.py", "tools/make_glove_cache.py",
+                                 "tools/export_serving.py"])
 def test_search_and_probe_modules_are_scanned(rel):
     """The search, probe, VGD, ITM and data-parallel slices' modules are
     among the scanned files and import neither package of JAX."""
