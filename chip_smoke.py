@@ -76,6 +76,22 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    fixed NetFull at HSIZE 512 built from the dumped genotype evaluates one
    batch; weight and arch steps are timed and profiled on one resident
    batch, and search examples/s counted as bench.py counts them;
+8b. drives this slice's main path, the weight step's programs
+   (`weight_programs_path`): first the unified decoder node's attention (B
+   128, 4 heads of 64, the image queries over the keys of image and text
+   with the pad mask and a dense bias: VQA's (100,114), VGD's (100,115),
+   ITM's (36,86)) against its plain version, forward, dropout forward and
+   backward with dbias, fp32 and bf16, with times, bounds and SDPA's
+   (attn_mask = bias + mask); then 8's fp32 leg once with each of
+   --DENSE_WEIGHT, --UNIFIED_WEIGHT and --HYBRID_WEIGHT (the paths 8's
+   sampled leg recorded, exact launches from the paths in each program,
+   finite losses, alpha moved, the archive, the checkpoint; the UNIFIED
+   leg's step times), a bf16 --UNIFIED_WEIGHT leg of the VGD and of the ITM
+   search (exact launches, not timed), and the unified and hybrid first
+   weight step against the sampled one at DROPOUT_R 0 (the loss, each
+   leaf's gradient; the RSA chain's leaves against the sampled step that
+   computes the chain alike; every step's distance from the sampled step in
+   fp64 reported beside);
 9. holds the forward, dropout-forward and backward kernels against their
    plain versions at the VGD net's shapes (B 64, 8 heads of 64: SA 15x15 and
    GA 100x15 with the pad mask, the query being MAX_TOKEN + 1 = 15 tokens)
@@ -180,8 +196,8 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    train step's ms with and without the model group's collectives;
 19. prints one JSON line with every kernel's numbers (with x_library and
    x_bound, its time over the library call's and over its bound; `launches`
-   from the all-ops net, this slice's main path, each path's own counts
-   beside them) and, last, the device line `{"ok": true,
+   from the weight programs' three VQA legs, this slice's main path, each
+   path's own counts beside them) and, last, the device line `{"ok": true,
    "device": {...}}`. A device time the profiler did not record in full
    (5 tries) is taken from CUDA events around replays of a CUDA graph of the
    calls, and named so: every device reading `<key>` has `<key>_by`,
@@ -192,6 +208,7 @@ line. It exits 2 when no CUDA device is present.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -249,6 +266,14 @@ SEARCH_CASES = [(14, 14, "mask"), (100, 14, "mask"), (100, 100, "mask"), (100, 1
 # the search runs: 10 weight steps, an arch step after every 5th
 SEARCH_STEPS, ALPHA_EVERY = 10, 5
 SEARCH_LEGS = (("float32", 128, 1), ("bfloat16", 256, 8))   # dtype, batch, KPATH
+# the weight step's programs (engine/search.py `weight_mode` maps each to its mode)
+WEIGHT_FLAGS = ("DENSE_WEIGHT", "UNIFIED_WEIGHT", "HYBRID_WEIGHT")
+# the unified decoder node's attention: the image queries over the keys of
+# concat(image, text), a pad mask and a dense additive bias: VQA's 100 over
+# 100 + 14, VGD's 100 over 100 + 15 and ITM's 36 over 36 + 50
+UNIFIED_CASES = [(100, 114, "mask+bias"), (100, 115, "mask+bias"), (36, 86, "mask+bias")]
+# the programs' legs besides VQA's fp32 one a flag: (task, dtype, flag)
+PROGRAM_LEGS = (("vgd", "bfloat16", "UNIFIED_WEIGHT"), ("itm", "bfloat16", "UNIFIED_WEIGHT"))
 VGD_SEARCH_LEGS = (("float32", 128, 1),)
 # ITM (arch/mmnas_itm.json): a corpus of 500 captions over 100 images,
 # 50-token captions (3 to 12 of them words) and 36 regions (8 to 36 of them
@@ -336,6 +361,18 @@ STEP_LOSS_TOL, STEP_LEAF_TOL, STEP_LEAF_FLOOR = 1e-5, 1e-3, 1e-6
 # paths, DROPOUT_R 0: bf16 rounds every activation (unit roundoff 2^-8)
 # through the 30-node chain: 2e-2 relative
 SEARCH_BF16_LOSS_TOL = 2e-2
+# a unified or hybrid first weight step against the sampled one, fp32,
+# DROPOUT_R 0, the same init, batch and path: the same function through
+# other kernels (the decoder's attention at (100,114) with the pad mask and
+# the plain RSA chain outside the kernel, in place of three kernels of their
+# own shapes). The loss to 1e-5 relative; each leaf's gradient to 1e-4 of
+# the whole gradient's largest entry. The RSA chain's leaves are held to the
+# sampled step that computes the chain the same way (program_first_steps):
+# against the kernels' chain, fp32 rounding of pre near the 1e-6 clamp
+# moves them (PRE_TOL; on an H100 a Wr by 8.2e-4 of that largest entry)
+PROGRAM_LOSS_TOL, PROGRAM_GRAD_TOL = 1e-5, 1e-4
+# the RSA chain's leaves: every rel op's Wr and br, the stem's W1 and b1
+PROGRAM_CHAIN_LEAVES = (".wr.", "linear_y_rel.")
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -481,7 +518,7 @@ def zero_launches(module):
         module.LAUNCHES[n] = 0
 
 
-def cuda_time_ms(fn, iters=20, warmup=3):
+def cuda_time_ms(fn, iters=10, warmup=2):
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -493,7 +530,7 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, iters=10, graph=None):
+def device_time_ms(fn, iters=5, graph=None):
     """(ms, by): device time of one call, and how it was taken. By
     "profiler": the CUDA kernels that `iters` calls launch, summed by
     torch.profiler, over iters. Unlike cuda_time_ms it leaves out the host's
@@ -591,7 +628,7 @@ def make_case(g, Lq, Lk, kind, B=B, H=H, D=D):
         lo, hi = PAD_VALID[Lk]
         valid = torch.randint(lo, hi + 1, (B, 1, 1, 1), generator=g)
         mask = torch.arange(Lk).view(1, 1, 1, Lk) >= valid
-    bias = randn(B, H, Lq, Lk) if kind == "bias" else None
+    bias = randn(B, H, Lq, Lk) if "bias" in kind else None
     rel = None
     if "rel" in kind:                        # init-like stem and Wr weights
         rel = (randn(B, Lq, Lk, RR, scale=2.0), uniform(R, RR, bound=0.5),
@@ -1389,17 +1426,19 @@ def probe_path(PR, FA, dev, bias_regs):
     return {"launches": launches, "vs_fp64": vs_fp64, "rows": rows}
 
 
-def search_cfg(dtype, batch, kpath, task="vqa", **extra):
+def search_cfg(dtype, batch, kpath, task="vqa", flag=None, **extra):
     """`--SYNTH --ALPHA_MODE full` of the task's search CLI at BS `batch`,
-    KPATH `kpath`, one epoch of SEARCH_STEPS weight steps (the 80/20 split:
-    SYNTH_SIZE = steps * batch / 0.8), arch steps from epoch 0 every
-    ALPHA_EVERY."""
+    KPATH `kpath` (and `--<flag>`, a weight step's program), one epoch of
+    SEARCH_STEPS weight steps (the 80/20 split: SYNTH_SIZE = steps * batch /
+    0.8), arch steps from epoch 0 every ALPHA_EVERY."""
     from mmnas_tpu_torch.config import cfg_from_args, make_arg_parser
 
     size = SEARCH_STEPS * batch * 5 // 4
     args = ["--SYNTH", "--SYNTH_SIZE", str(size), "--BS", str(batch), "--KPATH", str(kpath),
             "--DTYPE", dtype, "--SEED", "0", "--NW", "8", "--MAX_EPOCH", "1",
-            "--ALPHA_MODE", "full", "--VERSION", f"smoke_search_{task}_{dtype}"]
+            "--ALPHA_MODE", "full",
+            "--VERSION", f"smoke_search_{task}_{dtype}" + (f"_{flag.lower()}" if flag else "")]
+    args += [f"--{flag}"] if flag else []
     cfg = cfg_from_args(task, make_arg_parser(task, search=True).parse_args(args), search=True)
     return cfg.replace(ALPHA_START=0, ALPHA_EVERY=ALPHA_EVERY, LOG_ROOT=os.path.join(WORK, "log"),
                        CKPT_ROOT=os.path.join(WORK, "ckpts"),
@@ -1426,13 +1465,30 @@ def arch_backwards(idx):
     return attention_ops(idx)[0] - first
 
 
-def search_launches(result, eval_fwd, forwards=1):
+def weight_launches(idx, mode, every):
+    """(dropout forwards, backwards, relation passes) of one weight-step
+    forward on the path idx in the program `mode` (`every`: the attention
+    ops of all nodes). 'sampled': one of each per attention op, a relation
+    pass per rel_self_att_64 op; 'full' (--DENSE_WEIGHT): every op's
+    forward, the backward of the path's alone (the others are detached);
+    'unified': one attention a node of either cell (the encoder's
+    self_att_64, the decoder's unified node), each backward run (where
+    feed_forward is kept, on the zero gradient `torch.where` gives it), no
+    relation pass (the unified node's RSA chain is outside the kernel);
+    'hybrid': the unified encoder's and the sampled decoder's."""
+    att, rel = attention_ops(idx)
+    nodes = len(idx["enc"]) + len(idx["dec"])
+    return {"sampled": (att, att, rel), "full": (every, att, rel), "unified": (nodes, nodes, 0),
+            "hybrid": (len(idx["enc"]) + path_ops(idx)[1],) * 2 + (rel,)}[mode]
+
+
+def search_launches(result, eval_fwd, forwards=1, mode="sampled"):
     """The launches the recorded paths call for, each step running
     `forwards` forwards (ITM's triplet: 3): per weight step, for each of its
-    paths, one dropout forward and one backward per attention op and one
-    relation pass per rel_self_att_64 op; per 'full' arch step a dropout
-    forward for every attention op of every node and the backwards of
-    `arch_backwards`; `eval_fwd` forwards for the eval (and ITM's mining)."""
+    paths, those of `weight_launches` in the program `mode`; per 'full' arch
+    step a dropout forward for every attention op of every node and the
+    backwards of `arch_backwards`; `eval_fwd` forwards for the eval (and
+    ITM's mining)."""
     from mmnas_tpu_torch.models.supernet import SPACES
 
     every = sum(result.net.n_nodes[c] * sum(op != "feed_forward" for op in SPACES[c])
@@ -1445,11 +1501,21 @@ def search_launches(result, eval_fwd, forwards=1):
             want["fused_attention_bwd"] += forwards * arch_backwards(p)
         elif kind == "weight":
             for idx in p:
-                att, rel = attention_ops(idx)
-                want["fused_attention_fwd_dropout"] += forwards * att
-                want["fused_attention_bwd"] += forwards * att
+                fwd, bwd, rel = weight_launches(idx, mode, every)
+                want["fused_attention_fwd_dropout"] += forwards * fwd
+                want["fused_attention_bwd"] += forwards * bwd
                 want["fused_attention_bwd_rel"] += forwards * rel
     return want, every
+
+
+def paths_json(paths):
+    """Recorded paths with their index arrays as lists."""
+    def plain(p):
+        if isinstance(p, dict):
+            return {c: np.asarray(v).tolist() for c, v in p.items()}
+        return [plain(x) for x in p]
+
+    return [[kind, step, plain(p)] for kind, step, p in paths]
 
 
 def path_ops(idx):
@@ -1477,13 +1543,16 @@ def itm_sweep_launches(cfg, n_caps, enc_att, dec_att, kind):
     return chunks * enc_att + tiles * dec_att
 
 
-def search_path(FA, dev, card, task, legs):
+def search_path(FA, dev, card, task, legs, flag=None):
     """The task's search legs (dtype, batch, KPATH) through
     SearchExecution.run(), each with its checks (exact launches from the
     sampled paths and the argmax-path eval, finite losses, alpha moved, the
     genotype archive in the reference schema, the checkpoint reloads), step
-    times and device split. VQA's fp32 leg also resumes from its checkpoint
-    and hands its genotype to a fixed net; its bf16 leg is held to fp32."""
+    times and device split. With `flag` (one of WEIGHT_FLAGS) the weight
+    steps run that program. Without, VQA's fp32 leg also resumes from its
+    checkpoint and hands its genotype to a fixed net, and its bf16 leg is
+    held to fp32. Each leg records its paths' digest (`paths_sha1`)."""
+    from mmnas_tpu_torch.engine.search import weight_mode
     from mmnas_tpu_torch.models.convert import from_jax_params
     from mmnas_tpu_torch.models.supernet import SPACES, NetSearch
     from mmnas_tpu_torch.train.checkpoint import ckpt_path, load_checkpoint
@@ -1491,12 +1560,14 @@ def search_path(FA, dev, card, task, legs):
     _, engine, _, _ = engines(task)
     out = {}
     for dtype, batch, kpath in legs:
-        cfg = search_cfg(dtype, batch, kpath, task)
+        cfg = search_cfg(dtype, batch, kpath, task, flag)
+        mode = weight_mode(cfg)
         if not (cfg.DROPOUT_R == RATE and cfg.EVAL_EVERY_EPOCH and cfg.HSIZE == 256
-                and cfg.NET_GRAD_CLIP > 0 and cfg.ALPHA_BINARY_MODE == "full"):
+                and cfg.NET_GRAD_CLIP > 0 and cfg.ALPHA_BINARY_MODE == "full"
+                and (mode == "sampled") == (flag is None)):
             raise AssertionError(f"unexpected search config {cfg}")
         arch_json = os.path.join(cfg.ARCH_ROOT, cfg.VERSION + ".json")
-        name = f"{task} search {dtype} BS {batch} KPATH {kpath}"
+        name = f"{task} search {dtype} BS {batch} KPATH {kpath}" + (f" --{flag}" if flag else "")
         zero_launches(FA)
         t0 = time.perf_counter()
         result = engine(cfg, dev).run()
@@ -1513,7 +1584,7 @@ def search_path(FA, dev, card, task, legs):
                                            "eval")
         else:
             eval_fwd = math.ceil((cfg.SYNTH_SIZE - split) / batch) * attention_ops(chosen)[0]
-        want, every = search_launches(result, eval_fwd, 3 if task == "itm" else 1)
+        want, every = search_launches(result, eval_fwd, 3 if task == "itm" else 1, mode)
         kinds = [(k, step) for k, step, _ in result.paths]
         want_kinds = [("mine", 0)] if task == "itm" else []
         for step in range(SEARCH_STEPS):
@@ -1525,7 +1596,9 @@ def search_path(FA, dev, card, task, legs):
               flush=True)
         if kinds != want_kinds or every != 66:
             raise AssertionError(f"{name}: steps {kinds}, {every} attention ops per node set")
-        if launches != want or not all(launches.values()):
+        # every kernel of the leg's path (the unified program runs no relation pass)
+        if launches != want or not all(v for k, v in launches.items()
+                                       if k != "fused_attention_bwd_rel" or mode != "unified"):
             raise AssertionError(f"{name}: kernel launches {launches}, expected {want}")
         if len(losses) != SEARCH_STEPS or not all(map(math.isfinite, losses)):
             raise AssertionError(f"{name}: losses {losses}")
@@ -1550,18 +1623,161 @@ def search_path(FA, dev, card, task, legs):
                 or not all(np.array_equal(ckpt["alpha"][c], alpha_host[c]) for c in SPACES)):
             raise AssertionError(f"{name}: the epoch checkpoint does not reload")
         leg = {"launches": launches, "expected": want, "losses": losses, "seconds": seconds,
-               "alpha_moved": moved, "genotype": genotype}
-        if task in ("vqa", "itm") and dtype == "float32":
+               "alpha_moved": moved, "genotype": genotype,
+               "paths_sha1": hashlib.sha1(json.dumps(paths_json(result.paths)).encode()
+                                          ).hexdigest(),
+               "first_path": next(p for kind, _, p in paths_json(result.paths)
+                                  if kind == "weight")}
+        if flag is None and task in ("vqa", "itm") and dtype == "float32":
             leg["resume"] = search_resume(cfg, dev, arch_json, engine)
-        if task == "vqa" and dtype == "float32":
+        if flag is None and task == "vqa" and dtype == "float32":
             leg["fixed_net"] = fixed_net_from_genotype(FA, dev, arch_json)
-        elif task == "vqa":
+        elif flag is None and task == "vqa":
             leg["precision"] = search_precision(cfg, result, dev)
-        leg.update(search_step_times(cfg, result, dev, card, engine))
-        out[f"{dtype}_bs{batch}_k{kpath}"] = leg
+        # of the programs' legs only VQA's --UNIFIED_WEIGHT is timed, and
+        # without the arch step alone: it is the sampled leg's program
+        if flag is None or (task, flag) == ("vqa", "UNIFIED_WEIGHT"):
+            leg.update(search_step_times(cfg, result, dev, card, engine, time_arch=flag is None))
+        out[f"{dtype}_bs{batch}_k{kpath}" + (f"_{flag.lower()}" if flag else "")] = leg
         del result, state, own, ckpt
         torch.cuda.empty_cache()
     return out
+
+
+def program_first_steps(dev, idxs):
+    """The first weight step of the unified and hybrid programs against the
+    sampled one's (fp32, DROPOUT_R 0, one seeded init, the weight split's
+    first batch, the paths `idxs`): the loss within PROGRAM_LOSS_TOL, and
+    leaf by leaf the gradient Adam is handed (after the clip) within
+    PROGRAM_GRAD_TOL of the whole gradient's largest entry. The RSA chain's
+    leaves (each rel op's Wr, the stem's W1 and b1: PROGRAM_CHAIN_LEAVES)
+    are held to the sampled step that computes the chain as the program
+    does, so that pre is the same bits in both: the unified node's plain
+    `rsa_log_bias` is the sampled step's with the plain version in the
+    kernels' place; the hybrid program's sampled decoder runs the kernels'
+    chain. Against the other their difference is pre's rounding near the
+    1e-6 clamp (PRE_TOL), reported beside. Reported too, not held: each
+    step's distance from the sampled step in fp64 (the net, the inputs, the
+    loss and the plain attention with its RSA chain in fp64; LayerNorm's
+    statistics stay fp32), the exact gradient both chains round."""
+    import mmnas_tpu_torch.models.net as NET
+    import mmnas_tpu_torch.ops.attention as ATT
+    from mmnas_tpu_torch.engine.search import SearchExecution
+    from mmnas_tpu_torch.engine.vqa import batch_to_device
+    from mmnas_tpu_torch.models.net import INPUT_KEYS
+    from mmnas_tpu_torch.train.optimizer import build_net_optimizer
+
+    exe = SearchExecution(search_cfg("float32", SEARCH_B, 1, DROPOUT_R=0.0), dev)
+    dataset = exe.build_dataset()
+    batch = batch_to_device(list(exe.make_loader(dataset, list(range(SEARCH_B))))[0], dev,
+                            INPUT_KEYS + ("ans",))
+    steps, compute_dtype = {}, NET.compute_dtype
+    for name, flag, attention in (("sampled", None, None), ("sampled_plain", None, plain_attention),
+                                  ("sampled_fp64", None, plain_attention_fp64),
+                                  ("UNIFIED_WEIGHT", "UNIFIED_WEIGHT", None),
+                                  ("HYBRID_WEIGHT", "HYBRID_WEIGHT", None)):
+        exe = SearchExecution(search_cfg("float32", SEARCH_B, 1, flag=flag, DROPOUT_R=0.0), dev)
+        net = exe.build_net(dataset)
+        if name == "sampled_fp64":    # the same init in fp64; the step casts its inputs to it
+            net.double()
+            NET.compute_dtype = lambda cfg: torch.float64
+        masters = dict(net.named_parameters())
+        optim = build_net_optimizer(exe.cfg, SEARCH_STEPS)
+        grads, adam_step = {}, optim.step
+
+        def capture(state, params, g, mask, grads=grads, adam_step=adam_step):
+            grads.update({n: t.detach().clone() for n, t in g.items()})
+            return adam_step(state, params, g, mask)
+
+        optim.step = capture
+        saved = ATT.fused_attention
+        ATT.fused_attention = attention or saved
+        try:
+            loss, _ = exe.weight_step(net, optim, optim.init(masters), masters, batch, idxs,
+                                      torch.Generator(dev), net.init_alpha())
+        finally:
+            ATT.fused_attention, NET.compute_dtype = saved, compute_dtype
+        steps[name] = (float(loss), grads)
+        del net, masters
+    loss0, g0 = steps["sampled"]
+    scale = max(float(g.abs().max()) for g in g0.values())
+
+    def errs(g, ref, names):
+        return {n: float((g[n].double() - ref[n].double()).abs().max()) / scale for n in names}
+
+    loss64, g64 = steps["sampled_fp64"]
+    chain = [n for n in g0 if any(k in n for k in PROGRAM_CHAIN_LEAVES)]
+    vs_fp64 = {"loss": loss64}
+    for name in ("sampled", "sampled_plain", "UNIFIED_WEIGHT", "HYBRID_WEIGHT"):
+        e_chain, e_rest = errs(steps[name][1], g64, chain), errs(steps[name][1], g64,
+                                                                 [n for n in g0 if n not in chain])
+        worst = max(e_chain, key=e_chain.get)
+        vs_fp64[name] = {"loss_rel": abs(steps[name][0] - loss64) / abs(loss64),
+                         "chain_err": e_chain[worst], "chain_worst_leaf": worst,
+                         "grad_err": max(e_rest.values())}
+
+    out = {}
+    for flag, chain_ref in (("UNIFIED_WEIGHT", "sampled_plain"), ("HYBRID_WEIGHT", "sampled")):
+        loss, g = steps[flag]
+        if set(g) != set(g0):
+            raise AssertionError(f"--{flag}: the first step's leaves differ from the sampled one's")
+        rest = errs(g, g0, [n for n in g0 if n not in chain])
+        held = errs(g, steps[chain_ref][1], chain)
+        beside = errs(g, g0, chain)
+        worst = {k: max(e, key=e.get) for k, e in (("rest", rest), ("chain", held),
+                                                   ("chain_vs_sampled", beside))}
+        out[flag] = {"loss": loss, "loss_sampled": loss0, "loss_rel": abs(loss - loss0) / abs(loss0),
+                     "grad_err": rest[worst["rest"]], "grad_worst_leaf": worst["rest"],
+                     "chain_err": held[worst["chain"]], "chain_worst_leaf": worst["chain"],
+                     "chain_ref": chain_ref,
+                     "chain_err_vs_sampled": beside[worst["chain_vs_sampled"]],
+                     "leaves": len(g0), "chain_leaves": len(chain)}
+    print(f"first weight step against the sampled program (fp32, DROPOUT_R 0, the sampled leg's "
+          f"first path; the RSA chain's leaves against the sampled step that computes the chain "
+          f"alike): {out} (tol loss {PROGRAM_LOSS_TOL:g}, gradient {PROGRAM_GRAD_TOL:g} of its "
+          f"largest entry {scale:.3e})", flush=True)
+    print(f"the same steps against the sampled step in fp64 (the gradient's errors in units of "
+          f"its largest entry): {vs_fp64}", flush=True)
+    if not all(r["loss_rel"] <= PROGRAM_LOSS_TOL and r["grad_err"] <= PROGRAM_GRAD_TOL
+               and r["chain_err"] <= PROGRAM_GRAD_TOL for r in out.values()):
+        raise AssertionError(f"a program's first weight step is not the sampled one's: {out}")
+    return dict(out, vs_fp64=vs_fp64)
+
+
+def weight_programs_path(FA, dev, card, sampled):
+    """This slice's main path: the weight step's programs through
+    SearchExecution.run(): the VQA search leg of search_path (fp32, BS 128,
+    KPATH 1: 10 weight and 2 arch steps, DROPOUT_R 0.1) once with each of
+    --DENSE_WEIGHT, --UNIFIED_WEIGHT and --HYBRID_WEIGHT, with its checks
+    (exact launches from the paths in each program; the --UNIFIED_WEIGHT
+    leg's step times), each leg's paths those of the sampled leg (`sampled`:
+    search_path's VQA legs); then a bf16 --UNIFIED_WEIGHT leg for VGD and
+    for ITM (PROGRAM_LEGS, not timed), and the unified and hybrid first
+    steps against the sampled one (program_first_steps). Before them the
+    unified decoder node's attention at the three tasks' shapes
+    (UNIFIED_CASES: B 128, 4 heads, (100,114), (100,115), (36,86), the pad
+    mask and a dense bias) against its plain version: forward, dropout
+    forward, backward with dbias, fp32 and bf16."""
+    fwd = kernel_cases(FA, dev, SEARCH_B, SEARCH_H, UNIFIED_CASES)
+    train = train_kernel_cases(FA, dev, SEARCH_B, SEARCH_H, UNIFIED_CASES)
+    legs, main = {}, Counter()
+    base = sampled["{}_bs{}_k{}".format(*SEARCH_LEGS[0])]
+    for flag in WEIGHT_FLAGS:
+        leg = search_path(FA, dev, card, "vqa", SEARCH_LEGS[:1], flag)
+        (key, leg), = leg.items()
+        if leg["paths_sha1"] != base["paths_sha1"]:
+            raise AssertionError(f"--{flag}: the paths differ from the sampled leg's")
+        main.update(leg["launches"])
+        legs[f"vqa_{key}"] = leg
+    for task, dtype, flag in PROGRAM_LEGS:
+        (key, leg), = search_path(FA, dev, card, task, ((dtype, SEARCH_B, 1),), flag).items()
+        legs[f"{task}_{key}"] = leg
+    if not all(main[k] for k in FA.LAUNCHES):
+        raise AssertionError(f"weight programs: a kernel of the path never ran: {dict(main)}")
+    first = program_first_steps(dev, [{c: np.asarray(v) for c, v in idx.items()}
+                                      for idx in base["first_path"]])
+    return {"legs": legs, "main_path_launches": dict(main), "first_steps": first,
+            "kernels_fwd": fwd, "kernels_train": train}
 
 
 def search_resume(cfg, dev, arch_json, engine):
@@ -1644,7 +1860,7 @@ def search_precision(cfg, result, dev):
         optim = build_net_optimizer(c0, SEARCH_STEPS)
         loss, _ = exe.weight_step(net, optim, optim.init(masters), masters,
                                   batch_to_device(host, dev, INPUT_KEYS + ("ans",)), idxs,
-                                  torch.Generator(dev))
+                                  torch.Generator(dev), net.init_alpha())
         losses[dtype] = float(loss)
         del net, masters
     rel = abs(losses["bfloat16"] - losses["float32"]) / abs(losses["float32"])
@@ -1657,14 +1873,15 @@ def search_precision(cfg, result, dev):
     return {"loss_bf16": losses["bfloat16"], "loss_fp32": losses["float32"], "rel": rel}
 
 
-def search_step_times(cfg, result, dev, card, engine):
+def search_step_times(cfg, result, dev, card, engine, time_arch=True):
     """Weight step and arch step ms on one resident batch each (CUDA
     events; the host's sampling included), search examples/s over
     SEARCH_STEPS weight steps of the engine's own loop
     (`SearchExecution.steps`: an arch step after every ALPHA_EVERY-th, the
     alpha host copy renewed after it) on resident batches, what
     bench.py:462-494 counts, and each step's device split. `engine`: the
-    task's SearchExecution class."""
+    task's SearchExecution class; without `time_arch` the arch step is not
+    timed alone (None)."""
     from mmnas_tpu_torch.engine.search import SearchResult, host_copy
     from mmnas_tpu_torch.engine.vqa import batch_to_device
     from mmnas_tpu_torch.models.net import INPUT_KEYS
@@ -1687,7 +1904,7 @@ def search_step_times(cfg, result, dev, card, engine):
 
     def weight():
         idxs = [net.sample_indices(run.alpha_host, sampler) for _ in range(cfg.KPATH)]
-        exe.weight_step(net, optim, run.opt_state, masters, wb, idxs, gen)
+        exe.weight_step(net, optim, run.opt_state, masters, wb, idxs, gen, run.alpha)
 
     def arch():
         exe.arch_step(net, aoptim, run.alpha_state, run.alpha, ab,
@@ -1697,16 +1914,16 @@ def search_step_times(cfg, result, dev, card, engine):
     def loop():
         exe.steps(run, optim, aoptim, [wb] * SEARCH_STEPS, lambda: ab, 0, True, gen)
 
-    weight_ms = cuda_time_ms(weight, iters=5, warmup=1)
-    arch_ms = cuda_time_ms(arch, iters=4, warmup=1)
+    weight_ms = cuda_time_ms(weight, iters=3, warmup=1)
+    arch_ms = cuda_time_ms(arch, iters=2, warmup=1) if time_arch else None
     loop_ms = cuda_time_ms(loop, iters=1, warmup=0)      # warm: the steps above ran it
     ex_s = SEARCH_STEPS * bs / loop_ms * 1000
-    split_w, split_a = profile_step(weight), profile_step(arch)
+    split_w, split_a = profile_step(weight), profile_step(arch) if time_arch else None
     print(f"search {cfg.TASK} {cfg.DTYPE} BS {bs} KPATH {cfg.KPATH} on {card}: weight step "
           f"{weight_ms:.2f} ms,"
-          f" arch step {arch_ms:.2f} ms, {SEARCH_STEPS} weight + {SEARCH_STEPS // ALPHA_EVERY} arch "
-          f"steps {loop_ms:.2f} ms = {ex_s:.1f} examples/s; device split weight step {split_w}, "
-          f"arch step {split_a}",
+          f" arch step {'not timed' if arch_ms is None else f'{arch_ms:.2f} ms'}, {SEARCH_STEPS} "
+          f"weight + {SEARCH_STEPS // ALPHA_EVERY} arch steps {loop_ms:.2f} ms = {ex_s:.1f} "
+          f"examples/s; device split weight step {split_w}, arch step {split_a}",
           flush=True)
     return {"weight_step_ms": weight_ms, "arch_step_ms": arch_ms, "loop_ms": loop_ms,
             "examples_per_s": ex_s, "device_split_weight": split_w, "device_split_arch": split_a}
@@ -2585,6 +2802,25 @@ def plain_attention(q, k, v, mask=None, log_bias=None, *, rel=None, dropout_r=0.
     return fused_attention_reference(q, k, v, mask, log_bias, rel=rel)
 
 
+def plain_attention_fp64(q, k, v, mask=None, log_bias=None, *, rel=None, dropout_r=0.0,
+                         generator=None):
+    """The plain version in fp64 (the RSA chain, scores, softmax, a.v), at
+    DROPOUT_R 0."""
+    from mmnas_tpu_torch.ops.primitives import mask_scores
+
+    if dropout_r:
+        raise ValueError("the plain stand-in runs without dropout")
+    if rel is not None:
+        raw, w1, b1, wr, br = (t.double() for t in rel)
+        pre = torch.relu(torch.matmul(torch.relu(torch.matmul(raw, w1.t()) + b1), wr.t()) + br)
+        log_bias = torch.log(torch.clamp(pre, min=1e-6)).permute(0, 3, 1, 2)
+    scores = torch.matmul(q.double(), k.double().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if log_bias is not None:
+        scores = scores + log_bias.double()
+    att = torch.softmax(mask_scores(scores, mask), dim=-1)
+    return torch.matmul(att, v.double()).to(q.dtype)
+
+
 def profile_step(step):
     """Device time of one call of `step` (a train step, a scorer tile) by
     kind of kernel, from torch.profiler: the port's kernels, cuBLAS/CUTLASS
@@ -3133,7 +3369,7 @@ def tp_member(dev, root, eval_ckpt):
             pmesh.model_all_reduce = lambda t: t
             pmesh.model_all_gather = lambda t: [t] * axis
         try:
-            times[on].append(cuda_time_ms(step, iters=3, warmup=1))
+            times[on].append(cuda_time_ms(step, iters=2, warmup=1))
         finally:
             pmesh.model_all_reduce, pmesh.model_all_gather = real
     out["step_ms"], out["step_ms_no_model_collectives"] = (sum(times[k]) / 2 for k in (True, False))
@@ -3381,6 +3617,8 @@ def main() -> int:
     phase("train")
     search = search_path(FA, dev, card, "vqa", SEARCH_LEGS)
     phase("search")
+    programs = weight_programs_path(FA, dev, card, search)
+    phase("weight programs: --DENSE_WEIGHT, --UNIFIED_WEIGHT, --HYBRID_WEIGHT")
     vgd_fwd = kernel_cases(FA, dev, B, H, VGD_CASES)
     vgd_train_cases = train_kernel_cases(FA, dev, B, H, VGD_CASES)
     vgd_search_fwd = kernel_cases(FA, dev, SEARCH_B, SEARCH_H, VGD_CASES)
@@ -3467,7 +3705,8 @@ def main() -> int:
          "vgd_shapes": at_shapes(vgd_fwd, fwd_keys),
          "vgd_search_shapes": at_shapes(vgd_search_fwd, fwd_keys),
          "itm_shapes": at_shapes(itm_fwd, fwd_keys),
-         "new_shapes": at_shapes(new_fwd, fwd_keys)},
+         "new_shapes": at_shapes(new_fwd, fwd_keys),
+         "unified_shapes": at_shapes(programs["kernels_fwd"], fwd_keys)},
         {"name": "fused_attention_fwd_dropout",
          "max_abs_err": max(c["fwd_err"] for c in fp32_train),
          "ms": drop["fwd_ms"], "plain_ms": drop["plain_fwd_ms"], "bound_ms": drop["fwd_bound_ms"],
@@ -3478,7 +3717,8 @@ def main() -> int:
          "vgd_shapes": at_shapes(vgd_train_cases, drop_keys),
          "vgd_search_shapes": at_shapes(vgd_search_train, drop_keys),
          "itm_shapes": at_shapes(itm_train_cases, drop_keys),
-         "new_shapes": at_shapes(new_train, drop_keys)},
+         "new_shapes": at_shapes(new_train, drop_keys),
+         "unified_shapes": at_shapes(programs["kernels_train"], drop_keys)},
         {"name": "fused_attention_bwd", "max_abs_err": max(c["grad_abs_err"] for c in fp32_train),
          "ms": drop["bwd_ms"], "plain_ms": drop["plain_bwd_ms"], "bound_ms": drop["bwd_bound_ms"],
          "bound_by": drop["bwd_bound_by"], "library_ms": drop["sdpa_bwd_ms"],
@@ -3488,7 +3728,8 @@ def main() -> int:
          "vgd_shapes": at_shapes(vgd_train_cases, bwd_keys),
          "vgd_search_shapes": at_shapes(vgd_search_train, bwd_keys),
          "itm_shapes": at_shapes(itm_train_cases, bwd_keys),
-         "new_shapes": at_shapes(new_train, bwd_keys)},
+         "new_shapes": at_shapes(new_train, bwd_keys),
+         "unified_shapes": at_shapes(programs["kernels_train"], bwd_keys)},
         {"name": "fused_attention_bwd_rel", "max_abs_err": rel["rel_abs_err"],
          "ms": rel["rel_ms"], "plain_ms": rel["rel_plain_ms"], "bound_ms": rel["rel_bound_ms"],
          "bound_by": rel["rel_bound_by"], "library_ms": None,
@@ -3498,15 +3739,17 @@ def main() -> int:
          "itm_shapes": at_shapes(itm_train_cases, rel_keys, rel=True),
          "new_shapes": at_shapes(new_train, rel_keys, rel=True)},
     ]
-    # the attention kernels' launches on this slice's main path, the all-ops
-    # fixed net (the fp32 eval's forwards, the fp32 train step's dropout
-    # forwards, backwards and relation passes); each path's own counts beside
-    # them
-    main_path = all_ops["main_path_launches"]
+    # the attention kernels' launches on this slice's main path, the weight
+    # programs (the VQA fp32 search leg under each of the three flags); each
+    # path's own counts beside them
+    main_path = programs["main_path_launches"]
     for row in rows:
         fwd_only = row["name"] == "fused_attention_fwd"
         row["launches"] = main_path[row["name"]]
         row["launches_by_path"] = {
+            **{f"weight_programs_{k}": leg["launches"][row["name"]]
+               for k, leg in programs["legs"].items()},
+            "all_ops_fp32": all_ops["main_path_launches"][row["name"]],
             "all_ops_eval_bf16": all_ops["eval_bfloat16"]["launches"][row["name"]],
             "all_ops_train_bf16": all_ops["train_bfloat16"]["launches"][row["name"]],
             "device_rel_int8_eval": device_rel["device_rel_int8"]["launches"] if fwd_only else 0,
@@ -3543,10 +3786,13 @@ def main() -> int:
                    "search_train": search_train, "vgd_fwd": vgd_fwd, "vgd_train": vgd_train_cases,
                    "vgd_search_fwd": vgd_search_fwd, "vgd_search_train": vgd_search_train,
                    "itm_fwd": itm_fwd, "itm_train": itm_train_cases, "new_fwd": new_fwd,
-                   "new_train": new_train}, f)
+                   "new_train": new_train, "unified_fwd": programs["kernels_fwd"],
+                   "unified_train": programs["kernels_train"]}, f)
     print(f"kernel cases: {os.path.relpath(details, HERE)}")
     print(json.dumps({"kernels": rows, "probes": {k: v for k, v in probes.items() if k != "rows"},
                       "eval": evals, "export": export, "train": train, "search": search,
+                      "weight_programs": {k: v for k, v in programs.items()
+                                          if not k.startswith("kernels_")},
                       "vgd": vgd, "itm": itm,
                       "all_ops": all_ops, "device_rel": device_rel, "rehearsal": rehearsal,
                       "data_parallel": data_parallel, "tensor_parallel": tensor_parallel,

@@ -4,7 +4,14 @@ Each `csrc/<name>.cu` compiles on its own into a shared library with a
 plain C interface, loaded with ctypes by its wrapper:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/mmnas_tpu_torch/lib<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v --split-compile=0 \
+         -o build/mmnas_tpu_torch/lib<name>-<hash>.so
+
+`--split-compile=0` runs the device compiler's optimization passes on as
+many threads as the machine has: the attention sources instantiate dozens
+of kernel templates, and on an H100 host it took the three sources' build
+(all at once) from 142-154 s to 69 s, every kernel's registers, spills and
+HMMA count unchanged.
 
 The library lands in `build/mmnas_tpu_torch/` at the root of the checkout,
 named by a hash of its sources and flags, so an edited source never loads a
@@ -26,7 +33,7 @@ from typing import Tuple
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parents[1] / "build" / "mmnas_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
 
 
 def nvcc_path() -> str:

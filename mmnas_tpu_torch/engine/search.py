@@ -55,7 +55,19 @@ paths, so the weight step's mask selects the same leaves, whole or
 sharded, on every rank. The clip's norm is the whole gradient's; the
 checkpoint holds the gathered, unsharded pytree.
 
-Not ported: SCAN_STEPS, the dense/unified/hybrid weight steps (ROADMAP.md).
+The weight step's program (mmnas_tpu/engine/search.py:101-121): 'sampled'
+by default; --DENSE_WEIGHT runs mode 'full' (every op, one-hot
+straight-through gates from a detached alpha, the inactive outputs
+detached), --UNIFIED_WEIGHT mode 'unified' (no branch on the path: the
+indices on the device, the decoder's attention candidates one program) and
+--HYBRID_WEIGHT mode 'hybrid' (the unified encoder, the sampled decoder).
+Their forward and gradients are the sampled program's; the mask, the clip
+and Adam are the same. Those three run ops off the path, so under bfloat16
+they compute with every parameter's cast, as the JAX package casts every
+leaf. They take KPATH 1 only. The arch steps, the eval and ITM's mining
+keep their modes.
+
+Not ported: SCAN_STEPS (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -94,6 +106,16 @@ from mmnas_tpu_torch.utils.profiling import epoch_trace
 ARCH_STREAM = 1_000_000_000  # arch step s draws from stream ARCH_STREAM + s
 
 
+# the weight step's forward mode by flag, in the JAX package's order of precedence
+WEIGHT_MODES = (("DENSE_WEIGHT_STEP", "full"), ("UNIFIED_WEIGHT_STEP", "unified"),
+                ("HYBRID_WEIGHT_STEP", "hybrid"))
+
+
+def weight_mode(cfg) -> str:
+    """The NetSearch mode of the weight step (mmnas_tpu/engine/search.py:108-121)."""
+    return next((mode for flag, mode in WEIGHT_MODES if getattr(cfg, flag)), "sampled")
+
+
 def sample_seed(seed: int, global_step: int) -> int:
     """The seed of the host generator that samples the paths of one step,
     apart from that step's dropout seed (`step_seed`)."""
@@ -126,16 +148,17 @@ class SearchExecution:
     TARGET_KEYS = ("ans",)      # the batch keys a step reads besides INPUT_KEYS
 
     def __init__(self, cfg, device: torch.device):
-        for flag in ("DENSE_WEIGHT_STEP", "UNIFIED_WEIGHT_STEP", "HYBRID_WEIGHT_STEP"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag} is not ported (ROADMAP.md, 'Not ported')")
+        if cfg.KPATH > 1 and weight_mode(cfg) != "sampled":
+            raise ValueError("KPATH > 1 requires the sampled weight step "
+                             "(no DENSE/UNIFIED/HYBRID)")
         if cfg.SCAN_STEPS != 1:
             raise NotImplementedError("SCAN_STEPS is not ported (ROADMAP.md, 'Not ported')")
         if cfg.ALPHA_BINARY_MODE not in ("full", "two"):
             # 'full_v2' is asserted off in the reference too (mixed.py:71)
             raise ValueError(f"ALPHA_BINARY_MODE={cfg.ALPHA_BINARY_MODE!r} (use 'full' or 'two')")
         if cfg.CKPT_BACKEND != "pickle":
-            raise NotImplementedError("the port writes pickle checkpoints only")
+            raise NotImplementedError("the port writes pickle checkpoints only: the orbax "
+                                      "backend is not ported (ROADMAP.md, 'Not ported')")
         if cfg.BATCH_SIZE % cfg.KPATH:
             raise ValueError(f"batch {cfg.BATCH_SIZE} not divisible by KPATH={cfg.KPATH}")
         self.cfg = cfg
@@ -183,24 +206,29 @@ class SearchExecution:
 
     def weight_step(self, net: NetSearch, optim, opt_state: Dict,
                     masters: Mapping[str, torch.nn.Parameter], batch: Dict[str, torch.Tensor],
-                    idxs: Sequence[Mapping[str, np.ndarray]], generator: torch.Generator):
+                    idxs: Sequence[Mapping[str, np.ndarray]], generator: torch.Generator,
+                    alpha: Mapping[str, torch.Tensor]):
         """One weight step on the paths `idxs` (one per KPATH slice, by
-        stride): (summed loss on the device, lr)."""
-        cfg, K = self.cfg, len(idxs)
+        stride) in the program of `weight_mode` (mode 'full' builds its gates
+        from `alpha`, detached): (summed loss on the device, lr)."""
+        cfg, K, mode = self.cfg, len(idxs), weight_mode(self.cfg)
         mask = net.update_mask(idxs[0])
         for idx in idxs[1:]:  # the union of the paths' masks
             other = net.update_mask(idx)
             mask = {n: max(m, other[n]) for n, m in mask.items()}
         names = [n for n, m in mask.items() if m > 0]
-        params = compute_params(net, cfg, names)
+        # the sampled program runs, so casts, only the paths' parameters; the
+        # others run ops off the path too, each in the compute dtype
+        params = compute_params(net, cfg, names if mode == "sampled" else None)
+        gates = {c: alpha[c].detach() for c in CELLS} if mode == "full" else None
         loss = 0.0
         for k, idx in enumerate(idxs):
             # a stride slice is a view; the kernels take contiguous tensors
             sl = batch if K == 1 else {key: v[k::K].contiguous() for key, v in batch.items()}
             loss = loss + self.forward_loss(
                 lambda b, idx=idx: compute_call(
-                    net, cfg, (b, None, idx),
-                    {"mode": "sampled", "train": True, "generator": generator}, params), sl)
+                    net, cfg, (b, gates, idx),
+                    {"mode": mode, "train": True, "generator": generator}, params), sl)
         grads = torch.autograd.grad(loss, [masters[n] for n in names], allow_unused=True)
         # a selected parameter the loss does not reach (the text-relation
         # stem) has a zero gradient, as in JAX: Adam still counts its step
@@ -258,7 +286,7 @@ class SearchExecution:
             idxs = [net.sample_indices(result.alpha_host, sampler) for _ in range(cfg.KPATH)]
             generator.manual_seed(step_seed(cfg.SEED, global_step, rank))
             loss, lr = self.weight_step(net, optim, result.opt_state, masters, batch, idxs,
-                                        generator)
+                                        generator, result.alpha)
             losses.append(loss)
             result.paths.append(("weight", global_step, idxs))
             if do_arch and (step + 1) % cfg.ALPHA_EVERY == 0:

@@ -243,7 +243,8 @@ class Execution:
     def train(self, train_loader: Loader, eval_loader: Optional[Loader] = None) -> TrainResult:
         cfg = self.cfg
         if cfg.CKPT_BACKEND != "pickle":
-            raise NotImplementedError("the port writes pickle checkpoints only")
+            raise NotImplementedError("the port writes pickle checkpoints only: the orbax "
+                                      "backend is not ported (ROADMAP.md, 'Not ported')")
         net = self.build_net(train_loader.dataset).to(self.device)
         params = dict(net.named_parameters())
         epoch_steps = train_loader.steps_per_epoch()

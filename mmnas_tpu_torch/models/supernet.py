@@ -21,13 +21,20 @@ them. Forward modes:
   sampled path and d(loss)/d(alpha) is the ProxylessNAS softmax-Jacobian
   sum_j b_j p_j (delta_ij - p_i) (mixed.py:171-198);
 - "two": the two indexed ops ([n, 2]: active, inactive) under gates built
-  from the softmax over the pair's logits (mixed.py:136-148).
+  from the softmax over the pair's logits (mixed.py:136-148);
+- "unified": the sampled path's math with no branch on the index
+  (supernet.py:187-211): the indices go to the device as integer tensors;
+  each encoder node runs self_att_64 and feed_forward and keeps one by
+  `torch.where`, each decoder node runs `unified_att_node` (the three
+  attention candidates as one program, ops/modules.py) and feed_forward and
+  keeps one the same way. The outputs and the parameters' gradients are the
+  sampled path's; an unsampled candidate's gradient is 0;
+- "hybrid": the unified encoder and the sampled decoder.
 
 As the fixed net, the sampled path splits into `encode_text` and
 `apply_decoder` for ITM's mining and R@K sweeps (supernet.py:333-378).
 
-The JAX package's `unified`/`hybrid` modes, its dense weight step and
-REMAT are not ported (ROADMAP.md, "Not ported").
+REMAT is not ported (ROADMAP.md, "Not ported").
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from mmnas_tpu_torch.models.net import (
     init_stem, op_cfg_from, text_stem,
 )
 from mmnas_tpu_torch.ops import primitives as P
+from mmnas_tpu_torch.ops.modules import unified_att_node
 from mmnas_tpu_torch.ops.registry import Used_OPS, make_op
 
 # the safe search spaces (mmnas_tpu/ops/registry.py:48-51)
@@ -53,6 +61,9 @@ SPACES = {"enc": Used_OPS["enc_safe"], "dec": Used_OPS["dec_safe"]}
 _INIT_ENC = ["self_att_64", "feed_forward"]
 _INIT_DEC = ["rel_self_att_64", "guided_att_64", "feed_forward"]
 CELLS = ("enc", "dec")
+# the unified nodes are written for these spaces (supernet.py:198, :206-207)
+assert SPACES == {"enc": ["self_att_64", "feed_forward"],
+                  "dec": ["self_att_64", "rel_self_att_64", "guided_att_64", "feed_forward"]}
 
 
 def _softmax(a) -> np.ndarray:
@@ -186,19 +197,20 @@ class NetSearch(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """The head's output in fp32: VQA logits [B, ans_size], VGD (scores
         [B, L], reg [B, L, 4]), ITM probabilities [B]. idx: host indices, [n] per cell type
-        ('sampled', 'full') or [n, 2] ('two'); alpha: fp32 device tensors,
-        read by 'full' and 'two'."""
-        if mode in ("unified", "hybrid"):
-            raise NotImplementedError(f"mode {mode!r} is not ported (ROADMAP.md, 'Not ported')")
-        run = {"sampled": self._run_sampled, "full": self._run_full,
-               "two": self._run_two}.get(mode)
-        if run is None:
+        ('sampled', 'full', 'unified', 'hybrid') or [n, 2] ('two'); 'unified' also
+        takes integer tensors; alpha: fp32 device tensors, read by 'full' and 'two'."""
+        modes = {"sampled": (self._run_sampled, self._run_sampled),
+                 "full": (self._run_full, self._run_full), "two": (self._run_two, self._run_two),
+                 "unified": (self._run_unified, self._run_unified),
+                 "hybrid": (self._run_unified, self._run_sampled)}
+        if mode not in modes:
             raise ValueError(f"unknown mode {mode!r}")
+        run_enc, run_dec = modes[mode]
         batch = cast_for_compute(self.cfg, batch)
         x, y, x_mask, y_mask, y_rel = apply_stem(self, self.cfg, batch)
         a = alpha or {c: None for c in CELLS}
-        x = run(self.enc, idx["enc"], a["enc"], x, None, x_mask, None, None, train, generator)
-        y = run(self.dec, idx["dec"], a["dec"], y, x, y_mask, x_mask, y_rel, train, generator)
+        x = run_enc(self.enc, idx["enc"], a["enc"], x, None, x_mask, None, None, train, generator)
+        y = run_dec(self.dec, idx["dec"], a["dec"], y, x, y_mask, x_mask, y_rel, train, generator)
         return cast_output(self.cfg, apply_heads(self, x, y, x_mask, y_mask, train, generator))
 
     # -- split application (ITM pair scoring), the sampled path -------------------
@@ -226,6 +238,23 @@ class NetSearch(nn.Module):
         """One op per node (MODE=None, mixed.py:104)."""
         for node, i in zip(nodes, idx):
             s = node[int(i)](s, pre, s_mask, pre_mask, rel, train, generator)
+        return s
+
+    @staticmethod
+    def _run_unified(nodes, idx, alpha, s, pre, s_mask, pre_mask, rel, train, generator):
+        """The sampled path with no branch on the index (supernet.py:187-211):
+        an encoder node (pre None) runs both of its ops, a decoder node
+        `unified_att_node` and feed_forward, and `torch.where` on the device
+        index keeps the sampled output."""
+        idx = torch.as_tensor(idx, device=s.device)
+        for ni, node in enumerate(nodes):
+            if pre is None:     # an encoder node
+                att = node[0](s, pre, s_mask, pre_mask, rel, train, generator)
+            else:
+                att = unified_att_node(node, idx[ni], s, pre, s_mask, pre_mask, rel, train,
+                                       generator)
+            ff = node[-1](s, pre, s_mask, pre_mask, rel, train, generator)
+            s = torch.where(idx[ni] == len(node) - 1, ff, att)
         return s
 
     @staticmethod

@@ -12,23 +12,28 @@ from __future__ import annotations
 
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "bbox.cpp"
 LIB = SRC.parents[2] / "build" / "mmnas_tpu_torch" / "libbbox.so"
+# a process's threads build one at a time: a loader's worker threads reach
+# the first use together, and would compile into, and rename, one file
+_BUILD_LOCK = threading.Lock()
 
 
 def build(force: bool = False) -> str:
-    if not force and LIB.exists() and LIB.stat().st_mtime >= SRC.stat().st_mtime:
+    with _BUILD_LOCK:
+        if not force and LIB.exists() and LIB.stat().st_mtime >= SRC.stat().st_mtime:
+            return str(LIB)
+        LIB.parent.mkdir(parents=True, exist_ok=True)
+        # compile beside the library and rename: processes that build at once
+        # never open a half-written file
+        tmp = LIB.with_name(f"libbbox.{os.getpid()}.so")
+        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", str(SRC), "-o", str(tmp)]
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, LIB)
         return str(LIB)
-    LIB.parent.mkdir(parents=True, exist_ok=True)
-    # compile beside the library and rename: processes that build at once
-    # never open a half-written file
-    tmp = LIB.with_name(f"libbbox.{os.getpid()}.so")
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", str(SRC), "-o", str(tmp)]
-    subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(tmp, LIB)
-    return str(LIB)
 
 
 if __name__ == "__main__":

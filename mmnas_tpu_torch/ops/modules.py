@@ -21,9 +21,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mmnas_tpu_torch.ops import primitives as P
-from mmnas_tpu_torch.ops.attention import scaled_dot_attention
+from mmnas_tpu_torch.ops.attention import rsa_log_bias, scaled_dot_attention
 from mmnas_tpu_torch.parallel.sharding import (
     copy_to_model, gather_from_model, reduce_from_model,
 )
@@ -194,6 +195,87 @@ class UniimgAtt(MHAtt):
     def forward(self, x, y, x_mask, y_mask, rel, train=False, generator=None):
         xy = torch.cat((x, y), dim=1)
         return self.attend(xy, xy, x, None, train, generator)
+
+
+def unified_att_node(ops, idx, s, pre, s_mask, pre_mask, rel, train: bool = False,
+                     generator: Optional[torch.Generator] = None):
+    """The decoder's attention candidates (self_att_64, rel_self_att_64,
+    guided_att_64: `ops[:3]`, the first three ops of a dec_safe node) as one
+    program for the switch-free weight step (mmnas_tpu/ops/modules.py:231-306).
+
+    `idx` is the node's sampled index, a 0-d integer tensor on the device
+    (3 = feed_forward, selected by the caller); nothing here reads it on the
+    host, so one code path serves every index:
+
+    - the three candidates' wv, wk, wq, wm and LayerNorms are stacked and
+      indexed at min(idx, 2);
+    - `kv = cat(s, pre)` is projected once by cat(wv, wk), q from s, and the
+      key mask [B,1,1,Ls+Lt] is `s_mask | is_guided` over the image keys and
+      `pre_mask | ~is_guided` over the text keys (self and rel attend to s,
+      guided to pre; a masked key's probability is exactly 0);
+    - the RSA bias of the rel candidate's wr over the image keys is computed
+      outside the kernel (`rsa_log_bias`, recomputed in the backward under
+      `torch.utils.checkpoint`), multiplied by `is_rel`, and padded with
+      zeros over the text keys: a dense log_bias [B,H,Ls,Ls+Lt];
+    - the attention is `scaled_dot_attention` (the kernels on the card: the
+      forward or the dropout forward, and the backward with dbias), then the
+      gathered wm, dropout, the residual and the gathered LayerNorm.
+
+    Indexing a stack scatters zero gradients into the unsampled candidates'
+    slices, and the zero-gated bias gives wr none unless rel is sampled.
+
+    Split over the model group, the stacks hold the rank's blocks of the
+    candidates' projections; s, pre and the relation chain's W1, b1, wr, br
+    enter through `copy_to_model`, the rank runs its heads (wr's rows of
+    them, the whole call's dropout masks) and `reduce_from_model` sums the
+    partial outputs, as `MHAtt.attend_split`; when the model axis does not
+    divide the heads every rank runs them all on the gathered projections,
+    as `MHAtt.attend_whole`."""
+    cands = list(ops[:3])
+    if any(op.ln is None or not op.residual for op in cands):
+        raise ValueError("the unified node needs the candidates' LayerNorm and residual "
+                         "(OPS_NORM and OPS_RESIDUAL)")
+    core = cands[1].core
+    weights = {k: [getattr(op.core, k).weight for op in cands] for k in ("wv", "wk", "wq", "wm")}
+    w1, b1, wr, br = rel["w1"], rel["b1"], core.wr.weight, core.wr.bias
+    s_in, pre_in, heads, split = s, pre, core.n_heads, None
+    if core.tp is not None and core.n_heads % core.tp.size:
+        weights = {k: [gather_from_model(t, 1 if k == "wm" else 0) for t in ts]
+                   for k, ts in weights.items()}
+    elif core.tp is not None:
+        heads = core.n_heads // core.tp.size
+        split = (core.tp.rank * heads, core.n_heads)
+        s_in, pre_in, w1, b1, wr, br = copy_to_model(s, pre, w1, b1, wr, br)
+        wr, br = wr[split[0]:split[0] + heads], br[split[0]:split[0] + heads]
+    sel = torch.clamp(idx, max=2).reshape(1)
+    is_rel, is_guided = idx == 1, idx == 2
+
+    def gather(tensors):
+        return torch.index_select(torch.stack(tensors), 0, sel)[0]
+
+    w = {k: gather(ts) for k, ts in weights.items()}
+    vv, kk = F.linear(torch.cat((s_in, pre_in), dim=1),
+                      torch.cat((w["wv"], w["wk"]), dim=0)).chunk(2, dim=-1)
+    qq = F.linear(s_in, w["wq"])
+    mask = torch.cat((s_mask | is_guided, pre_mask | ~is_guided), dim=-1).contiguous()
+    chain = (rel["raw"].detach(), w1, b1, wr, br)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in chain):
+        bias = checkpoint(rsa_log_bias, *chain, use_reentrant=False)
+    else:
+        bias = rsa_log_bias(*chain)
+    bias = bias.to(s.dtype) * is_rel.to(s.dtype)
+    # the chain's [B,Lq,Lk,H] layout, permuted, survives the product and the pad
+    log_bias = F.pad(bias, (0, pre.shape[1])).contiguous()
+    atted = scaled_dot_attention(_split_heads(qq, heads), _split_heads(kk, heads),
+                                 _split_heads(vv, heads), mask, log_bias,
+                                 dropout_r=core.dropout_r, train=train, generator=generator,
+                                 heads=split)
+    out = F.linear(_merge_heads(atted), w["wm"])
+    if split is not None:
+        out = reduce_from_model(out)
+    out = P.dropout(out, cands[1].dropout_r, train, generator)
+    return P.layernorm(s + out, gather([op.ln.a for op in cands]),
+                       gather([op.ln.b for op in cands]), cands[1].ln.eps)
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,9 @@ search=True)):
 Per-epoch hard-negative mining with a sampled path, genotypes appended to
 ./arch/<VERSION>.json in the reference schema, the argmax path's R@K on the
 val split; checkpoints are the pickled numpy pytrees either package writes
-and resumes from. --SCAN_STEPS, the dense/unified/hybrid weight steps and
---MODEL_AXIS are not ported.
+and resumes from. --DENSE_WEIGHT, --UNIFIED_WEIGHT and --HYBRID_WEIGHT choose
+the program of the weight step's three forwards and --MODEL_AXIS splits the
+heads, as for VQA (search_vqa.py). --SCAN_STEPS is not ported.
 """
 
 from __future__ import annotations

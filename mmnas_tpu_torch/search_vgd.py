@@ -10,8 +10,9 @@ search=True)):
 
 Per-epoch genotypes are appended to ./arch/<VERSION>.json in the reference
 schema; checkpoints are the pickled numpy pytrees either package writes and
-resumes from. --SCAN_STEPS, the dense/unified/hybrid weight steps and
---MODEL_AXIS are not ported.
+resumes from. --DENSE_WEIGHT, --UNIFIED_WEIGHT and --HYBRID_WEIGHT choose the
+weight step's program and --MODEL_AXIS splits the heads, as for VQA
+(search_vqa.py). --SCAN_STEPS is not ported.
 """
 
 from __future__ import annotations

@@ -8,11 +8,14 @@ The same flags as the JAX package's search CLI:
     python -m mmnas_tpu_torch.search_vqa --SYNTH --MAX_EPOCH 3 --BS 128
     python -m mmnas_tpu_torch.search_vqa --SYNTH --BS 256 --KPATH 8 --DTYPE bfloat16
     python -m mmnas_tpu_torch.search_vqa --RESUME --CKPT_PATH logs/ckpts/search_vqa-search_epoch3.pkl
+    python -m mmnas_tpu_torch.search_vqa --SYNTH --BS 128 --UNIFIED_WEIGHT
+    python -m mmnas_tpu_torch.search_vqa --SYNTH --NDEV 2 --MODEL_AXIS 2
 
 Per-epoch genotypes are appended to ./arch/<VERSION>.json in the reference
 schema {"epochK": {"enc": [[op]x12], "dec": [[op]x18]}}; checkpoints are the
-pickled numpy pytrees either package writes and resumes from. --SCAN_STEPS,
-the dense/unified/hybrid weight steps and --MODEL_AXIS are not ported.
+pickled numpy pytrees either package writes and resumes from. The weight
+step's program is the sampled one, or --DENSE_WEIGHT, --UNIFIED_WEIGHT or
+--HYBRID_WEIGHT (KPATH 1; engine/search.py). --SCAN_STEPS is not ported.
 """
 
 from __future__ import annotations

@@ -42,8 +42,8 @@ def save_checkpoint(path: str, state: Dict) -> None:
 
 def load_checkpoint(path: str) -> Dict:
     if path.endswith(".orbax") or path.endswith(".orbax/"):
-        raise NotImplementedError("orbax checkpoints are not ported; save with "
-                                  "--CKPT_BACKEND pickle")
+        raise NotImplementedError("orbax checkpoints are not ported (ROADMAP.md, 'Not "
+                                  "ported'); save with --CKPT_BACKEND pickle")
     with open(path, "rb") as f:
         return pickle.load(f)
 

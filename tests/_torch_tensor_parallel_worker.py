@@ -15,7 +15,13 @@ group laid out at model axis 2; each runs, through the engines' own loops:
 
 Each rank pickles what it saw to <out>/rank<r>.pkl: its place in the grid,
 losses, paths, predictions, alpha, its collective counts, and which modules
-of jax or the JAX package it loaded (none may be)."""
+of jax or the JAX package it loaded (none may be).
+
+    python tests/_torch_tensor_parallel_worker.py SPEC.pkl unified
+
+starts two processes instead (data 1 x model 2), each running the VQA
+searches of SPEC["unified"] (--UNIFIED_WEIGHT) in turn and pickling their
+losses and paths to <out>/unified_rank<r>.pkl."""
 
 import os
 import pickle
@@ -76,8 +82,25 @@ def member(device, spec_path):
         pickle.dump(out, f)
 
 
+def unified_member(device, spec_path):
+    from mmnas_tpu_torch.config import SearchCfg
+    from mmnas_tpu_torch.engine.search import SearchExecution
+
+    torch.set_num_threads(1)
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    runs = []
+    for kw in spec["unified"]:
+        result = SearchExecution(SearchCfg(**kw), device).run()
+        runs.append({"step_losses": result.step_losses, "paths": result.paths})
+    with open(os.path.join(spec["out"], f"unified_rank{pmesh.rank()}.pkl"), "wb") as f:
+        pickle.dump({"grid": (pmesh.data_rank(), pmesh.model_rank(), pmesh.data_axis_size(),
+                              pmesh.model_axis_size()), "runs": runs}, f)
+
+
 if __name__ == "__main__":
     import datetime
 
-    pmesh.spawn(member, (sys.argv[1],), [torch.device("cpu")] * WORLD,
+    fn, world = (unified_member, MODEL_AXIS) if sys.argv[2:] == ["unified"] else (member, WORLD)
+    pmesh.spawn(fn, (sys.argv[1],), [torch.device("cpu")] * world,
                 datetime.timedelta(seconds=GROUP_TIMEOUT_S), model_axis=MODEL_AXIS)

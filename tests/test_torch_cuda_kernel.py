@@ -629,7 +629,7 @@ def test_kpath_weight_step_on_the_card_matches_the_cpu(dev, tmp_path):
         before = dict(FA.LAUNCHES)
         loss, _ = exe.weight_step(net, optim, optim.init(masters), masters,
                                   batch_to_device(host, d, INPUT_KEYS + ("ans",)), idxs,
-                                  torch.Generator(d))
+                                  torch.Generator(d), net.init_alpha())
         losses[d.type] = float(loss)
     torch.cuda.synchronize()
     assert {n: FA.LAUNCHES[n] - before[n] for n in before} == {

@@ -289,11 +289,11 @@ def searched(tmp_path_factory):
         pex = SearchExecution(PortSearchCfg(**kw("port")), torch.device("cpu"))
         dead = {}
 
-        def weight_step(net, optim, state, masters, batch, idxs, generator):
+        def weight_step(net, optim, state, masters, batch, idxs, generator, alpha):
             if not dead:
                 dead.update(dead_entries(pex, net, batch, None, idxs[0]))
             return SearchExecution.weight_step(pex, net, optim, state, masters, batch, idxs,
-                                               generator)
+                                               generator, alpha)
 
         pex.weight_step = weight_step
         out = io.StringIO()

@@ -224,7 +224,7 @@ def test_weight_step_on_two_paths_moves_their_union(setup, tmp_path):
     other = {"enc": np.array([1, 1, 0]), "dec": np.array([0, 2, 3, 1])}
     tb = dict(s.tb, ans=torch.from_numpy(s.batch["ans"]))
     SearchExecution(cfg, torch.device("cpu")).weight_step(
-        net, optim, state, masters, tb, [IDX, other], torch.Generator())
+        net, optim, state, masters, tb, [IDX, other], torch.Generator(), net.init_alpha())
     m1, m2 = net.update_mask(IDX), net.update_mask(other)
     union = {n: max(m1[n], m2[n]) for n in m1}
     assert 0 < sum(union.values()) < len(union)
@@ -295,8 +295,6 @@ def test_host_sampling(setup):
 
 
 def test_unported_modes_and_options_raise(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        setup.net(setup.tb, None, IDX, mode="unified")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NetSearch(PortSearchCfg(**dict(TINY, REMAT=True)), {"token_size": V})
     with pytest.raises(ValueError, match="LAYERS"):

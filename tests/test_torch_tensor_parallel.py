@@ -30,6 +30,11 @@ epoch-1 checkpoint to the JAX run's epoch 2.
 (e) The ranks sit on the grid as the JAX mesh lays out its devices, hold
 half of each split leaf, and talk over the model group; the workers load no
 jax and no mmnas_tpu module.
+(f) --UNIFIED_WEIGHT at data 1 x model 2 (a second worker of 2 processes,
+started beside the first): two weight steps at DROPOUT_R 0.1, HSIZE 128 (the
+unified node's heads split, one a rank) and HSIZE 64 (its one head runs
+whole on each rank), equal the port in one process: losses, paths,
+parameters and Adam moments to 1e-5, alpha bit for bit.
 """
 
 import json
@@ -61,6 +66,7 @@ from mmnas_tpu.train.optimizer import plain_adam as jax_plain_adam
 from mmnas_tpu_torch.config import Cfg as PortCfg
 from mmnas_tpu_torch.config import SearchCfg as PortSearchCfg
 from mmnas_tpu_torch.data.synth import SynthItmDataset, SynthVgdDataset, SynthVqaDataset
+from mmnas_tpu_torch.engine.search import SearchExecution
 from mmnas_tpu_torch.engine.vqa import Execution
 from mmnas_tpu_torch.genotype import load_genotype
 from mmnas_tpu_torch.models.convert import to_jax_params
@@ -99,6 +105,11 @@ SEARCH = dict(SEARCH_SMALL, **WIDE, SYNTH_SIZE=40, VERSION="tp-search")
 # one global batch of 2 x 4 (VGD), of 2 x 5 captions (ITM, random negatives)
 VGD = dict(VGD_TRAIN, **WIDE, SYNTH_SIZE=8, VERSION="tp-vgd")
 ITM = dict(ITM_TRAIN, **WIDE, SYNTH_SIZE=10, BATCH_SIZE=5, NEG_START_EPOCH=1, VERSION="tp-itm")
+# two --UNIFIED_WEIGHT weight steps of 4 (10 items: a weight split of 8),
+# no arch step, the attention and output dropout on
+UNIFIED = dict(SEARCH_SMALL, UNIFIED_WEIGHT_STEP=True, SYNTH_SIZE=10, DROPOUT_R=0.1,
+               ALPHA_START=1, MAX_EPOCH=1, EVAL_EVERY_EPOCH=False)
+UNIFIED_WIDTHS = (128, 64)
 TOL = 1e-5
 # the AttFlat glimpse biases (and VGD's proj_scores bias), whose true
 # gradient is 0: Adam turns rounding noise into moves of up to lr either
@@ -233,7 +244,14 @@ def specs(tmp, arch):
                            EVAL_EVERY_EPOCH=True, CKPT_FILE_PATH=str(tmp / "search_epoch0.pkl"),
                            CKPT_ROOT=str(tmp / "port" / "search"),
                            ARCH_ROOT=str(tmp / "port" / "search" / "arch"),
-                           LOG_ROOT=str(tmp / "port" / "search" / "log"))}
+                           LOG_ROOT=str(tmp / "port" / "search" / "log")),
+            "unified": [unified_spec(tmp, h, "port") for h in UNIFIED_WIDTHS]}
+
+
+def unified_spec(tmp, hsize, root):
+    return dict(UNIFIED, HSIZE=hsize, VERSION=f"tp-unified{hsize}",
+                CKPT_ROOT=str(tmp / root / "unified"), ARCH_ROOT=str(tmp / root / "unified"),
+                LOG_ROOT=str(tmp / root / "unified" / "log"))
 
 
 def jax_cfg(cls, kw, tmp, name, **extra):
@@ -291,18 +309,24 @@ def runs(tmp_path_factory):
     with open(tmp / "spec.pkl", "wb") as f:
         pickle.dump(spec, f)
     t0 = time.time()
-    with open(tmp / "worker.log", "w") as log:
-        worker = subprocess.Popen([sys.executable, str(WORKER), str(tmp / "spec.pkl")],
-                                  cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT,
-                                  env=one_thread_env(), start_new_session=True)
-        try:         # this process's runs while the workers run theirs
-            jax = jax_runs(tmp, spec)
-            worker.wait(timeout=WORKER_TIMEOUT_S - (time.time() - t0))
-        finally:     # the spawned ranks too, should the worker be left running
+    workers = {}
+    try:             # this process's runs while the workers run theirs
+        for name, extra in (("worker", []), ("unified", ["unified"])):
+            with open(tmp / f"{name}.log", "w") as log:
+                workers[name] = subprocess.Popen(
+                    [sys.executable, str(WORKER), str(tmp / "spec.pkl")] + extra, cwd=str(ROOT),
+                    stdout=log, stderr=subprocess.STDOUT, env=one_thread_env(),
+                    start_new_session=True)
+        jax = jax_runs(tmp, spec)
+        for worker in workers.values():
+            worker.wait(timeout=max(1.0, WORKER_TIMEOUT_S - (time.time() - t0)))
+    finally:         # the spawned ranks too, should a worker be left running
+        for worker in workers.values():
             if worker.poll() is None:
                 os.killpg(worker.pid, signal.SIGKILL)
                 worker.wait()
-    assert worker.returncode == 0, (tmp / "worker.log").read_text()[-3000:]
+    for name, worker in workers.items():
+        assert worker.returncode == 0, (tmp / f"{name}.log").read_text()[-3000:]
     ranks = [load_pickle(tmp / f"rank{r}.pkl") for r in range(WORLD)]
     # the JAX search replays the paths rank 0 sampled
     cfg = jax_cfg(SearchCfg, spec["search"], tmp, "search",
@@ -316,7 +340,8 @@ def runs(tmp_path_factory):
                                           CKPT_FILE_PATH=str(tmp / "port" / "vqa" /
                                                              "tp_epoch2.pkl")))
     one = port_resumed_at_model_axis_1(tmp, spec)
-    return {"tmp": tmp, "ranks": ranks, "jax": jax, "one": one}
+    unified = [load_pickle(tmp / f"unified_rank{r}.pkl") for r in range(MODEL_AXIS)]
+    return {"tmp": tmp, "ranks": ranks, "jax": jax, "one": one, "unified": unified}
 
 
 def assert_trees_agree(got, want, invariant_tol):
@@ -414,3 +439,24 @@ def test_ranks_sit_on_the_jax_grid_hold_half_of_each_split_leaf_and_load_no_jax(
     assert shapes["dec.0.3.0.core.mlp.linear.weight"] == (128, 128)
     assert shapes["dec.0.3.0.core.fc.weight"] == (256, 128)      # feed_forward_deep's first fc
     assert shapes["enc.0.1.0.core.fc.weight"] == (512, 128)      # feed_forward: whole
+
+
+@pytest.mark.parametrize("run", range(len(UNIFIED_WIDTHS)),
+                         ids=[f"hsize{h}" for h in UNIFIED_WIDTHS])
+def test_unified_weight_steps_at_data_1_model_2_match_one_process(runs, run):
+    tmp, ranks = runs["tmp"], runs["unified"]
+    hsize = UNIFIED_WIDTHS[run]
+    one = SearchExecution(PortSearchCfg(**unified_spec(tmp, hsize, "one")),
+                          torch.device("cpu")).run()
+    assert [r["grid"] for r in ranks] == [(0, m, 1, MODEL_AXIS) for m in range(MODEL_AXIS)]
+    assert [kind for kind, _, _ in one.paths] == ["weight"] * 2
+    for r in ranks:
+        assert pickle.dumps(r["runs"][run]["paths"]) == pickle.dumps(one.paths)
+        assert r["runs"][run]["step_losses"] == pytest.approx(one.step_losses, rel=TOL)
+    name = f"tp-unified{hsize}_epoch1.pkl"
+    got = load_pickle(tmp / "port" / "unified" / name)
+    want = load_pickle(tmp / "one" / "unified" / name)
+    lr = PortSearchCfg(**UNIFIED).NET_LR_BASE
+    assert_trees_agree(got, want, 2 * 2 * lr / 4)
+    for c in want["alpha"]:
+        np.testing.assert_array_equal(got["alpha"][c], want["alpha"][c])
