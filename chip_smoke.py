@@ -92,6 +92,34 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    leaf's gradient; the RSA chain's leaves against the sampled step that
    computes the chain alike; every step's distance from the sampled step in
    fp64 reported beside);
+8c. drives --REMAT (`remat_path`): the bf16 BS 256 KPATH 8 leg's 'full'
+   arch step and the fp32 BS 128 KPATH 1 --DENSE_WEIGHT weight step, each
+   without and with REMAT on one seeded init, batch, alpha and path at
+   DROPOUT_R 0.1, HSIZE 256: the loss and every gradient within REMAT_TOL
+   (bit for bit reported), the dropout generator's state after the step
+   equal, exact launches (REMAT's recompute launches the dropout forward of
+   each attention op the backward reaches again, on its first key), peak
+   device memory and step ms both ways;
+8d. drives --SCAN_STEPS (`scan_steps_path`): the fp32 VQA --UNIFIED_WEIGHT
+   leg with SCAN_STEPS 5 and with SCAN_STEPS 10 under --REMAT (one chunk),
+   the bf16 VGD and ITM --UNIFIED_WEIGHT legs with SCAN_STEPS 5 (each
+   replayed from the CUDA graphs of its weight and arch step) and the fp32
+   sampled leg with SCAN_STEPS 5 (the 'eager' dispatch: the per-step loop,
+   its launches the per-step leg's), each against its
+   per-step leg of 8 / 8b: the paths' digest, the params, both optimizers'
+   moments and step counts and alpha within tests/test_scan_steps.py's
+   tolerance (bit for bit reported), the losses; the graphs' launches at
+   capture (warm-up and capture each the program's count), 10 weight and 2
+   arch replays, no attention launch in the chunks besides, the card's
+   launches captured x replays; two replays of the weight step at one seed
+   the same loss and at the next another (its masks follow the step's
+   seed); capture ms, the replayed steps' ms and the chunk's wall ms a step,
+   the device-busy share, beside the per-step leg's eager step; then the
+   dropout forward with its key drawn on the card and read by pointer
+   (`key_cases`, B 128 H 4 at the search's and the unified node's shapes,
+   fp32 and bf16): its mask `keep_mask_reference`'s at the key read back, a
+   Python int key the same mask, output and backward against the plain
+   version;
 9. holds the forward, dropout-forward and backward kernels against their
    plain versions at the VGD net's shapes (B 64, 8 heads of 64: SA 15x15 and
    GA 100x15 with the pad mask, the query being MAX_TOKEN + 1 = 15 tokens)
@@ -196,14 +224,23 @@ From the root of a checkout, on a machine with a CUDA GPU and nvcc. It
    train step's ms with and without the model group's collectives;
 19. prints one JSON line with every kernel's numbers (with x_library and
    x_bound, its time over the library call's and over its bound; `launches`
-   from the weight programs' three VQA legs, this slice's main path, each
-   path's own counts beside them) and, last, the device line `{"ok": true,
+   from this slice's main path, REMAT's four steps and the SCAN_STEPS legs
+   (a graph's: captured x replays + warm-up), each path's own counts beside
+   them) and, last, the device line `{"ok": true,
    "device": {...}}`. A device time the profiler did not record in full
    (5 tries) is taken from CUDA events around replays of a CUDA graph of the
    calls, and named so: every device reading `<key>` has `<key>_by`,
    "profiler" or "cuda graph".
 Any failed check raises, so the script exits non-zero and prints no result
 line. It exits 2 when no CUDA device is present.
+
+Two options run the kernels' build and one part alone, to compare two trees
+on one card (copy this file into the root of the other checkout and run it
+there: it imports the package beside it):
+
+    python3 chip_smoke.py --step-times   # the VQA search's fp32 steps in
+                                         # each weight program (step_times_path)
+    python3 chip_smoke.py --parallel     # 17 and 18, with their checks
 """
 
 from __future__ import annotations
@@ -1543,7 +1580,7 @@ def itm_sweep_launches(cfg, n_caps, enc_att, dec_att, kind):
     return chunks * enc_att + tiles * dec_att
 
 
-def search_path(FA, dev, card, task, legs, flag=None):
+def search_path(FA, dev, card, task, legs, flag=None, states=None):
     """The task's search legs (dtype, batch, KPATH) through
     SearchExecution.run(), each with its checks (exact launches from the
     sampled paths and the argmax-path eval, finite losses, alpha moved, the
@@ -1551,7 +1588,9 @@ def search_path(FA, dev, card, task, legs, flag=None):
     times and device split. With `flag` (one of WEIGHT_FLAGS) the weight
     steps run that program. Without, VQA's fp32 leg also resumes from its
     checkpoint and hands its genotype to a fixed net, and its bf16 leg is
-    held to fp32. Each leg records its paths' digest (`paths_sha1`)."""
+    held to fp32. Each leg records its paths' digest (`paths_sha1`). With
+    `states` (a dict) each leg's key maps there to (the leg, `search_state`
+    of its run), for scan_steps_path."""
     from mmnas_tpu_torch.engine.search import weight_mode
     from mmnas_tpu_torch.models.convert import from_jax_params
     from mmnas_tpu_torch.models.supernet import SPACES, NetSearch
@@ -1574,6 +1613,7 @@ def search_path(FA, dev, card, task, legs, flag=None):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(FA.LAUNCHES)
+        run_state = search_state(result) if states is not None else None
         split = int(cfg.SYNTH_SIZE * cfg.SPLIT_PORTION)
         alpha_host = result.alpha_host
         chosen = NetSearch.chosen_indices(alpha_host)
@@ -1639,7 +1679,9 @@ def search_path(FA, dev, card, task, legs, flag=None):
         if flag is None or (task, flag) == ("vqa", "UNIFIED_WEIGHT"):
             leg.update(search_step_times(cfg, result, dev, card, engine, time_arch=flag is None))
         out[f"{dtype}_bs{batch}_k{kpath}" + (f"_{flag.lower()}" if flag else "")] = leg
-        del result, state, own, ckpt
+        if states is not None:
+            states[state_key(task, dtype, batch, kpath, flag)] = (leg, run_state)
+        del result, state, own, ckpt, run_state
         torch.cuda.empty_cache()
     return out
 
@@ -1744,7 +1786,7 @@ def program_first_steps(dev, idxs):
     return dict(out, vs_fp64=vs_fp64)
 
 
-def weight_programs_path(FA, dev, card, sampled):
+def weight_programs_path(FA, dev, card, sampled, states=None):
     """This slice's main path: the weight step's programs through
     SearchExecution.run(): the VQA search leg of search_path (fp32, BS 128,
     KPATH 1: 10 weight and 2 arch steps, DROPOUT_R 0.1) once with each of
@@ -1763,14 +1805,15 @@ def weight_programs_path(FA, dev, card, sampled):
     legs, main = {}, Counter()
     base = sampled["{}_bs{}_k{}".format(*SEARCH_LEGS[0])]
     for flag in WEIGHT_FLAGS:
-        leg = search_path(FA, dev, card, "vqa", SEARCH_LEGS[:1], flag)
+        leg = search_path(FA, dev, card, "vqa", SEARCH_LEGS[:1], flag, states)
         (key, leg), = leg.items()
         if leg["paths_sha1"] != base["paths_sha1"]:
             raise AssertionError(f"--{flag}: the paths differ from the sampled leg's")
         main.update(leg["launches"])
         legs[f"vqa_{key}"] = leg
     for task, dtype, flag in PROGRAM_LEGS:
-        (key, leg), = search_path(FA, dev, card, task, ((dtype, SEARCH_B, 1),), flag).items()
+        (key, leg), = search_path(FA, dev, card, task, ((dtype, SEARCH_B, 1),), flag,
+                                  states).items()
         legs[f"{task}_{key}"] = leg
     if not all(main[k] for k in FA.LAUNCHES):
         raise AssertionError(f"weight programs: a kernel of the path never ran: {dict(main)}")
@@ -1778,6 +1821,365 @@ def weight_programs_path(FA, dev, card, sampled):
                                       for idx in base["first_path"]])
     return {"legs": legs, "main_path_launches": dict(main), "first_steps": first,
             "kernels_fwd": fwd, "kernels_train": train}
+
+
+# ---------------------------------------------------------------------------
+# --REMAT and --SCAN_STEPS: rematerialized candidate ops, the search's step
+# chunks as CUDA-graph replays
+# ---------------------------------------------------------------------------
+
+# (dtype, batch, KPATH, step): the K 8 leg's arch step, the K 1 leg's
+# --DENSE_WEIGHT weight step (REMAT reaches the 'full' program alone)
+REMAT_STEPS = (("bfloat16", 2 * SEARCH_B, 8, "arch"), ("float32", SEARCH_B, 1, "weight"))
+REMAT_TOL = 1e-6      # of the largest entry, where REMAT's step is not the plain one's bits
+# (task, dtype, --flag, SCAN_STEPS, extra): each held to the per-step leg of
+# its program that search_path ran (`states`); the last runs the sampled
+# program, whose dispatch is 'eager' (the per-step loop)
+SCAN_LEGS = (("vqa", "float32", "UNIFIED_WEIGHT", 5, {}),
+             ("vqa", "float32", "UNIFIED_WEIGHT", 10, {"REMAT": True}),
+             ("vgd", "bfloat16", "UNIFIED_WEIGHT", 5, {}),
+             ("itm", "bfloat16", "UNIFIED_WEIGHT", 5, {}),
+             ("vqa", "float32", None, 5, {}))
+SCAN_RTOL, SCAN_ATOL = 2e-4, 2e-5     # tests/test_scan_steps.py's, the JAX chunk's
+
+
+def state_key(task, dtype, batch, kpath, flag):
+    return f"{task}_{dtype}_bs{batch}_k{kpath}" + (f"_{flag.lower()}" if flag else "")
+
+
+def search_state(result):
+    """Every number of a search run's checkpoint, on the host: the fp32
+    masters, both optimizers' moments and step counts, alpha."""
+    out = {f"param.{n}": p.detach().cpu() for n, p in result.net.named_parameters()}
+    for key in ("m", "v"):
+        out.update({f"net_optim.{key}.{n}": t.cpu() for n, t in result.opt_state[key].items()})
+        out.update({f"alpha_optim.{key}.{c}": t.cpu() for c, t in result.alpha_state[key].items()})
+    out.update({f"alpha.{c}": a.detach().cpu() for c, a in result.alpha.items()})
+    out["counts"] = (dict(result.opt_state["t"]), result.opt_state["step"],
+                     dict(result.alpha_state["t"]), result.alpha_state["step"])
+    out["losses"] = list(result.step_losses)
+    return out
+
+
+def state_errors(got, want):
+    """(bit for bit, the largest |got - want| - SCAN_ATOL - SCAN_RTOL |want|
+    over the leaves: <= 0 where every leaf is within the tolerance, its
+    leaf, the step counts equal)."""
+    bits, worst, leaf = True, -math.inf, None
+    for n, w in want.items():
+        if n in ("counts", "losses"):
+            continue
+        g = got[n]
+        bits &= torch.equal(g, w)
+        over = float((g.double() - w.double()).abs().sub(SCAN_ATOL + SCAN_RTOL * w.double().abs())
+                     .max())
+        if over > worst:
+            worst, leaf = over, n
+    return bits, worst, leaf, got["counts"] == want["counts"]
+
+
+def remat_path(FA, dev, card):
+    """REMAT on the search's 'full' program: REMAT_STEPS, each once without
+    and once with --REMAT on one seeded init, batch, alpha and path, at
+    DROPOUT_R 0.1, HSIZE 256: the loss and every gradient to the bit (or
+    within REMAT_TOL of the largest entry), the generator's state after the
+    step equal; exact launches (REMAT's recompute runs the dropout forward
+    of each attention op the backward reaches a second time, on the same
+    key); peak device memory above the resident state and the step's ms
+    (CUDA events), both ways."""
+    from mmnas_tpu_torch.engine.search import SearchExecution
+    from mmnas_tpu_torch.engine.vqa import batch_to_device
+    from mmnas_tpu_torch.models.net import INPUT_KEYS, compute_params
+    from mmnas_tpu_torch.models.supernet import CELLS, SPACES
+
+    out = {}
+    for dtype, batch, kpath, kind in REMAT_STEPS:
+        flag = "DENSE_WEIGHT" if kind == "weight" else None
+        cfg = search_cfg(dtype, batch, kpath, flag=flag)
+        exe = SearchExecution(cfg, dev)
+        dataset = exe.build_dataset()
+        net = exe.build_net(dataset)
+        split = int(cfg.SYNTH_SIZE * cfg.SPLIT_PORTION)
+        rows = list(range(split, split + batch)) if kind == "arch" else list(range(batch))
+        b = batch_to_device(list(exe.make_loader(dataset, rows))[0], dev, INPUT_KEYS + ("ans",))
+        r = np.random.RandomState(3)
+        alpha = {c: (a + torch.from_numpy(r.randn(*a.shape).astype(np.float32))).to(dev)
+                 for c, a in net.init_alpha().items()}
+        idx = net.sample_indices({c: a.cpu().numpy() for c, a in alpha.items()},
+                                 torch.Generator().manual_seed(4))
+        gen = torch.Generator(dev)
+        masters = dict(net.named_parameters())
+
+        def step():
+            gen.manual_seed(77)
+            if kind == "arch":
+                loss, grads = exe.arch_grads(net, alpha, b, idx, gen)
+                return loss, dict(zip(CELLS, grads)), gen.get_state()
+            params = compute_params(net, cfg, None)
+            loss = exe.path_loss(net, params, b, [idx], gen,
+                                 {c: a.detach() for c, a in alpha.items()}, "full")
+            grads = torch.autograd.grad(loss, list(masters.values()), allow_unused=True)
+            return loss, {n: g for n, g in zip(masters, grads) if g is not None}, gen.get_state()
+
+        every = sum(net.n_nodes[c] * sum(op != "feed_forward" for op in SPACES[c]) for c in SPACES)
+        att, rel = attention_ops(idx)
+        again = arch_backwards(idx) if kind == "arch" else att   # ops the backward reaches
+        runs = {}
+        for remat in (False, True):
+            net.cfg = cfg.replace(REMAT=remat)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches(FA)
+            loss, grads, state = step()
+            torch.cuda.synchronize()
+            launches = dict(FA.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            want = {"fused_attention_fwd": 0,
+                    "fused_attention_fwd_dropout": every + (again if remat else 0),
+                    "fused_attention_bwd": again,
+                    "fused_attention_bwd_rel": rel if kind == "weight" else 0}
+            if launches != want:
+                raise AssertionError(f"remat {kind} step REMAT={remat}: launches {launches}, "
+                                     f"expected {want}")
+            del loss, grads
+            ms = cuda_time_ms(lambda: step()[0], iters=3, warmup=1)
+            runs[remat] = {"launches": launches, "peak_bytes": peak,
+                           "peak_above_resident_bytes": peak - resident, "step_ms": ms}
+        net.cfg = cfg.replace(REMAT=False)
+        plain = step()
+        net.cfg = cfg.replace(REMAT=True)
+        remat = step()
+        scale = max(float(g.abs().max()) for g in plain[1].values())
+        bits = torch.equal(plain[0], remat[0]) and all(
+            torch.equal(g, remat[1][n]) for n, g in plain[1].items())
+        err = max(float((g - remat[1][n]).abs().max()) for n, g in plain[1].items()) / scale
+        loss0, loss1 = float(plain[0].detach()), float(remat[0].detach())
+        loss_err = abs(loss0 - loss1) / abs(loss0)
+        same_state = torch.equal(plain[2], remat[2])
+        config = f"{dtype} BS {batch} KPATH {kpath}" + (f" --{flag}" if flag else "")
+        name = f"remat {kind} step {config}"
+        print(f"{name} on {card}: loss and gradients bit for bit {bits} (largest gradient error "
+              f"{err:.3e} of {scale:.3e}, loss {loss_err:.3e}), generator state equal "
+              f"{same_state}; without REMAT {runs[False]}, with {runs[True]}", flush=True)
+        if (set(plain[1]) != set(remat[1]) or not same_state or err > REMAT_TOL
+                or loss_err > REMAT_TOL):
+            raise AssertionError(f"{name}: REMAT changes the step")
+        out[kind] = {"config": config,
+                     "bit_equal": bits, "grad_err": err, "loss_err": loss_err,
+                     "generator_state_equal": same_state, "without": runs[False],
+                     "with": runs[True]}
+        del net, exe, b, plain, remat, masters
+        torch.cuda.empty_cache()
+    return out
+
+
+def captured_launches(task, mode, kind, remat):
+    """The attention launches of one capture of a step program at the
+    VQA search spaces (12 encoder nodes of self_att_64 / feed_forward, 18
+    decoder nodes of self/rel/guided attention / feed_forward), each
+    forward `forwards` times (ITM's triplet: 3). The weight step 'unified':
+    an attention and its backward a node. The 'full' arch step, with the
+    path on the device: every attention op's dropout forward, and the
+    backward of every op whose inputs depend on alpha (the inactive ones on
+    `torch.where`'s zero gradient): all but the first encoder node's
+    self_att_64 and the first decoder node's self_att_64 and
+    rel_self_att_64; under REMAT those recompute their forward."""
+    forwards = 3 if task == "itm" else 1
+    if kind == "weight" and mode == "unified":
+        fwd, bwd = 30, 30
+    elif kind == "arch":
+        fwd, bwd = 66, 66 - 3
+        fwd += bwd if remat else 0
+    else:
+        raise ValueError(f"no capture count for {kind} {mode}")
+    return {"fused_attention_fwd": 0, "fused_attention_fwd_dropout": forwards * fwd,
+            "fused_attention_bwd": forwards * bwd, "fused_attention_bwd_rel": 0}
+
+
+def scan_steps_path(FA, dev, card, states):
+    """SCAN_STEPS: SCAN_LEGS through SearchExecution.run(), each against the
+    per-step leg of the same program and config (`states`, kept by
+    search_path): the paths' digest equal, the params, both optimizers'
+    moments and alpha within (SCAN_RTOL, SCAN_ATOL) (and whether to the
+    bit), the step counts and the losses. The 'graph' legs: each program's
+    warm-up and capture launch `captured_launches`, the weight graph replays
+    10 times and the arch graph 2, nothing else launches eagerly in the
+    chunks; the launches the card ran, captured x replays + warm-up + the
+    eval's. The first leg: two replays of the weight step on the same
+    inputs and state draw the same masks at one step's seed and others at
+    the next (the losses); capture ms, the replayed steps' ms (CUDA events
+    around replays) and the chunk's wall ms a step, the device-busy share
+    beside the per-step leg's eager steps."""
+    from mmnas_tpu_torch.engine.search import weight_mode
+
+    out, main = {}, Counter()
+    for task, dtype, flag, scan, extra in SCAN_LEGS:
+        _, engine, _, _ = engines(task)
+        ref_key = state_key(task, dtype, SEARCH_B, 1, flag)
+        ref, want = states[ref_key]
+        cfg = search_cfg(dtype, SEARCH_B, 1, task, flag, SCAN_STEPS=scan, **extra)
+        cfg = cfg.replace(VERSION=f"{cfg.VERSION}_scan{scan}" + ("_remat" if extra else ""))
+        name = f"{task} search {dtype} --SCAN_STEPS {scan}" + (f" --{flag}" if flag else "") + (
+            " --REMAT" if extra else "")
+        zero_launches(FA)
+        t0 = time.perf_counter()
+        exe = engine(cfg, dev)
+        result = exe.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, log = dict(FA.LAUNCHES), exe.chunk_log
+        got = search_state(result)
+        sha = hashlib.sha1(json.dumps(paths_json(result.paths)).encode()).hexdigest()
+        bits, worst, leaf, counts = state_errors(got, want)
+        loss_ok = np.allclose(got["losses"], want["losses"], rtol=SCAN_RTOL, atol=SCAN_ATOL)
+        leg = {"dispatch": log["dispatch"], "seconds": seconds, "paths_sha1": sha,
+               "bit_equal": bits, "worst_over_tol": worst, "worst_leaf": leaf,
+               "chunk_s": log.get("chunk_s"), "eager_launches": log.get("eager_launches"),
+               "counted_launches": launches}
+        dispatch = "graph" if flag else "eager"
+        if log["dispatch"] != dispatch or sha != ref["paths_sha1"] or not counts or worst > 0 \
+                or not loss_ok:
+            raise AssertionError(f"{name}: dispatch {log['dispatch']}, paths {sha} vs "
+                                 f"{ref['paths_sha1']}, counts equal {counts}, worst {worst} at "
+                                 f"{leaf}, losses {got['losses']} vs {want['losses']}")
+        eval_fwd = ref["expected"]["fused_attention_fwd"]
+        if dispatch == "eager":
+            effective = launches
+            if launches != ref["launches"]:
+                raise AssertionError(f"{name}: launches {launches}, the per-step leg's "
+                                     f"{ref['launches']}")
+        else:
+            mode = weight_mode(cfg)
+            effective = Counter({"fused_attention_fwd": eval_fwd})
+            counted = Counter({"fused_attention_fwd": eval_fwd})
+            for kind, replays in (("weight", SEARCH_STEPS), ("arch", SEARCH_STEPS // ALPHA_EVERY)):
+                plog, expect = log[kind], captured_launches(task, mode, kind, cfg.REMAT)
+                if plog["captured"] != expect or plog["warmup"] != expect \
+                        or plog["replays"] != replays:
+                    raise AssertionError(f"{name}: {kind} graph {plog}, expected {expect} "
+                                         f"captured and warmed up, {replays} replays")
+                for k, v in expect.items():
+                    effective[k] += v * (replays + 1)    # the replays and the warm-up
+                    counted[k] += 2 * v
+                leg[f"{kind}_capture_ms"] = plog["capture_s"] * 1e3
+                leg[f"{kind}_captured"] = plog["captured"]
+            if any(log["eager_launches"].values()) or launches != dict(counted):
+                raise AssertionError(f"{name}: launches {launches}, expected {dict(counted)}; "
+                                     f"eager in the chunks {log['eager_launches']}")
+        leg["launches"] = dict(effective)
+        main.update(effective)
+        print(f"{name}: {log['dispatch']} dispatch, paths as the per-step leg's, states bit for "
+              f"bit {bits} (worst {worst:.3e} over the tolerance at {leaf}); launches on the card "
+              f"{dict(effective)} (counted {launches}); chunks {log.get('chunk_s')} s; "
+              f"{seconds:.1f} s with the loader and the eval on {card}", flush=True)
+        if dispatch == "graph" and not out:
+            leg.update(replay_readings(exe, ref, card, name))
+        out[f"{task}_{dtype}_scan{scan}" + (f"_{flag.lower()}" if flag else "_sampled")
+            + ("_remat" if extra else "")] = leg
+        exe.programs.clear()      # the graphs and their memory pools, freed now
+        del exe, result, got
+        torch.cuda.empty_cache()
+    return {"legs": out, "main_path_launches": dict(main)}
+
+
+def replay_readings(exe, ref, card, name):
+    """The first 'graph' leg's programs after its run, each replay from the
+    state the run ended in, put back before it, with the programs' step
+    counts (`state[0]`) at 0: the run's bias-correction table ends at its
+    last step, and the counts move no loss. The weight step's masks follow
+    its seed (the loss at step 0's seed twice, at step 1's), the replays' device
+    ms (CUDA events around each replay alone), the chunk's wall ms a step
+    and the busy share, beside the per-step leg's eager step."""
+    progs = {k: exe.programs[k] for k in ("weight", "arch")}
+    saved = {k: [t.clone() for t in p.state] for k, p in progs.items()}
+    for k, p in progs.items():
+        if p.state[0] is not p.counts:
+            raise AssertionError(f"{name}: the {k} program's state does not start at its counts")
+        saved[k][0].zero_()
+
+    def replay(kind, seed, timed=False):
+        prog = progs[kind]
+        with torch.no_grad():
+            for t, v in zip(prog.state, saved[kind]):
+                t.copy_(v)
+        prog.generator.manual_seed(seed)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        prog.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) if timed else prog.outputs[0].clone()
+
+    from mmnas_tpu_torch.engine.vqa import step_seed
+
+    first, second = (step_seed(exe.cfg.SEED, step) for step in (0, 1))   # steps 0 and 1's
+    a, a2, b = replay("weight", first), replay("weight", first), replay("weight", second)
+    if not (torch.equal(a, a2) and not torch.equal(a, b)):
+        raise AssertionError(f"{name}: replays at step 0's seed give losses {a.item()}, "
+                             f"{a2.item()}, at step 1's {b.item()}: the masks do not follow "
+                             "the step's seed")
+    w_ms = sorted(replay("weight", 7 + i, True) for i in range(5))[2]      # the median
+    a_ms = sorted(replay("arch", 7 + i, True) for i in range(3))[1]
+    per_chunk = SEARCH_STEPS // len(exe.chunk_log["chunk_s"])
+    wall = exe.chunk_log["chunk_s"][-1] * 1e3     # a chunk of replays only (the first captures)
+    device = per_chunk * w_ms + per_chunk // ALPHA_EVERY * a_ms
+    out = {"mask_losses": [a.item(), a2.item(), b.item()], "weight_replay_ms": w_ms,
+           "arch_replay_ms": a_ms, "chunk_wall_ms_per_step": wall / per_chunk,
+           "busy_share": device / wall, "eager_weight_step_ms": ref.get("weight_step_ms"),
+           "eager_loop_ms_per_step": ref.get("loop_ms", 0) / SEARCH_STEPS,
+           "eager_device_split_weight": ref.get("device_split_weight")}
+    print(f"{name} on {card}: capture ms weight {exe.chunk_log['weight']['capture_s'] * 1e3:.1f}, "
+          f"arch {exe.chunk_log['arch']['capture_s'] * 1e3:.1f}; replayed weight step "
+          f"{w_ms:.2f} ms, arch step {a_ms:.2f} ms (device, CUDA events); a chunk of "
+          f"{per_chunk} steps {wall:.1f} ms wall, busy {device / wall:.1%}; the per-step leg's "
+          f"eager weight step {ref.get('weight_step_ms')} ms, its loop "
+          f"{out['eager_loop_ms_per_step']:.2f} ms a weight step, device split "
+          f"{ref.get('device_split_weight')}; masks: losses {out['mask_losses']}", flush=True)
+    return out
+
+
+def key_cases(FA, dev):
+    """The dropout forward with its key drawn on the card (`draw_key`) and
+    read by pointer, at the search's and the unified node's shapes (B 128,
+    4 heads), fp32 and bf16: its mask against `keep_mask_reference` at the
+    key read back, bit for bit (the first 8 batch rows), a Python int key
+    the same mask; its output and the backward on that mask against the
+    plain version (KERNEL_TOL, GRAD_TOL)."""
+    from mmnas_tpu_torch.ops.primitives import draw_key
+
+    g, rows = torch.Generator().manual_seed(9), []
+    gen = torch.Generator(dev).manual_seed(10)
+    for dt in DTYPES:
+        for Lq, Lk, kind in SEARCH_CASES + UNIFIED_CASES:
+            args, m, b_, r_ = to_dev(dev, dt, *make_case(g, Lq, Lk, kind, SEARCH_B, SEARCH_H, D))
+            key = draw_key(gen, dev)
+            out, keep, pre = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=key,
+                                              want_pre=r_ is not None)
+            value = FA.key_value(key)
+            _, keep_int, _ = FA.attention_fwd(*args, m, b_, r_, dropout_r=RATE, seed=value)
+            want_keep = FA.keep_mask_reference(value, 8, SEARCH_H, Lq, Lk, RATE)
+            name = f"key by pointer B{SEARCH_B} H{SEARCH_H} {dt} ({Lq},{Lk}) {kind}"
+            if not torch.equal(keep[:8].cpu().bool(), want_keep) or not torch.equal(keep, keep_int):
+                raise AssertionError(f"{name}: the mask is not the key's")
+            bias = f32(b_) if r_ is None else log_pre(pre)
+            leaves = [a.float().requires_grad_() for a in args]
+            ref = FA.fused_attention_reference(*leaves, m, bias, keep=keep, dropout_r=RATE)
+            do = torch.randn(ref.shape, generator=g).to(dev, dt)
+            grads = torch.autograd.grad(ref, leaves, do.float())
+            dq, dk, dv, _, _ = FA.attention_bwd(*args, m, b_, r_, keep, RATE, do, pre=pre)
+            fwd_err = (out.float() - ref).abs().max().item()
+            scale = max(float(t.abs().max()) for t in grads)
+            grad_err = max(float((a.float() - w).abs().max()) for a, w in zip((dq, dk, dv), grads))
+            grad_err /= scale
+            tol = (KERNEL_TOL[(dt, r_ is not None)], GRAD_TOL[(dt, r_ is not None)])
+            rows.append({"case": name, "key": value, "fwd_err": fwd_err, "grad_err": grad_err})
+            if fwd_err > tol[0] or grad_err > tol[1]:
+                raise AssertionError(f"{name}: forward {fwd_err}, gradient {grad_err} past {tol}")
+    print(f"dropout key by pointer: {len(rows)} cases, masks bit for bit, largest forward error "
+          f"{max(r['fwd_err'] for r in rows):.3e}, gradient {max(r['grad_err'] for r in rows):.3e}",
+          flush=True)
+    return rows
 
 
 def search_resume(cfg, dev, arch_json, engine):
@@ -1927,6 +2329,32 @@ def search_step_times(cfg, result, dev, card, engine, time_arch=True):
           flush=True)
     return {"weight_step_ms": weight_ms, "arch_step_ms": arch_ms, "loop_ms": loop_ms,
             "examples_per_s": ex_s, "device_split_weight": split_w, "device_split_arch": split_a}
+
+
+def step_times_path(dev, card):
+    """The VQA search's fp32 BS 128 KPATH 1 steps (DROPOUT_R 0.1, HSIZE 256)
+    in each weight program, sampled, --DENSE_WEIGHT, --UNIFIED_WEIGHT and
+    --HYBRID_WEIGHT, each from its seeded init and alpha:
+    `search_step_times` (the weight step's ms by CUDA events with the
+    host's sampling, the engine's loop, the device split; the arch step
+    with the sampled program's). `python3 chip_smoke.py --step-times` runs
+    the kernels' build and this alone; copied into the root of another
+    checkout, it times that checkout's package, so two trees compare on one
+    card."""
+    from mmnas_tpu_torch.engine.search import SearchExecution, SearchResult, host_copy
+
+    out = {}
+    for flag in (None,) + WEIGHT_FLAGS:
+        cfg = search_cfg("float32", SEARCH_B, 1, "vqa", flag)
+        exe = SearchExecution(cfg, dev)
+        net = exe.build_net(exe.build_dataset())
+        alpha = {c: a.to(dev) for c, a in net.init_alpha().items()}
+        result = SearchResult(net, alpha, {}, {}, alpha_host=host_copy(alpha))
+        out[flag or "sampled"] = search_step_times(cfg, result, dev, card, SearchExecution,
+                                                   time_arch=flag is None)
+        del exe, net, alpha, result
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3187,6 +3615,10 @@ TP_GRAD_NORM_TOL = 1e-3
 # steps' rates: Adam turns a gradient that differs in sign, at a kink or in
 # rounding noise, into moves of up to lr either way).
 TP_MOMENT_TOL = {"m": 1e-3, "v": 2e-3, "alpha_m": 1e-3}
+# alpha's entries whose difference is one flipped sign of a last gradient
+# within the noise of 0 (`tp_alpha_errs`), of the 96 entries (12 nodes x 2
+# ops, 18 x 4): at most this many
+TP_ALPHA_FLIPS = 2
 # ...but the moments of the RSA chain's weights (Wr, br, the stem's W1, b1)
 # are not held: their gradients run through dpre = ds / pre, which fp32
 # rounding of pre near the 1e-6 clamp moves by whole rows (PR 7,
@@ -3450,6 +3882,53 @@ def tp_tree_errs(got, want, lr_steps):
     return errs
 
 
+def tp_alpha_errs(got, want):
+    """Alpha of the search checkpoint `got` against `want`, entry by entry
+    to TP_TOL of alpha's largest entry, except where the difference is one
+    flipped gradient sign: alpha's Adam (betas (0, 0.999)) moves an entry by
+    about its rate whatever its gradient's size, so a last gradient that
+    lies within the noise of 0 in both runs (TP_MOMENT_TOL["alpha_m"] of
+    the largest entry of `want`'s moment m, which is that gradient at beta1
+    0) can take opposite signs in the two runs and move the entry either
+    way. Such an entry is excused when the two runs' moments m have
+    opposite signs, both lie within the noise, and the difference less the
+    two runs' own last Adam moves (each from its checkpoint's m, v and step
+    count) is within TP_TOL: the runs agreed before that step. At most
+    TP_ALPHA_FLIPS entries may be excused."""
+    cfg = search_cfg("float32", SEARCH_B, 1)
+    if cfg.ALPHA_OPT_BETAS[0] != 0.0 or cfg.ALPHA_WEIGHT_DECAY:
+        raise AssertionError("alpha's moment m is its last gradient only at beta1 0, no decay")
+    b2, lr = np.float32(cfg.ALPHA_OPT_BETAS[1]), np.float32(cfg.ALPHA_LR_BASE)
+    state = {k: {c: {key: np.asarray(ck["alpha_optim"][key][c], np.float32) for key in ("m", "v")}
+                 for c in ck["alpha"]} for k, ck in (("got", got), ("want", want))}
+    steps = {k: int(ck["alpha_optim"]["step"]) for k, ck in (("got", got), ("want", want))}
+    if steps["got"] != steps["want"]:
+        raise AssertionError(f"tensor parallel: alpha's step counts {steps}")
+    noise = TP_MOMENT_TOL["alpha_m"] * max(float(np.abs(s["m"]).max())
+                                           for s in state["want"].values())
+    scale = max(float(np.abs(a).max()) for a in want["alpha"].values())
+    bc2 = np.float32(1) - b2 ** np.float32(steps["want"])
+
+    def last_move(s):
+        """The last arch step's Adam move, in fp32 as WarmupAdam.step takes
+        it (bias correction of m 1 at beta1 0, eps 1e-8)."""
+        return (s["m"] / (np.sqrt(s["v"] / bc2) + np.float32(1e-8)) * -lr).astype(np.float64)
+
+    worst, flips = 0.0, []
+    for c, a in want["alpha"].items():
+        diff = np.asarray(got["alpha"][c], np.float64) - np.asarray(a, np.float64)
+        g, w = state["got"][c], state["want"][c]
+        residual = np.abs(diff - (last_move(g) - last_move(w)))
+        flipped = ((np.sign(g["m"]) * np.sign(w["m"]) < 0) & (np.abs(g["m"]) <= noise)
+                   & (np.abs(w["m"]) <= noise) & (residual <= TP_TOL * scale))
+        for i in zip(*np.nonzero(flipped)):
+            flips.append({"entry": f"{c}{list(map(int, i))}", "diff": float(diff[i]),
+                          "m_got": float(g["m"][i]), "m_want": float(w["m"][i]),
+                          "residual": float(residual[i])})
+        worst = max(worst, float(np.abs(diff)[~flipped].max(initial=0.0)) / scale)
+    return {"max": worst, "flips": flips, "gradient_noise": noise, "arch_steps": steps["want"]}
+
+
 def tensor_parallel_path(FA, devices, card, alone):
     """The kernels at a model rank's shapes (tp_kernel_cases), then
     data_parallel_path's work at model axis 2 (parallel/sharding.py), one
@@ -3458,7 +3937,9 @@ def tensor_parallel_path(FA, devices, card, alone):
     cards // 2 x model 2 over NCCL. At data 1 the losses, the gathered
     parameters and Adam moments (the epoch checkpoints) and alpha equal the
     single process's (`alone`, data_parallel_path's): the losses and alpha
-    to TP_TOL, the first gradient to TP_GRAD_NORM_TOL, the moments to
+    to TP_TOL (an alpha entry whose last gradient flipped its sign within
+    the noise of 0 excused, `tp_alpha_errs`), the first gradient to
+    TP_GRAD_NORM_TOL, the moments to
     TP_MOMENT_TOL, every parameter within the runs' Adam steps; at data 2
     or more the first all-reduced gradient is the mean of the data shards'
     (TP_GRAD_NORM_TOL). Always: every rank the single process's
@@ -3521,9 +4002,12 @@ def tensor_parallel_path(FA, devices, card, alone):
                                            load_checkpoint(alone["search_ckpt"]),
                                            DP_SEARCH_STEPS * search_lr)
         ckpts = (errs["train_ckpt"], errs["search_ckpt"])
+        errs["alpha"] = tp_alpha_errs(load_checkpoint(shard0[0]["search"]["ckpt"]),
+                                      load_checkpoint(alone["search_ckpt"]))
         checks["losses and alpha the single process's"] = (
             errs["train_losses"] <= TP_TOL and errs["search_losses"] <= TP_TOL
-            and errs["search_ckpt"]["alpha"]["max"] <= TP_TOL)
+            and errs["alpha"]["max"] <= TP_TOL
+            and len(errs["alpha"]["flips"]) <= TP_ALPHA_FLIPS)
         checks["moments the single process's"] = all(
             e[k]["norm"] <= tol for e in ckpts for k, tol in TP_MOMENT_TOL.items() if k in e)
         checks["parameters within the runs' Adam steps"] = all(
@@ -3554,6 +4038,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    mode = sys.argv[1] if len(sys.argv) > 1 else None
+    if mode not in (None, "--step-times", "--parallel") or len(sys.argv) > 2:
+        print("usage: chip_smoke.py [--step-times | --parallel]", file=sys.stderr)
+        return 2
     from mmnas_tpu_torch.csrc import build
     from mmnas_tpu_torch.ops import fused_attention as FA
     from mmnas_tpu_torch.tools import probes as PR
@@ -3573,6 +4061,16 @@ def main() -> int:
         built = list(pool.map(build.build, SOURCES))
     print(f"built {[os.path.relpath(lib, HERE) for lib, _ in built]} in "
           f"{time.perf_counter() - t0:.2f} s")
+    # the options' parts alone (their build may be cached: no ptxas report)
+    if mode == "--step-times":
+        print(json.dumps({"step_times": step_times_path(torch.device("cuda"), card)}))
+        return 0
+    if mode == "--parallel":
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        data_parallel, alone = data_parallel_path(FA, cards, card)
+        print(json.dumps({"data_parallel": data_parallel,
+                          "tensor_parallel": tensor_parallel_path(FA, cards, card, alone)}))
+        return 0
     sass = sass_report(built)
     for fn, r in sorted(sass.items()):
         print(f"  {fn}: {r['registers']} registers, {r['spill_bytes']} bytes spilled, "
@@ -3615,10 +4113,17 @@ def main() -> int:
     phase("export: the eval forward through torch.export, saved and reloaded")
     train = train_path(FA, dev, card, "vqa")
     phase("train")
-    search = search_path(FA, dev, card, "vqa", SEARCH_LEGS)
+    states = {}       # the per-step legs' final states, for scan_steps_path
+    search = search_path(FA, dev, card, "vqa", SEARCH_LEGS, states=states)
     phase("search")
-    programs = weight_programs_path(FA, dev, card, search)
+    programs = weight_programs_path(FA, dev, card, search, states)
     phase("weight programs: --DENSE_WEIGHT, --UNIFIED_WEIGHT, --HYBRID_WEIGHT")
+    remat = remat_path(FA, dev, card)
+    phase("REMAT: the 'full' arch and --DENSE_WEIGHT weight steps with and without")
+    scan = scan_steps_path(FA, dev, card, states)
+    del states
+    keys = key_cases(FA, dev)
+    phase("SCAN_STEPS: chunks replayed from CUDA graphs, and eager; the dropout key by pointer")
     vgd_fwd = kernel_cases(FA, dev, B, H, VGD_CASES)
     vgd_train_cases = train_kernel_cases(FA, dev, B, H, VGD_CASES)
     vgd_search_fwd = kernel_cases(FA, dev, SEARCH_B, SEARCH_H, VGD_CASES)
@@ -3739,14 +4244,24 @@ def main() -> int:
          "itm_shapes": at_shapes(itm_train_cases, rel_keys, rel=True),
          "new_shapes": at_shapes(new_train, rel_keys, rel=True)},
     ]
-    # the attention kernels' launches on this slice's main path, the weight
-    # programs (the VQA fp32 search leg under each of the three flags); each
-    # path's own counts beside them
-    main_path = programs["main_path_launches"]
+    # the attention kernels' launches on this slice's main path, REMAT's
+    # steps (both ways) and the SCAN_STEPS legs (a graph's launches:
+    # captured x replays + warm-up); each path's own counts beside them
+    main_path = Counter(scan["main_path_launches"])
+    for step in remat.values():
+        for way in ("without", "with"):
+            main_path.update(step[way]["launches"])
+    if not all(main_path[k] for k in FA.LAUNCHES):
+        raise AssertionError(f"REMAT and SCAN_STEPS: a kernel of the path never ran: "
+                             f"{dict(main_path)}")
     for row in rows:
         fwd_only = row["name"] == "fused_attention_fwd"
         row["launches"] = main_path[row["name"]]
         row["launches_by_path"] = {
+            **{f"remat_{kind}_{way}": step[way]["launches"][row["name"]]
+               for kind, step in remat.items() for way in ("without", "with")},
+            **{f"scan_steps_{k}": leg["launches"][row["name"]]
+               for k, leg in scan["legs"].items()},
             **{f"weight_programs_{k}": leg["launches"][row["name"]]
                for k, leg in programs["legs"].items()},
             "all_ops_fp32": all_ops["main_path_launches"][row["name"]],
@@ -3787,12 +4302,16 @@ def main() -> int:
                    "vgd_search_fwd": vgd_search_fwd, "vgd_search_train": vgd_search_train,
                    "itm_fwd": itm_fwd, "itm_train": itm_train_cases, "new_fwd": new_fwd,
                    "new_train": new_train, "unified_fwd": programs["kernels_fwd"],
-                   "unified_train": programs["kernels_train"]}, f)
+                   "unified_train": programs["kernels_train"], "key_by_pointer": keys}, f)
     print(f"kernel cases: {os.path.relpath(details, HERE)}")
     print(json.dumps({"kernels": rows, "probes": {k: v for k, v in probes.items() if k != "rows"},
                       "eval": evals, "export": export, "train": train, "search": search,
                       "weight_programs": {k: v for k, v in programs.items()
                                           if not k.startswith("kernels_")},
+                      "remat": remat, "scan_steps": scan,
+                      "key_by_pointer": {"cases": len(keys),
+                                         "fwd_err": max(r["fwd_err"] for r in keys),
+                                         "grad_err": max(r["grad_err"] for r in keys)},
                       "vgd": vgd, "itm": itm,
                       "all_ops": all_ops, "device_rel": device_rel, "rehearsal": rehearsal,
                       "data_parallel": data_parallel, "tensor_parallel": tensor_parallel,

@@ -52,6 +52,9 @@
 //   kept when below keep_thr, as at pallas_attention.py:205-207. The two
 //   threads that hold a row pair's keys j..j+3 each draw one row's call and
 //   swap the halves by a shuffle. The mask is written as a uint8 residual.
+//   The key is read from device memory (`seed` points at it), once per row
+//   tile, so the caller draws it on the card from its generator and a CUDA
+//   graph that captured the launch draws a new mask in each replay.
 //
 // What bounds it on this card. Per (b, h) it reads q, k, v once and writes
 // o once; at (100, 100), B 64, H 8 that is 7.8 us of bytes in bf16 and the
@@ -107,7 +110,7 @@ struct Args {
   int head0, heads_total;     // dropout: these H heads are [head0, head0 + H) of heads_total
   int tiles;                  // with the chain: 16-row tiles per block
   float scale;
-  unsigned long long seed;    // dropout: Philox key
+  const unsigned long long* seed;  // dropout: the Philox key, in device memory
   unsigned int keep_thr;      // dropout: keep when bits < keep_thr
   float keep_p;               // dropout: 1 - r
 };
@@ -145,11 +148,12 @@ __device__ __forceinline__ void tile_dropout(float (&p)[2 * KTM][4], const Args<
   // of heads_total
   const unsigned int ctr =
       static_cast<unsigned int>((bh / a.H) * a.heads_total + a.head0 + bh % a.H);
+  const unsigned long long key = __ldg(a.seed);
 #pragma unroll
   for (int n = 0; n < 2 * KTM; ++n)
     if (n < 2 * KT) {
       // keys 8n + 4 (t / 2) .. + 3 share one call; lane t & 1 draws row g + 8 (t & 1)
-      const uint4 w = philox(a.seed, static_cast<unsigned int>(2 * n + t / 2), mine, ctr);
+      const uint4 w = philox(key, static_cast<unsigned int>(2 * n + t / 2), mine, ctr);
       const unsigned int give0 = (t & 1) ? w.x : w.z, give1 = (t & 1) ? w.y : w.w;
       const unsigned int got0 = __shfl_xor_sync(0xffffffffu, give0, 1);
       const unsigned int got1 = __shfl_xor_sync(0xffffffffu, give1, 1);
@@ -416,14 +420,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
                    const void* mask, const void* raw, const void* w1, const void* b1,
                    const void* wr, const void* br, void* out, void* keep, void* pre, int B,
                    int H, int Lq, int Lk, int D, int Rr, int R, int head0, int heads_total,
-                   float scale, unsigned long long seed, unsigned int keep_thr, float keep_p,
+                   float scale, const void* seed, unsigned int keep_thr, float keep_p,
                    cudaStream_t stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 16 || D > kMaxD || D % 16 != 0)
     return cudaErrorInvalidValue;
   if (raw != nullptr && (Rr < 1 || Rr > kMaxRr || R < 1 || H > kMaxHeads))
     return cudaErrorInvalidValue;
   if (raw == nullptr && pre != nullptr) return cudaErrorInvalidValue;
-  if (keep != nullptr && !(keep_p > 0.f && keep_p <= 1.f)) return cudaErrorInvalidValue;
+  if (keep != nullptr && (seed == nullptr || !(keep_p > 0.f && keep_p <= 1.f)))
+    return cudaErrorInvalidValue;
   if (head0 < 0 || heads_total < head0 + H) return cudaErrorInvalidValue;
   const Args<T> a{static_cast<const T*>(q),  static_cast<const T*>(k),
                   static_cast<const T*>(v),  static_cast<const T*>(bias),
@@ -432,7 +437,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
                   static_cast<const T*>(b1), static_cast<const T*>(wr),
                   static_cast<const T*>(br), static_cast<T*>(out),
                   static_cast<unsigned char*>(keep), static_cast<float*>(pre),
-                  H, Lq, Lk, D, Rr, R, head0, heads_total, 1, scale, seed, keep_thr, keep_p};
+                  H, Lq, Lk, D, Rr, R, head0, heads_total, 1, scale,
+                  static_cast<const unsigned long long*>(seed), keep_thr, keep_p};
   if (D > 128) return launch_wide<T>(a, B, stream);
   return D <= 64 ? launch_d<T, 64>(a, B, stream) : launch_d<T, 128>(a, B, stream);
 }
@@ -442,11 +448,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 // dtype: 0 = float32, 1 = bfloat16. Pointers may be null for absent operands
 // (bias, mask, raw together with w1/b1/wr/br, keep: no dropout, pre: no
 // relation chain written out). With keep, the kernel draws the mask for
-// `seed`, keeps an element when its bits are below keep_thr, scales kept
-// probabilities by 1 / keep_p and writes the mask to keep; the mask of head h
-// is the one of head head0 + h in a call of heads_total heads (0 and H: this
-// call's own). With raw and pre
-// it also writes the relation chain pre [B, H, Lq, Lk] fp32 for the
+// the 64-bit key at `seed` (device memory, not null), keeps an element when
+// its bits are below keep_thr, scales kept probabilities by 1 / keep_p and
+// writes the mask to keep; the mask of head h is the one of head head0 + h
+// in a call of heads_total heads (0 and H: this call's own). With raw and
+// pre it also writes the relation chain pre [B, H, Lq, Lk] fp32 for the
 // backward. Returns the CUDA error code of the launch (0 = launched;
 // cudaErrorInvalidValue for a shape outside the limits above); the kernel
 // runs on `stream`.
@@ -457,7 +463,7 @@ extern "C" int mmnas_fused_attention_fwd(int dtype, const void* q, const void* k
                                          const void* br, void* out, void* keep, void* pre,
                                          int B, int H, int Lq, int Lk, int D, int Rr, int R,
                                          int head0, int heads_total, float scale,
-                                         unsigned long long seed,
+                                         const void* seed,
                                          unsigned int keep_thr, float keep_p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -67,11 +67,44 @@ they compute with every parameter's cast, as the JAX package casts every
 leaf. They take KPATH 1 only. The arch steps, the eval and ITM's mining
 keep their modes.
 
-Not ported: SCAN_STEPS (ROADMAP.md).
+SCAN_STEPS N (mmnas_tpu/engine/search.py:226-295, :399-431): an epoch's
+weight steps run in chunks of N, the arch steps at the same positions
+((i+1) % ALPHA_EVERY == 0, N a multiple of ALPHA_EVERY) on the same
+arch-loader batches in the same order, and the sub-chunk tail on the
+per-step path above; a run gives the per-step loop's paths and states. The
+run takes one of two dispatches, printed once a run:
+
+- 'graph': the weight step and the arch step each as one CUDA graph,
+  captured at their first use and replayed once a step, where the path
+  decides nothing on the host: --UNIFIED_WEIGHT or --DENSE_WEIGHT with
+  'full' arch steps, in one process. A chunk ships its N weight batches,
+  its arch batches and every uniform its paths need (drawn ahead on the
+  host from the same per-step generators: they do not depend on alpha) to
+  the device in one copy (`ship`), and samples each path there against the
+  device alpha (NetSearch.indices_from_uniforms), to the host loop's
+  indices. Inside the graphs the path, the optimizer's mask, its step
+  counts, bias corrections and lr are device tensors (optimizer.py
+  `step_device`); before each replay the step's inputs are copied into the
+  graph's buffers and the dropout generator is reseeded with the step's
+  seed, as the per-step loop reseeds it, so each replay draws that step's
+  masks. Nothing is read back between replays: the paths, the losses, the
+  step counts and alpha's host copy are read once a chunk. `chunk_log`
+  keeps, for each graph, the attention kernels' launches of its warm-up
+  and of its capture (a replay launches the captured ones again: no Python
+  wrapper runs) and its replays; for the run, each chunk's wall time and
+  the launches made eagerly in the chunks besides the warm-ups and
+  captures (none). On the CPU (no CUDA graphs) the same step programs run
+  eagerly. A capture that fails raises.
+- 'eager': the sampled program, KPATH > 1, --HYBRID_WEIGHT's decoder,
+  'two' arch steps and a data-parallel group choose their ops (or
+  collectives) on the host, and NET_OPTIM 'sgd' has no device step: the
+  epoch runs on the per-step loop, which is what a chunk of those steps
+  would run.
 """
 
 from __future__ import annotations
 
+import gc
 import os
 import time
 from dataclasses import dataclass, field
@@ -92,6 +125,7 @@ from mmnas_tpu_torch.models.convert import (
 )
 from mmnas_tpu_torch.models.net import INPUT_KEYS, compute_call, compute_params
 from mmnas_tpu_torch.models.supernet import CELLS, NetSearch
+from mmnas_tpu_torch.ops import fused_attention as FA
 from mmnas_tpu_torch.parallel import mesh as pmesh
 from mmnas_tpu_torch.parallel.sharding import shard_module, split_flags
 from mmnas_tpu_torch.train.checkpoint import (
@@ -128,6 +162,104 @@ def host_copy(alpha: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {c: a.detach().to("cpu", copy=True).numpy() for c, a in alpha.items()}
 
 
+def ship(arrays: Mapping[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """The host arrays as tensors on `device` by one host-to-device copy:
+    packed into one byte buffer, each at a 256-byte boundary, copied, and
+    viewed back in their dtypes and shapes."""
+    at, total = {}, 0
+    for k, a in arrays.items():
+        a = np.ascontiguousarray(a)
+        at[k] = (total, a)
+        total += -(-a.nbytes // 256) * 256
+    buf = np.empty(total, np.uint8)
+    for off, a in at.values():
+        buf[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    flat = torch.from_numpy(buf).to(device)
+    return {k: flat[off:off + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
+            for k, (off, a) in at.items()}
+
+
+def read_paths(idxs: Sequence[Mapping[str, torch.Tensor]]) -> List[Dict[str, np.ndarray]]:
+    """Device paths (one dict of index tensors a path) on the host, by one
+    device-to-host read."""
+    flat = torch.cat([idx[c].reshape(-1) for idx in idxs for c in CELLS]).cpu().numpy()
+    out, at = [], 0
+    for idx in idxs:
+        host = {}
+        for c in CELLS:
+            n = idx[c].numel()
+            host[c] = flat[at:at + n].reshape(tuple(idx[c].shape))
+            at += n
+        out.append(host)
+    return out
+
+
+class StepProgram:
+    """One search step (`fn`, reading the tensors of `inputs`, updating those
+    of `state` in place, drawing dropout from `generator`) as a CUDA graph:
+    captured at the first `run` on a CUDA device, then replayed. On the CPU
+    `fn` runs eagerly at each `run`. `log` holds the attention kernels'
+    launches of the warm-up (eager, before the capture) and of the capture,
+    the replays and the capture's wall time."""
+
+    def __init__(self, fn: Callable, inputs: Dict[str, torch.Tensor],
+                 state: Sequence[torch.Tensor], generator: torch.Generator):
+        self.fn, self.inputs, self.state, self.generator = fn, inputs, list(state), generator
+        self.device = next(iter(inputs.values())).device
+        self.graph, self.outputs = None, None
+        self.log = {"warmup": {}, "captured": {}, "replays": 0, "capture_s": 0.0}
+
+    def capture(self) -> None:
+        """Warm up on a side stream (the first calls' lazy set-up stays out of
+        the graph), put `state` back, then capture `fn` with the generator's
+        draws registered to the graph."""
+        saved = [t.clone() for t in self.state]
+        launches = dict(FA.LAUNCHES)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.fn()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.log["warmup"] = {k: FA.LAUNCHES[k] - launches[k] for k in launches}
+        with torch.no_grad():
+            for t, v in zip(self.state, saved):
+                t.copy_(v)
+        del saved
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(self.generator)
+        launches = dict(FA.LAUNCHES)
+        # no garbage collection inside the capture: freeing another graph (one
+        # of an engine that died in a reference cycle) there breaks it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.outputs = self.fn()
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.synchronize(self.device)
+        self.log["captured"] = {k: FA.LAUNCHES[k] - launches[k] for k in launches}
+        self.log["capture_s"] = time.perf_counter() - t0
+
+    def run(self, feed: Mapping[str, torch.Tensor], seed: int):
+        """One step on the inputs `feed`, the generator reseeded with `seed`;
+        returns `fn`'s outputs (a replay's are overwritten by the next)."""
+        with torch.no_grad():
+            for k, t in self.inputs.items():
+                t.copy_(feed[k])
+        if self.device.type != "cuda":
+            self.generator.manual_seed(seed)
+            return self.fn()
+        if self.graph is None:
+            self.capture()
+        self.generator.manual_seed(seed)
+        self.graph.replay()
+        self.log["replays"] += 1
+        return self.outputs
+
+
 @dataclass
 class SearchResult:
     net: NetSearch                       # the supernet, on the device
@@ -151,8 +283,6 @@ class SearchExecution:
         if cfg.KPATH > 1 and weight_mode(cfg) != "sampled":
             raise ValueError("KPATH > 1 requires the sampled weight step "
                              "(no DENSE/UNIFIED/HYBRID)")
-        if cfg.SCAN_STEPS != 1:
-            raise NotImplementedError("SCAN_STEPS is not ported (ROADMAP.md, 'Not ported')")
         if cfg.ALPHA_BINARY_MODE not in ("full", "two"):
             # 'full_v2' is asserted off in the reference too (mixed.py:71)
             raise ValueError(f"ALPHA_BINARY_MODE={cfg.ALPHA_BINARY_MODE!r} (use 'full' or 'two')")
@@ -204,6 +334,22 @@ class SearchExecution:
         hard-negative mining, mmnas_tpu/engine/search.py:80); none for VQA
         and VGD."""
 
+    def path_loss(self, net: NetSearch, params: Mapping[str, torch.Tensor],
+                  batch: Dict[str, torch.Tensor], idxs: Sequence[Mapping],
+                  generator: torch.Generator, gates, mode: str):
+        """The weight step's summed loss over the paths `idxs` (one per KPATH
+        slice, by stride) in the program `mode`."""
+        cfg, K = self.cfg, len(idxs)
+        loss = 0.0
+        for k, idx in enumerate(idxs):
+            # a stride slice is a view; the kernels take contiguous tensors
+            sl = batch if K == 1 else {key: v[k::K].contiguous() for key, v in batch.items()}
+            loss = loss + self.forward_loss(
+                lambda b, idx=idx: compute_call(
+                    net, cfg, (b, gates, idx),
+                    {"mode": mode, "train": True, "generator": generator}, params), sl)
+        return loss
+
     def weight_step(self, net: NetSearch, optim, opt_state: Dict,
                     masters: Mapping[str, torch.nn.Parameter], batch: Dict[str, torch.Tensor],
                     idxs: Sequence[Mapping[str, np.ndarray]], generator: torch.Generator,
@@ -211,7 +357,7 @@ class SearchExecution:
         """One weight step on the paths `idxs` (one per KPATH slice, by
         stride) in the program of `weight_mode` (mode 'full' builds its gates
         from `alpha`, detached): (summed loss on the device, lr)."""
-        cfg, K, mode = self.cfg, len(idxs), weight_mode(self.cfg)
+        cfg, mode = self.cfg, weight_mode(self.cfg)
         mask = net.update_mask(idxs[0])
         for idx in idxs[1:]:  # the union of the paths' masks
             other = net.update_mask(idx)
@@ -221,30 +367,34 @@ class SearchExecution:
         # others run ops off the path too, each in the compute dtype
         params = compute_params(net, cfg, names if mode == "sampled" else None)
         gates = {c: alpha[c].detach() for c in CELLS} if mode == "full" else None
-        loss = 0.0
-        for k, idx in enumerate(idxs):
-            # a stride slice is a view; the kernels take contiguous tensors
-            sl = batch if K == 1 else {key: v[k::K].contiguous() for key, v in batch.items()}
-            loss = loss + self.forward_loss(
-                lambda b, idx=idx: compute_call(
-                    net, cfg, (b, gates, idx),
-                    {"mode": mode, "train": True, "generator": generator}, params), sl)
+        loss = self.path_loss(net, params, batch, idxs, generator, gates, mode)
+        grads = self.net_grads(net, loss, masters, names)
+        lr = optim.step(opt_state, masters, dict(zip(names, grads)), mask)
+        return loss.detach(), lr
+
+    def net_grads(self, net: NetSearch, loss, masters: Mapping[str, torch.nn.Parameter],
+                  names: Sequence[str]) -> List[torch.Tensor]:
+        """The gradients of `names`, averaged over the data group and clipped
+        at NET_GRAD_CLIP over those (search_vqa.py:298). The clip's norm is
+        taken over every parameter's slot in `masters`' order, 0 where a
+        leaf is not in `names`: a step on the path's leaves rounds it as a
+        step program that takes every leaf's gradient (0 off the path,
+        `weight_program`) does."""
         grads = torch.autograd.grad(loss, [masters[n] for n in names], allow_unused=True)
         # a selected parameter the loss does not reach (the text-relation
         # stem) has a zero gradient, as in JAX: Adam still counts its step
         grads = [torch.zeros_like(masters[n]) if g is None else g for n, g in zip(names, grads)]
         pmesh.all_reduce_grads(grads)   # every rank ran the same paths: the same leaves
-        if cfg.NET_GRAD_CLIP > 0:  # net parameters only (search_vqa.py:298)
-            clip_by_global_norm(grads, cfg.NET_GRAD_CLIP, split_flags(net, names))
-        lr = optim.step(opt_state, masters, dict(zip(names, grads)), mask)
-        return loss.detach(), lr
+        if self.cfg.NET_GRAD_CLIP > 0:
+            at = {n: i for i, n in enumerate(masters)}
+            clip_by_global_norm(grads, self.cfg.NET_GRAD_CLIP, split_flags(net, names),
+                                slots=([at[n] for n in names], len(at)))
+        return grads
 
-    def arch_step(self, net: NetSearch, alpha_optim, alpha_state: Dict,
-                  alpha: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
-                  idx: Mapping[str, np.ndarray], generator: torch.Generator):
-        """One arch step on the path (or pairs, in 'two' mode) `idx`: the
-        gradient of alpha alone, an Adam step on alpha in place. Returns the
-        loss on the device."""
+    def arch_grads(self, net: NetSearch, alpha: Mapping[str, torch.Tensor],
+                   batch: Dict[str, torch.Tensor], idx: Mapping, generator: torch.Generator):
+        """The arch step's loss on the path (or pairs, in 'two' mode) `idx`
+        and the gradients of alpha alone, averaged over the data group."""
         mode = self.cfg.ALPHA_BINARY_MODE
         with torch.no_grad():
             params = {n: p.detach() for n, p in compute_params(net, self.cfg).items()}
@@ -255,6 +405,16 @@ class SearchExecution:
                                       tie_weights=False), batch)
         grads = list(torch.autograd.grad(loss, [leaves[c] for c in CELLS]))
         pmesh.all_reduce_grads(grads)
+        return loss, grads
+
+    def arch_step(self, net: NetSearch, alpha_optim, alpha_state: Dict,
+                  alpha: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+                  idx: Mapping[str, np.ndarray], generator: torch.Generator):
+        """One arch step on the path (or pairs, in 'two' mode) `idx`: the
+        gradient of alpha alone, an Adam step on alpha in place. Returns the
+        loss on the device."""
+        mode = self.cfg.ALPHA_BINARY_MODE
+        loss, grads = self.arch_grads(net, alpha, batch, idx, generator)
         alpha_old = {c: a.clone() for c, a in alpha.items()} if mode == "two" else None
         alpha_optim.step(alpha_state, alpha, dict(zip(CELLS, grads)))
         if mode == "two":
@@ -305,6 +465,195 @@ class SearchExecution:
                 print(step, float(loss) / cfg.BATCH_SIZE)
         return losses, lr
 
+    # ------------------------------------------------------------ SCAN_STEPS
+    def chunk_dispatch(self) -> Tuple[str, str]:
+        """('graph' or 'eager', why) for this run's SCAN_STEPS chunks."""
+        cfg, mode = self.cfg, weight_mode(self.cfg)
+        if mode not in ("unified", "full"):
+            return "eager", f"the {mode} weight program chooses its ops by the path on the host"
+        if cfg.ALPHA_BINARY_MODE != "full":
+            return "eager", "'two' arch steps choose their ops by the pairs on the host"
+        if cfg.NET_OPTIM == "sgd":
+            return "eager", "the SGD net optimizer has no step on device tensors"
+        if pmesh.is_initialized():
+            return "eager", "the steps' collectives run on the host's process group"
+        if self.device.type != "cuda":
+            return "graph", f"the {mode} weight and 'full' arch steps as device programs, " \
+                "run eagerly (no CUDA graphs on the CPU)"
+        return "graph", f"the {mode} weight and 'full' arch steps captured as CUDA graphs, " \
+            "replayed once a step"
+
+    def chunk_draws(self, net: NetSearch, step0: int, n: int, do_arch: bool
+                    ) -> Dict[str, np.ndarray]:
+        """Every uniform the paths of steps step0 .. step0 + n - 1 draw, from
+        the per-step loop's generators in its order (KPATH 1, 'full' arch
+        steps: the step programs'): 'u.<cell>' [n, nodes] for the weight
+        steps; 'a.u.<cell>' [n / ALPHA_EVERY, nodes] for the arch steps at
+        (i+1) % ALPHA_EVERY == 0."""
+        cfg, w, a = self.cfg, [], []
+        for i in range(n):
+            w.append(net.draw_uniforms(torch.Generator().manual_seed(
+                sample_seed(cfg.SEED, step0 + i)), net.n_nodes))
+            if do_arch and (i + 1) % cfg.ALPHA_EVERY == 0:
+                a.append(net.draw_uniforms(torch.Generator().manual_seed(
+                    sample_seed(cfg.SEED, ARCH_STREAM + step0 + i)), net.n_nodes))
+        out = {}
+        for prefix, draws in (("u.", w), ("a.u.", a)):
+            if draws:
+                out.update({prefix + c: torch.stack([d[c] for d in draws]).numpy()
+                            for c in CELLS})
+        return out
+
+    def chunk(self, result: SearchResult, optim, alpha_optim,
+              host_batches: Sequence[Dict[str, np.ndarray]],
+              arch_batches: Sequence[Dict[str, np.ndarray]], global_step: int,
+              generator: torch.Generator):
+        """SCAN_STEPS weight steps from `global_step` on the host batches
+        `host_batches` and, with `arch_batches` (one per ALPHA_EVERY steps),
+        the arch steps between them, on the step programs (the 'graph'
+        dispatch). Records the paths as the per-step loop does and renews
+        `result.alpha_host`. Returns the losses (on the device) and the last
+        lr."""
+        net, n = result.net, len(host_batches)
+        keys = [k for k in INPUT_KEYS + self.TARGET_KEYS if k in host_batches[0]]
+        arrays = self.chunk_draws(net, global_step, n, bool(arch_batches))
+        for prefix, batches in (("w.", host_batches), ("a.", arch_batches)):
+            if batches:
+                arrays.update({prefix + k: np.stack([b[k] for b in batches]) for k in keys})
+        names = list(dict(net.named_parameters()))
+        # the lr of each step, ahead (it depends on the step count alone)
+        states = [dict(result.opt_state, step=result.opt_state.get("step", 0) + i)
+                  for i in range(n)]
+        arrays["lr"] = np.asarray([optim.rate(st) for st in states], np.float32)
+        arrays["counts"] = optim.counts_of(result.opt_state, names)
+        if arch_batches:
+            arrays["a.lr"] = np.full(len(arch_batches), alpha_optim.rate(result.alpha_state),
+                                     np.float32)
+            arrays["a.counts"] = alpha_optim.counts_of(result.alpha_state, CELLS)
+        losses, paths = self.graph_chunk(result, optim, alpha_optim, ship(arrays, self.device),
+                                         keys, n, len(arch_batches), global_step, generator)
+        result.paths += paths
+        result.alpha_host = host_copy(result.alpha)
+        return losses, arrays["lr"][-1]
+
+    def weight_program(self, result: SearchResult, optim, dev, keys, generator) -> StepProgram:
+        """The weight step with no host number that depends on the step: the
+        path sampled on the device from the buffer 'u.<cell>', every
+        parameter's gradient (an unsampled op's is 0), the mask of the path
+        and the device step counts `prog.counts` in `step_device`. Returns
+        (loss, path)."""
+        cfg, net, mode = self.cfg, result.net, weight_mode(self.cfg)
+        masters = dict(net.named_parameters())
+        names = list(masters)
+        inputs = {k: torch.empty_like(dev["w." + k][0]) for k in keys}
+        inputs.update({k: torch.empty_like(dev[k][0]) for k in ["lr"] + [f"u.{c}" for c in CELLS]})
+        counts = torch.empty_like(dev["counts"])
+        # no count passes the run's steps past the largest count it started from
+        bias = torch.from_numpy(optim.bias_table(
+            self.total_steps + int(dev["counts"].max()))).to(self.device)
+
+        def fn():
+            idx = net.indices_from_uniforms(result.alpha, {c: inputs[f"u.{c}"] for c in CELLS})
+            gates = {c: result.alpha[c].detach() for c in CELLS} if mode == "full" else None
+            loss = self.path_loss(net, compute_params(net, cfg, None), {k: inputs[k] for k in keys},
+                                  [idx], generator, gates, mode)
+            grads = self.net_grads(net, loss, masters, names)
+            optim.step_device(result.opt_state, masters, dict(zip(names, grads)), names, counts,
+                              net.update_mask_device(idx), inputs["lr"], bias)
+            return loss.detach(), idx
+
+        prog = StepProgram(fn, inputs, [counts] + [masters[n] for n in names] + [
+            result.opt_state[k][n] for k in ("m", "v") for n in names], generator)
+        prog.counts, prog.names = counts, names
+        return prog
+
+    def arch_program(self, result: SearchResult, alpha_optim, dev, keys, generator
+                     ) -> StepProgram:
+        """The 'full' arch step with the path sampled on the device from the
+        buffer 'a.u.<cell>' and alpha's device step counts `prog.counts`.
+        Returns (loss, path)."""
+        net = result.net
+        inputs = {k: torch.empty_like(dev["a." + k][0]) for k in keys}
+        inputs.update({k: torch.empty_like(dev["a." + k][0])
+                       for k in ["lr"] + [f"u.{c}" for c in CELLS]})
+        counts = torch.empty_like(dev["a.counts"])
+        bias = torch.from_numpy(alpha_optim.bias_table(
+            self.total_steps + int(dev["a.counts"].max()))).to(self.device)
+
+        def fn():
+            idx = net.indices_from_uniforms(result.alpha, {c: inputs[f"u.{c}"] for c in CELLS})
+            loss, grads = self.arch_grads(net, result.alpha, {k: inputs[k] for k in keys}, idx,
+                                          generator)
+            alpha_optim.step_device(result.alpha_state, result.alpha, dict(zip(CELLS, grads)),
+                                    CELLS, counts, None, inputs["lr"], bias)
+            return loss.detach(), idx
+
+        prog = StepProgram(fn, inputs, [counts] + [result.alpha[c] for c in CELLS] + [
+            result.alpha_state[k][c] for k in ("m", "v") for c in CELLS], generator)
+        prog.counts, prog.names = counts, list(CELLS)
+        return prog
+
+    def graph_chunk(self, result: SearchResult, optim, alpha_optim, dev, keys, n, n_arch,
+                    global_step, generator):
+        """The chunk on the step programs (`weight_program`, `arch_program`):
+        each step's inputs copied into its program's buffers, the generator
+        reseeded with its seed, one replay; nothing read back until the
+        chunk ends."""
+        cfg, progs, rank = self.cfg, self.programs, pmesh.data_rank()
+        if "weight" not in progs:
+            progs["weight"] = self.weight_program(result, optim, dev, keys, generator)
+            self.chunk_log["weight"] = progs["weight"].log
+        if n_arch and "arch" not in progs:
+            progs["arch"] = self.arch_program(result, alpha_optim, dev, keys, generator)
+            self.chunk_log["arch"] = progs["arch"].log
+        weight, arch = progs["weight"], progs.get("arch")
+        with torch.no_grad():
+            weight.counts.copy_(dev["counts"])
+            if n_arch:
+                arch.counts.copy_(dev["a.counts"])
+        losses = torch.empty(n, dtype=torch.float32, device=self.device)
+        w_paths, a_paths, j = [], [], 0
+        launches, t0 = dict(FA.LAUNCHES), time.perf_counter()
+        fresh = [p for p in (weight, arch) if p is not None and p.graph is None]
+        for i in range(n):
+            feed = {k: dev["w." + k][i] for k in keys}
+            feed.update({"lr": dev["lr"][i], **{f"u.{c}": dev[f"u.{c}"][i] for c in CELLS}})
+            loss, idx = weight.run(feed, step_seed(cfg.SEED, global_step + i, rank))
+            with torch.no_grad():
+                losses[i].copy_(loss)
+                w_paths.append({c: idx[c].clone() for c in CELLS})
+            if n_arch and (i + 1) % cfg.ALPHA_EVERY == 0:
+                feed = {k: dev["a." + k][j] for k in keys}
+                feed.update({"lr": dev["a.lr"][j],
+                             **{f"u.{c}": dev[f"a.u.{c}"][j] for c in CELLS}})
+                _, idx = arch.run(feed, step_seed(cfg.SEED, ARCH_STREAM + global_step + i, rank))
+                with torch.no_grad():
+                    a_paths.append({c: idx[c].clone() for c in CELLS})
+                j += 1
+        host = read_paths(w_paths + a_paths)
+        # the chunk's wall time, ended by that read; the attention launches of
+        # the chunk besides its programs' warm-ups and captures (0: none eager)
+        self.chunk_log.setdefault("chunk_s", []).append(time.perf_counter() - t0)
+        eager = self.chunk_log.setdefault("eager_launches", dict.fromkeys(launches, 0))
+        for k in launches:
+            eager[k] += FA.LAUNCHES[k] - launches[k] - sum(
+                p.log[part].get(k, 0) for p in fresh if p.graph is not None
+                for part in ("warmup", "captured"))
+        counts = torch.cat([weight.counts] + ([arch.counts] if n_arch else [])).cpu().numpy()
+        optim.set_counts(result.opt_state, weight.names, counts[:len(weight.names)])
+        if "step" in result.opt_state:
+            result.opt_state["step"] += n
+        if n_arch:
+            alpha_optim.set_counts(result.alpha_state, arch.names, counts[len(weight.names):])
+            result.alpha_state["step"] += n_arch
+        paths, j = [], 0
+        for i in range(n):
+            paths.append(("weight", global_step + i, [host[i]]))
+            if n_arch and (i + 1) % cfg.ALPHA_EVERY == 0:
+                paths.append(("arch", global_step + i, host[n + j]))
+                j += 1
+        return list(losses.unbind()), paths
+
     def search(self, train_loader: Loader, eval_loader: Loader) -> SearchResult:
         cfg, dev = self.cfg, self.device
         keys = INPUT_KEYS + self.TARGET_KEYS
@@ -332,15 +681,51 @@ class SearchExecution:
         global_step = start_epoch * epoch_steps
         result = SearchResult(net, alpha, opt_state, alpha_state, alpha_host=host_copy(alpha))
         eval_iter = iter(())
+        # SCAN_STEPS: the chunks' dispatch, the step programs and their launches
+        self.programs = {}
+        self.chunk_log = {}
+        self.total_steps = cfg.MAX_EPOCH * epoch_steps
+        if cfg.SCAN_STEPS > 1:
+            self.chunk_log["dispatch"], why = self.chunk_dispatch()
+            print(f"search SCAN_STEPS {cfg.SCAN_STEPS}: {self.chunk_log['dispatch']} "
+                  f"dispatch ({why})")
 
-        def next_arch_batch():
+        def next_arch_host_batch():
             nonlocal eval_iter
             try:
-                host_batch = next(eval_iter)
+                return next(eval_iter)
             except StopIteration:  # the arch split cycles (search.py:369-375)
                 eval_iter = iter(eval_loader)
-                host_batch = next(eval_iter)
-            return batch_to_device(host_batch, dev, keys)
+                return next(eval_iter)
+
+        def next_arch_batch():
+            return batch_to_device(next_arch_host_batch(), dev, keys)
+
+        def epoch_steps_of(do_arch: bool):
+            """The epoch's weight (and arch) steps: per step, or in chunks of
+            SCAN_STEPS with the sub-chunk tail per step."""
+            if cfg.SCAN_STEPS == 1 or self.chunk_log["dispatch"] == "eager":
+                return self.steps(result, optim, alpha_optim,
+                                  (batch_to_device(b, dev, keys) for b in train_loader),
+                                  next_arch_batch, global_step, do_arch, generator)
+            losses, lr, buf, step = [], 0.0, [], global_step
+            for host_batch in train_loader:
+                buf.append(host_batch)
+                if len(buf) < cfg.SCAN_STEPS:
+                    continue
+                arch = ([next_arch_host_batch() for _ in range(cfg.SCAN_STEPS // cfg.ALPHA_EVERY)]
+                        if do_arch else [])
+                chunk_losses, lr = self.chunk(result, optim, alpha_optim, buf, arch, step,
+                                              generator)
+                losses += chunk_losses
+                step += len(buf)
+                buf = []
+            if buf:     # the tail; its positions in the epoch are those of 0 .. len(buf) - 1
+                tail, lr = self.steps(result, optim, alpha_optim,
+                                      (batch_to_device(b, dev, keys) for b in buf),
+                                      next_arch_batch, step, do_arch, generator)
+                losses += tail
+            return losses, lr
 
         for epoch in range(start_epoch, cfg.MAX_EPOCH):
             self.logger.stamp()
@@ -353,10 +738,7 @@ class SearchExecution:
             t0 = time.time()
             # losses stay on the device until the epoch ends
             with epoch_trace(cfg, epoch, start_epoch):       # --PROFILE: the first epoch
-                losses, lr = self.steps(result, optim, alpha_optim,
-                                        (batch_to_device(b, dev, keys) for b in train_loader),
-                                        next_arch_batch, global_step, epoch >= cfg.ALPHA_START,
-                                        generator)
+                losses, lr = epoch_steps_of(epoch >= cfg.ALPHA_START)
             global_step += len(losses)
 
             # the global batches' summed losses

@@ -35,6 +35,17 @@ statistics and the attention softmax stay fp32 either way, and the heads'
 outputs leave in fp32 (ITM's sigmoid is taken in fp32: a bf16 sigmoid
 rounds every logit above ~5.5 to exactly 1.0).
 
+REMAT: the JAX flag (`OpCfg.remat`) rematerializes the RSA bias
+[B, H, L, L] of a relation op, on its projected-relation and head-last
+paths (mmnas_tpu/ops/modules.py:216-227); its raw-geometry path always
+checkpoints the chain. The port has neither of the first two paths: its
+RSA chain runs from the raw tensor inside the attention kernel (relation
+ops here, ops/fused_attention.py), which keeps no bias for the backward
+but the chain's `pre`, as the JAX raw path does. So the fixed net takes
+--REMAT and computes exactly what it computes without it. The search
+supernet's REMAT, each candidate op of the 'full' program checkpointed,
+is in models/supernet.py.
+
 Batch dict keys (fixed shapes, as the JAX package's loaders give them):
   frcn_feat [B, FRCNFEAT_LEN, FRCNFEAT_SIZE]  region features
   bbox_feat [B, FRCNFEAT_LEN, 5]              boxes (with BBOX_FEATURE)
@@ -297,8 +308,6 @@ class NetFull(nn.Module):
         super().__init__()
         task = task or cfg.TASK
         check_task(task, "head")
-        if cfg.REMAT:
-            raise NotImplementedError("REMAT is not ported (ROADMAP.md, 'Not ported')")
         # the full net feeds the raw [B,T,T,3] text relation to the encoder
         # (full_vqa.py:85-104 has no x-rel projection): no rel op there
         for node in genotype["enc"]:

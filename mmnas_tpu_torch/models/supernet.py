@@ -12,14 +12,26 @@ The JAX package samples the path on the device and branches with
 `lax.switch`. Here the branch is Python control flow, so the indices live
 on the host: `sample_indices`, `sample_indices_two` and `chosen_indices`
 take a host copy of alpha and return numpy arrays, and `forward` takes
-them. Forward modes:
+them. The draws are split in two: the uniforms, which depend only on the
+generator (`draw_uniforms`, `draw_uniforms_two`), and the inversion of
+softmax(alpha)'s CDF (`indices_from_uniforms`, `indices_two_from_uniforms`),
+on tensors of any device, so the search's step programs (engine/search.py,
+SCAN_STEPS) draw the uniforms ahead on the host and sample on the device
+against the device alpha, to the host loop's indices.
+Forward modes:
 
 - "sampled": only the indexed op of each node runs (weight step, eval);
 - "full": every op runs, combined with straight-through gates
   g = onehot(idx) + softmax(alpha) - stop_grad(softmax(alpha)), the
   inactive branches detached (mixed.py:60-68), so the forward equals the
   sampled path and d(loss)/d(alpha) is the ProxylessNAS softmax-Jacobian
-  sum_j b_j p_j (delta_ij - p_i) (mixed.py:171-198);
+  sum_j b_j p_j (delta_ij - p_i) (mixed.py:171-198). With host indices the
+  inactive outputs are detached in Python; with device indices (integer
+  tensors, a step captured in a CUDA graph) by `torch.where` on the one-hot,
+  so their ops run a backward of zeros. Under REMAT each op runs under
+  `primitives.remat` (the JAX package's `jax.checkpoint` of each candidate,
+  supernet.py:216-242): its activations are recomputed in the backward, with
+  the first pass's dropout masks;
 - "two": the two indexed ops ([n, 2]: active, inactive) under gates built
   from the softmax over the pair's logits (mixed.py:136-148);
 - "unified": the sampled path's math with no branch on the index
@@ -33,17 +45,17 @@ them. Forward modes:
 
 As the fixed net, the sampled path splits into `encode_text` and
 `apply_decoder` for ITM's mining and R@K sweeps (supernet.py:333-378).
-
-REMAT is not ported (ROADMAP.md, "Not ported").
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from mmnas_tpu_torch.models.net import (
     apply_heads, apply_stem, cast_for_compute, cast_output, check_task, image_stem, init_heads,
@@ -73,9 +85,48 @@ def _softmax(a) -> np.ndarray:
     return e / e.sum(axis=-1, keepdims=True)
 
 
-def _uniform(generator: torch.Generator, shape) -> np.ndarray:
+def _uniform(generator: torch.Generator, shape) -> torch.Tensor:
     """Uniforms in [0, 1), float64, from the CPU generator."""
-    return torch.rand(tuple(shape), generator=generator, dtype=torch.float64).numpy()
+    return torch.rand(tuple(shape), generator=generator, dtype=torch.float64)
+
+
+# exp by + - * and a power of two (`_exp`): fdlibm's split of ln 2, 1/n!
+_LN2_HI, _LN2_LO, _INV_LN2 = 6.93147180369123816490e-01, 1.90821492927058770002e-10, \
+    1.44269504088896338700e+00
+_EXP_TERMS = [1.0 / math.factorial(n) for n in range(14)]
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """exp(x) of float64 x <= 0, clamped at -700: x = k ln2 + r with
+    |r| <= ln2 / 2, exp(r) by its Taylor series to r^13 (Horner), times 2^k
+    built from its bits. Only IEEE + - * / and exact scalings, so the CPU
+    and the card give the same bits (their own exp functions differ in the
+    last bit)."""
+    x = x.clamp(min=-700.0)
+    k = torch.floor(x * _INV_LN2 + 0.5)
+    r = (x - k * _LN2_HI) - k * _LN2_LO
+    p = _EXP_TERMS[-1] * r + _EXP_TERMS[-2]
+    for c in reversed(_EXP_TERMS[:-2]):
+        p = p * r + c
+    return p * ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def _softmax_cdf(a: torch.Tensor) -> List[torch.Tensor]:
+    """softmax(a)'s CDF over the last axis of float64 `a`, one tensor a
+    choice, summed column by column in a fixed order, so that the CPU and
+    the card round it alike."""
+    cols = a.unbind(-1)
+    m = cols[0]
+    for c in cols[1:]:
+        m = torch.maximum(m, c)
+    e = _exp(a - m.unsqueeze(-1)).unbind(-1)
+    total = e[0]
+    for x in e[1:]:
+        total = total + x
+    cdf = [e[0] / total]
+    for x in e[1:]:
+        cdf.append(cdf[-1] + x / total)
+    return cdf
 
 
 class NetSearch(nn.Module):
@@ -86,8 +137,6 @@ class NetSearch(nn.Module):
         if cfg.LAYERS != 1:
             raise ValueError("the search supernet has one cell per side: LAYERS must be 1 "
                              "(reference parity)")
-        if cfg.REMAT:
-            raise NotImplementedError("REMAT is not ported (ROADMAP.md, 'Not ported')")
         self.cfg = cfg
         self.task = task
         self.ocfg = op_cfg_from(cfg)
@@ -134,22 +183,45 @@ class NetSearch(nn.Module):
             alpha[cell_type] = torch.from_numpy(a)
         return alpha
 
-    # -- sampling, on the host --------------------------------------------------
+    # -- sampling ------------------------------------------------------------------
 
-    # Alpha's host copy is a few dozen floats: the draws are numpy arithmetic
-    # on uniforms from the CPU generator, with no torch op per node.
+    # One implementation on tensors: the host loop calls it on CPU float64
+    # tensors made from alpha's host copy, a search step captured in a CUDA
+    # graph on the device alpha.
 
     @staticmethod
-    def sample_indices(alpha: Mapping, generator: torch.Generator) -> Dict[str, np.ndarray]:
+    def draw_uniforms(generator: torch.Generator, n_nodes: Mapping[str, int]
+                      ) -> Dict[str, torch.Tensor]:
+        """The uniforms of one `sample_indices` draw: [n] per cell type, in
+        the order it draws them."""
+        return {c: _uniform(generator, (n_nodes[c],)) for c in CELLS}
+
+    @staticmethod
+    def indices_from_uniforms(alpha: Mapping[str, torch.Tensor],
+                              u: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One op per node, the inverse of softmax(alpha)'s CDF at the
+        uniforms `u` (mixed.py:150-158): [n] int64 per cell type, on alpha's
+        device. alpha in any float type, u float64; the CPU and the card
+        give the same indices for the same inputs (`_softmax_cdf`)."""
+        out = {}
+        for c in CELLS:
+            cdf = _softmax_cdf(alpha[c].to(torch.float64))
+            x = u[c] * cdf[-1]
+            idx = (cdf[0] <= x).long()
+            for col in cdf[1:]:
+                idx = idx + (col <= x).long()
+            out[c] = idx.clamp(max=len(cdf) - 1)
+        return out
+
+    @classmethod
+    def sample_indices(cls, alpha: Mapping, generator: torch.Generator) -> Dict[str, np.ndarray]:
         """One op per node drawn from softmax(alpha) (mixed.py:150-158), from
         a host copy of alpha and a CPU generator, by the inverse of the
         softmax's CDF: [n] per cell type."""
-        out = {}
-        for c in CELLS:
-            cdf = np.cumsum(_softmax(alpha[c]), axis=-1)
-            u = _uniform(generator, cdf.shape[:1]) * cdf[:, -1]
-            out[c] = np.minimum((cdf <= u[:, None]).sum(axis=-1), cdf.shape[-1] - 1)
-        return out
+        u = cls.draw_uniforms(generator, {c: len(alpha[c]) for c in CELLS})
+        idx = cls.indices_from_uniforms({c: torch.from_numpy(np.asarray(alpha[c]))
+                                         for c in CELLS}, u)
+        return {c: i.numpy() for c, i in idx.items()}
 
     @staticmethod
     def chosen_indices(alpha: Mapping) -> Dict[str, np.ndarray]:
@@ -157,21 +229,46 @@ class NetSearch(nn.Module):
         return {c: np.asarray(alpha[c]).argmax(axis=-1) for c in CELLS}
 
     @staticmethod
-    def sample_indices_two(alpha: Mapping, generator: torch.Generator) -> Dict[str, np.ndarray]:
+    def draw_uniforms_two(generator: torch.Generator, shapes: Mapping[str, tuple]) -> Dict:
+        """The draws of one `sample_indices_two`, in its order: per cell type
+        the Gumbel noise log(-log(u)) [n, k] of the pair and the uniforms [n]
+        that choose the active op of the pair."""
+        out = {}
+        for c in CELLS:
+            u = _uniform(generator, shapes[c]).clamp(min=torch.finfo(torch.float64).tiny)
+            out[c] = (torch.log(-torch.log(u)), _uniform(generator, shapes[c][:1]))
+        return out
+
+    @staticmethod
+    def indices_two_from_uniforms(alpha: Mapping[str, torch.Tensor], draws: Mapping) -> Dict:
+        """Two-path sampling (mixed.py:136-148) from `draw_uniforms_two`'s
+        draws: per node the two ops of least gumbel - alpha (Gumbel top-2,
+        i.e. two distinct ops from softmax(alpha), ties to the lower index),
+        then the active one from softmax over the pair's logits. [n, 2] int64
+        per cell type: column 0 active, column 1 inactive."""
+        out = {}
+        for c in CELLS:
+            gumbel, u = draws[c]
+            a = alpha[c].to(torch.float64)
+            keys = gumbel - a
+            first = keys.argmin(dim=-1, keepdim=True)     # the first least value
+            second = keys.scatter(-1, first, math.inf).argmin(dim=-1, keepdim=True)
+            pair = torch.cat([first, second], dim=-1)
+            p_first = _softmax_cdf(a.gather(-1, pair))[0]
+            out[c] = torch.where((u >= p_first).unsqueeze(-1), pair.flip(-1), pair)
+        return out
+
+    @classmethod
+    def sample_indices_two(cls, alpha: Mapping, generator: torch.Generator
+                           ) -> Dict[str, np.ndarray]:
         """Two-path sampling (mixed.py:136-148): per node two distinct ops
         from softmax(alpha) (Gumbel top-2, i.e. without replacement), then
         the active one from softmax(alpha[pair]). [n, 2] per cell type:
         column 0 active, column 1 inactive."""
-        out = {}
-        for c in CELLS:
-            a = np.asarray(alpha[c], np.float64)
-            u = np.maximum(_uniform(generator, a.shape), np.finfo(np.float64).tiny)
-            pair = np.argsort(np.log(-np.log(u)) - a, axis=-1, kind="stable")[:, :2]
-            p_first = _softmax(np.take_along_axis(a, pair, axis=1))[:, 0]
-            second = (_uniform(generator, p_first.shape) >= p_first).astype(np.int64)
-            rows = np.arange(len(a))
-            out[c] = np.stack([pair[rows, second], pair[rows, 1 - second]], axis=1)
-        return out
+        draws = cls.draw_uniforms_two(generator, {c: np.shape(alpha[c]) for c in CELLS})
+        idx = cls.indices_two_from_uniforms({c: torch.from_numpy(np.asarray(alpha[c]))
+                                             for c in CELLS}, draws)
+        return {c: i.numpy() for c, i in idx.items()}
 
     @staticmethod
     @torch.no_grad()
@@ -257,18 +354,33 @@ class NetSearch(nn.Module):
             s = torch.where(idx[ni] == len(node) - 1, ff, att)
         return s
 
-    @staticmethod
-    def _run_full(nodes, idx, alpha, s, pre, s_mask, pre_mask, rel, train, generator):
-        """Every op, straight-through one-hot gates (MODE='full')."""
+    def _run_full(self, nodes, idx, alpha, s, pre, s_mask, pre_mask, rel, train, generator):
+        """Every op, straight-through one-hot gates (MODE='full'); idx on the
+        host or on the device. Under REMAT with a gradient to take, each op
+        is rematerialized (`primitives.remat`)."""
         p_soft = torch.softmax(alpha, dim=-1)
         onehot = nn.functional.one_hot(torch.as_tensor(idx, device=alpha.device),
                                        alpha.shape[-1]).to(p_soft.dtype)
         gates = onehot + p_soft - p_soft.detach()
+        remat = self.cfg.REMAT and torch.is_grad_enabled()
+
+        def run(op):
+            if not remat:
+                return op(s, pre, s_mask, pre_mask, rel, train, generator)
+            # the op's parameters as they are now (functional_call's, which
+            # the backward's recompute would no longer see), passed in
+            return P.remat(lambda params, x, g: functional_call(
+                op, params, (x, pre, s_mask, pre_mask, rel, train, g), tie_weights=False),
+                generator, dict(op.named_parameters()), s)
+
         for ni, node in enumerate(nodes):
-            outs = [op(s, pre, s_mask, pre_mask, rel, train, generator) for op in node]
+            outs = [run(op) for op in node]
             # inactive-branch detach (mixed.py:66-68): net-weight gradients flow
             # through the sampled branch only; alpha's see every branch
-            outs = [o if j == idx[ni] else o.detach() for j, o in enumerate(outs)]
+            if isinstance(idx, torch.Tensor):
+                outs = [torch.where(onehot[ni, j] > 0, o, o.detach()) for j, o in enumerate(outs)]
+            else:
+                outs = [o if j == idx[ni] else o.detach() for j, o in enumerate(outs)]
             g = gates[ni].to(outs[0].dtype)
             s = sum(g[j] * outs[j] for j in range(len(outs)))
         return s
@@ -297,6 +409,23 @@ class NetSearch(nn.Module):
         ops, mixed.py:160-163)."""
         return {n: 1.0 if op is None else float(int(idx[op[0]][op[1]]) == op[2])
                 for n, op in self._op_of.items()}
+
+    def update_mask_device(self, idx: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """`update_mask` of device indices, on the device: fp32 [n_params] in
+        the order of `named_parameters`."""
+        dev = idx["enc"].device
+        at = self.__dict__.get("_mask_at")
+        if at is None or at.device != dev:
+            # each parameter's node in cat(idx['enc'], idx['dec']) and op (-1: no
+            # op), kept on the device: a step captured in a CUDA graph copies
+            # nothing from the host
+            start = {"enc": 0, "dec": self.n_nodes["enc"]}
+            at = [(-1, -1) if op is None else (start[op[0]] + op[1], op[2])
+                  for op in self._op_of.values()]
+            self._mask_at = at = torch.tensor(at, dtype=torch.int64).t().contiguous().to(dev)
+        node, op = at
+        flat = torch.cat([idx[c].reshape(-1) for c in CELLS])
+        return ((op < 0) | (flat[node.clamp(min=0)] == op)).float()
 
     # -- genotype -----------------------------------------------------------------------
 

@@ -17,7 +17,10 @@ called through ctypes:
   to 16 heads and, when the call will be differentiated, writes it out
   ([B,H,Lq,Lk] fp32 `pre`) for the backward;
 - `fused_attention_fwd_dropout`: the same kernel drawing the keep mask with
-  a counter-based Philox4x32-10 (key: a 64-bit seed, counter: (j // 4, i,
+  a counter-based Philox4x32-10 (key: a 64-bit seed that the kernel reads
+  from device memory, an int64 [1] tensor drawn by `draw_key` from the
+  caller's generator, so a CUDA graph that captures the call draws a new
+  mask in each replay; counter: (j // 4, i,
   b*heads_total + head0 + h, 0), word j % 4; head0 0 and heads_total H
   outside tensor parallelism, where a model rank runs heads [head0, head0 +
   H) of heads_total and so draws the unsplit call's masks for them) and
@@ -64,7 +67,7 @@ import math
 import numpy as np
 import torch
 
-from mmnas_tpu_torch.ops.primitives import mask_scores
+from mmnas_tpu_torch.ops.primitives import draw_key, keep_mask, mask_scores
 
 MAX_REL_CHANNELS = 8  # raw geometry channels the kernels hold in registers
 REL_HEAD_GROUP = 16   # heads the relation chain and its pass hold in registers at a time
@@ -168,17 +171,21 @@ def keep_mask_reference(seed: int, B: int, H: int, Lq: int, Lk: int, dropout_r: 
     return torch.from_numpy(bits < keep_threshold(dropout_r)).reshape(B, H, Lq, Lk)
 
 
-def draw_seed(generator: torch.Generator) -> int:
-    """A 64-bit dropout seed from a CUDA `generator`, on the host with no
-    device sync: the generator's seed and Philox offset live on the host, so
-    the seed is the two mixed, and the offset is advanced as one of the
-    generator's own draws would."""
-    offset = generator.get_offset()
-    generator.set_offset(offset + 4)
-    x = (generator.initial_seed() * 0x9E3779B97F4A7C15 + offset) & (2**64 - 1)
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & (2**64 - 1)   # splitmix64 finalizer
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & (2**64 - 1)
-    return x ^ (x >> 31)
+def key_tensor(seed, device):
+    """The kernel's key as an int64 [1] tensor on `device`: `seed` itself
+    when it is one, else the Python int's 64 bits, written by a fill on the
+    device (no copy from the host, so a CUDA graph can capture it)."""
+    if isinstance(seed, torch.Tensor):
+        return seed
+    seed &= 2**64 - 1
+    return torch.full((1,), seed - 2**64 if seed >= 2**63 else seed, dtype=torch.int64,
+                      device=device)
+
+
+def key_value(key: torch.Tensor) -> int:
+    """The 64-bit key a key tensor holds, as `keep_mask_reference` takes it
+    (one device-to-host read)."""
+    return int(key.item()) & (2**64 - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +200,7 @@ def fused_attention(q, k, v, mask=None, log_bias=None, *, rel=None,
     (raw [B,Lq,Lk,Rr], W1 [R,Rr], b1 [R], Wr [H,R], br [H]), the whole bias
     chain computed in the kernels. dropout_r > 0 applies attention-weight
     dropout with a mask drawn from `generator` (a CPU tensor draws the mask
-    itself, a CUDA tensor a seed for the kernel). head0, heads_total: these
+    itself, a CUDA tensor a key for the kernel, `draw_key`). head0, heads_total: these
     H heads are heads [head0, head0 + H) of a call of heads_total (default
     H), and draw that call's dropout masks (a model rank's share of the
     heads under tensor parallelism). Returns o [B,H,Lq,D] in q's dtype,
@@ -217,14 +224,14 @@ def fused_attention(q, k, v, mask=None, log_bias=None, *, rel=None,
         if dropout_r > 0.0:
             # the whole call's draw, this call's heads taken
             shape = (q.shape[0], heads_total, q.shape[2], k.shape[2])
-            keep = (torch.rand(shape, generator=generator) < 1.0 - dropout_r
-                    )[:, head0:head0 + q.shape[1]]
+            keep = keep_mask(shape, 1.0 - dropout_r, generator, q.device
+                             )[:, head0:head0 + q.shape[1]]
         return fused_attention_reference(q, k, v, mask, log_bias, rel=rel, keep=keep,
                                          dropout_r=dropout_r)
     if dropout_r > 0.0 and generator.device.type != q.device.type:
         raise ValueError(f"attention dropout of a {q.device.type} tensor needs a generator "
                          f"on that device, got one on {generator.device}")
-    seed = draw_seed(generator) if dropout_r > 0.0 else 0
+    seed = draw_key(generator, q.device) if dropout_r > 0.0 else None
     # the relation chain is kept for the backward only when one will run
     want_pre = rel is not None and needs_grad
     return FusedAttentionFn.apply(q, k, v, mask, log_bias, *rel_args,
@@ -277,7 +284,7 @@ def _fwd_kernel():
 
     fn = build.load("fused_attention_fwd").mmnas_fused_attention_fwd
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float,
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -418,10 +425,12 @@ def _raise_on(err, name):
 
 
 def attention_fwd(q, k, v, mask=None, log_bias=None, rel=None, dropout_r: float = 0.0,
-                  seed: int = 0, want_pre: bool = False, head0: int = 0,
+                  seed=0, want_pre: bool = False, head0: int = 0,
                   heads_total: int = None):
     """Launch the forward kernel: (o [B,H,Lq,D] in q's dtype; with
-    dropout_r > 0 the keep mask it drew for `seed` (uint8 [B,H,Lq,Lk]; the
+    dropout_r > 0 the keep mask it drew for the key `seed`, an int64 [1]
+    tensor on q's device that the kernel reads there, or a Python int
+    copied into one (`key_tensor`) (uint8 [B,H,Lq,Lk]; the
     masks of heads [head0, head0 + H) of a call of heads_total, default H),
     else None; with rel and want_pre the relation chain pre ([B,H,Lq,Lk]
     fp32, the backward's residual), else None)."""
@@ -431,8 +440,11 @@ def attention_fwd(q, k, v, mask=None, log_bias=None, rel=None, dropout_r: float 
         raise ValueError(f"dropout rate {dropout_r} outside [0, 1)")
     raw, w1, b1, wr, br = rel if rel is not None else (None,) * 5
     out = torch.empty_like(q)
-    keep = (torch.empty((B, H, Lq, Lk), dtype=torch.uint8, device=q.device)
-            if dropout_r > 0.0 else None)
+    keep = key = None
+    if dropout_r > 0.0:
+        keep = torch.empty((B, H, Lq, Lk), dtype=torch.uint8, device=q.device)
+        key = key_tensor(seed, q.device)
+        _check(key, "key", (1,), q, dtype=torch.int64)
     pre = (torch.empty((B, H, Lq, Lk), dtype=torch.float32, device=q.device)
            if rel is not None and want_pre else None)
     with torch.cuda.device(q.device):
@@ -440,7 +452,7 @@ def attention_fwd(q, k, v, mask=None, log_bias=None, rel=None, dropout_r: float 
         err = _fwd_kernel()(_DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(log_bias),
                             _ptr(mask), _ptr(raw), _ptr(w1), _ptr(b1), _ptr(wr), _ptr(br),
                             _ptr(out), _ptr(keep), _ptr(pre), B, H, Lq, Lk, D, Rr, R, head0,
-                            heads_total, 1.0 / math.sqrt(D), seed & (2**64 - 1),
+                            heads_total, 1.0 / math.sqrt(D), _ptr(key),
                             keep_threshold(dropout_r) if keep is not None else 0,
                             1.0 - dropout_r, stream)
     name = "fused_attention_fwd_dropout" if keep is not None else "fused_attention_fwd"

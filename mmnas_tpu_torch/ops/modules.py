@@ -260,7 +260,7 @@ def unified_att_node(ops, idx, s, pre, s_mask, pre_mask, rel, train: bool = Fals
     mask = torch.cat((s_mask | is_guided, pre_mask | ~is_guided), dim=-1).contiguous()
     chain = (rel["raw"].detach(), w1, b1, wr, br)
     if torch.is_grad_enabled() and any(t.requires_grad for t in chain):
-        bias = checkpoint(rsa_log_bias, *chain, use_reentrant=False)
+        bias = checkpoint(rsa_log_bias, *chain, use_reentrant=False, preserve_rng_state=False)
     else:
         bias = rsa_log_bias(*chain)
     bias = bias.to(s.dtype) * is_rel.to(s.dtype)

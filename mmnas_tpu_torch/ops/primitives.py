@@ -5,6 +5,11 @@ Linear layers are `torch.nn.Linear`, weights stored torch-style [out, in].
 Parameter initialization follows the JAX package's distributions (the
 reference framework's PyTorch defaults) and is drawn from an explicit
 `torch.Generator` by `init_parameters`.
+
+Every random draw of an op (`dropout`'s keep masks here, the fused
+attention's kernel keys and CPU masks in ops/fused_attention.py) goes
+through `keep_mask` or `draw_key`, so that `remat` can hand a
+rematerialized op's recompute the draws of its first pass.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mmnas_tpu_torch.parallel.sharding import copy_to_model, reduce_from_model
 
@@ -68,10 +74,96 @@ def dropout(x, rate: float, train: bool, generator: Optional[torch.Generator] = 
                          f"device, got one on {generator.device}")
     keep = 1.0 - rate
     shape = x.shape if cols is None else (*x.shape[:-1], cols[1])
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = keep_mask(shape, keep, generator, x.device)
     if cols is not None:
         mask = mask[..., cols[0]]
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def keep_mask(shape, keep: float, generator, device):
+    """A bool keep mask of `shape`: uniforms from `generator` below `keep`
+    (or the next draw a `DrawTape` hands back)."""
+    if isinstance(generator, DrawTape):
+        return generator.draw(lambda g: keep_mask(shape, keep, g, device))
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def draw_key(generator, device):
+    """A 64-bit key for the attention kernel's Philox generator, drawn from
+    `generator` by a PyTorch op on `device` (int64 [1]), so that a CUDA
+    graph that captures the draw draws a new key in each replay (or the next
+    draw a `DrawTape` hands back)."""
+    if isinstance(generator, DrawTape):
+        return generator.draw(lambda g: draw_key(g, device))
+    return torch.randint(-2**63, 2**63 - 1, (1,), dtype=torch.int64, generator=generator,
+                         device=device)
+
+
+class DrawTape:
+    """Stands in for a generator in one rematerialized op: in the first
+    pass it draws from `generator` and keeps each draw (a keep mask, one
+    byte an element, or a kernel key), in the recompute it hands them back
+    in the same order. `remat` uses it under CUDA-graph capture, where a
+    generator's state cannot be read: its offset then advances inside the
+    graph, and `get_state` returns the state from before the capture."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.draws = []
+        self.replay = None      # position of the next draw handed back, in the recompute
+
+    @property
+    def device(self):
+        return self.generator.device
+
+    def draw(self, fn):
+        if self.replay is None:
+            out = fn(self.generator)
+            self.draws.append(out)
+            return out
+        out = self.draws[self.replay]
+        self.replay += 1
+        return out
+
+
+def _capturing(generator: torch.Generator) -> bool:
+    return generator.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def remat(fn, generator: Optional[torch.Generator], *args):
+    """`fn(*args, generator)` under `torch.utils.checkpoint`: its
+    activations are freed after the forward and recomputed in the backward
+    (the JAX package's `jax.checkpoint` of a candidate op under REMAT,
+    mmnas_tpu/models/supernet.py:216-242). The recompute draws the first
+    pass's dropout masks, as the JAX closure replays the same fold keys, and
+    `generator` is left where one pass leaves it:
+
+    - eagerly, the first pass draws from `generator` and the recompute from
+      a generator of its own set to `generator`'s state at entry;
+    - under CUDA-graph capture, where that state cannot be read, through a
+      `DrawTape`: the first pass's draws are kept and handed back.
+
+    So the op's output, the gradients and the generator's state are those
+    of the op run once without checkpointing."""
+    if generator is None:
+        return checkpoint(fn, *args, None, use_reentrant=False, preserve_rng_state=False)
+    tape = DrawTape(generator) if _capturing(generator) else None
+    state = generator.get_state() if tape is None else None
+    passes = 0
+
+    def run(*a):
+        nonlocal passes
+        passes += 1
+        if tape is not None:
+            tape.replay = None if passes == 1 else 0
+            return fn(*a, tape)
+        if passes == 1:
+            return fn(*a, generator)
+        own = torch.Generator(generator.device)
+        own.set_state(state)
+        return fn(*a, own)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def fc(linear: nn.Linear, x, dropout_r: float, use_relu: bool, train: bool,

@@ -13,7 +13,8 @@ Per-epoch hard-negative mining with a sampled path, genotypes appended to
 val split; checkpoints are the pickled numpy pytrees either package writes
 and resumes from. --DENSE_WEIGHT, --UNIFIED_WEIGHT and --HYBRID_WEIGHT choose
 the program of the weight step's three forwards and --MODEL_AXIS splits the
-heads, as for VQA (search_vqa.py). --SCAN_STEPS is not ported.
+heads, as for VQA (search_vqa.py), and so do --REMAT and --SCAN_STEPS (the
+mining stays at the start of its epochs, outside the chunks).
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ Per-epoch genotypes are appended to ./arch/<VERSION>.json in the reference
 schema; checkpoints are the pickled numpy pytrees either package writes and
 resumes from. --DENSE_WEIGHT, --UNIFIED_WEIGHT and --HYBRID_WEIGHT choose the
 weight step's program and --MODEL_AXIS splits the heads, as for VQA
-(search_vqa.py). --SCAN_STEPS is not ported.
+(search_vqa.py), and so do --REMAT and --SCAN_STEPS.
 """
 
 from __future__ import annotations

@@ -9,13 +9,22 @@ The same flags as the JAX package's search CLI:
     python -m mmnas_tpu_torch.search_vqa --SYNTH --BS 256 --KPATH 8 --DTYPE bfloat16
     python -m mmnas_tpu_torch.search_vqa --RESUME --CKPT_PATH logs/ckpts/search_vqa-search_epoch3.pkl
     python -m mmnas_tpu_torch.search_vqa --SYNTH --BS 128 --UNIFIED_WEIGHT
+    python -m mmnas_tpu_torch.search_vqa --SYNTH --BS 128 --UNIFIED_WEIGHT --SCAN_STEPS 10
+    python -m mmnas_tpu_torch.search_vqa --SYNTH --BS 128 --DENSE_WEIGHT --REMAT
     python -m mmnas_tpu_torch.search_vqa --SYNTH --NDEV 2 --MODEL_AXIS 2
 
 Per-epoch genotypes are appended to ./arch/<VERSION>.json in the reference
 schema {"epochK": {"enc": [[op]x12], "dec": [[op]x18]}}; checkpoints are the
 pickled numpy pytrees either package writes and resumes from. The weight
 step's program is the sampled one, or --DENSE_WEIGHT, --UNIFIED_WEIGHT or
---HYBRID_WEIGHT (KPATH 1; engine/search.py). --SCAN_STEPS is not ported.
+--HYBRID_WEIGHT (KPATH 1; engine/search.py). --REMAT rematerializes each
+candidate op of the 'full' program (the arch steps, --DENSE_WEIGHT) in the
+backward, with the first pass's dropout masks (models/supernet.py).
+--SCAN_STEPS N runs an epoch's steps in chunks of N (a multiple of
+--ALPHA_EVERY) to the per-step loop's paths and states: replayed from CUDA
+graphs under --UNIFIED_WEIGHT or --DENSE_WEIGHT with 'full' arch steps in
+one process, on the per-step loop otherwise; the run prints which
+(engine/search.py).
 """
 
 from __future__ import annotations

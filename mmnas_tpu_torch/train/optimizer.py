@@ -16,12 +16,22 @@
 
 `step` updates the parameters and the moments in place (no copy of the
 50 M-parameter state per step), under `torch.no_grad()`.
+
+`WarmupAdam.step_device` is the same update with no host number that
+depends on the step: the mask, the step counts, the bias corrections and
+the lr are device tensors, so that a search step captured in a CUDA graph
+(engine/search.py, SCAN_STEPS) updates as the host version would on each
+replay. Its per-parameter step counts are one fp32 tensor the caller keeps
+(`counts_of`, `set_counts`); the state dict keeps the JAX package's host
+format. The bias corrections 1 - beta^t come from a table that
+`bias_table` computes on the host as `step` does, so on the same gradients
+the update is `step`'s, op for op.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +40,8 @@ from mmnas_tpu_torch.parallel import mesh as pmesh
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
-                        split: Optional[Sequence[bool]] = None):
+                        split: Optional[Sequence[bool]] = None,
+                        slots: Optional[Tuple[Sequence[int], int]] = None):
     """torch.nn.utils.clip_grad_norm_ semantics (train_vqa.py:310), in place:
     grads *= min(1, max_norm / (norm + 1e-6)). Returns (grads, norm); the
     norm stays a device tensor, so nothing waits for the device.
@@ -38,9 +49,21 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
     split: under tensor parallelism, which grads are a model rank's shard
     of a split leaf (parallel/sharding.py `split_flags`): the norm is then
     the whole gradient's, the squares of the shards summed over the model
-    group and the replicated leaves (whole on every rank) counted once."""
+    group and the replicated leaves (whole on every rank) counted once.
+
+    slots: (each grad's position, the number of positions): without a
+    split, the norm is that of a vector of per-leaf norms with the grads'
+    at those positions and 0 elsewhere, so that it rounds as the norm over
+    a longer list of grads whose others are 0."""
     if split is None or not any(split):
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch._foreach_norm(grads)
+        if slots is not None:
+            at, n = slots
+            full = [norms[0].new_zeros(())] * n
+            for i, j in enumerate(at):
+                full[j] = norms[i]
+            norms = full
+        norm = torch.linalg.vector_norm(torch.stack(norms))
     else:
         squares = torch.stack(torch._foreach_norm(grads)) ** 2
         is_split = torch.tensor(list(split), device=squares.device)
@@ -132,8 +155,63 @@ class WarmupAdam:
         v_hat = torch._foreach_div(vs, [_bias_correction(self.b2, state["t"][n]) for n in names])
         denom = torch._foreach_sqrt(v_hat)
         torch._foreach_add_(denom, self.eps)
-        torch._foreach_addcdiv_(ps, m_hat, denom, value=-float(lr))
+        # p += -lr * (m_hat / denom), one rounding an op, as `step_device`
+        # computes it (a fused addcdiv leaves whether its multiply and add
+        # round once or twice to each backend's compiler)
+        torch._foreach_div_(m_hat, denom)
+        torch._foreach_mul_(m_hat, -float(lr))
+        torch._foreach_add_(ps, m_hat)
         return lr
+
+    def bias_table(self, n: int) -> np.ndarray:
+        """[2, n + 1] fp32: 1 - b1^t and 1 - b2^t for t = 0 .. n, as `step`
+        computes them, for `step_device`."""
+        return np.asarray([[_bias_correction(b, t) for t in range(n + 1)]
+                           for b in (self.b1, self.b2)], np.float32)
+
+    @torch.no_grad()
+    def step_device(self, state: Dict, params: Mapping[str, torch.Tensor],
+                    grads: Mapping[str, torch.Tensor], names: Sequence[str],
+                    counts: torch.Tensor, mask: Optional[torch.Tensor],
+                    lr: torch.Tensor, bias: torch.Tensor) -> None:
+        """`step` on the parameters `names` with device tensors in place of
+        its host numbers: `counts` fp32 [len(names)], their step counts,
+        advanced in place; `mask` fp32 0/1 [len(names)] (None: all 1); `lr`
+        the rate of this update (fp32, 0-d; the caller takes `rate` ahead
+        and advances state["step"]); `bias` the device copy of a
+        `bias_table` past the largest count. A masked-out parameter keeps
+        its value, its moments and its count. Launches only device work."""
+        active = torch.ones_like(counts) if mask is None else mask
+        counts.add_(active)
+        bc1, bc2 = (row.unbind() for row in bias[:, counts.long()])
+        ps = [params[n] for n in names]
+        gs = [grads[n] for n in names]
+        ms = [state["m"][n] for n in names]
+        vs = [state["v"][n] for n in names]
+        if self.weight_decay:
+            gs = torch._foreach_add(gs, ps, alpha=self.weight_decay)
+        m_new = torch._foreach_mul(ms, self.b1)
+        torch._foreach_add_(m_new, gs, alpha=1 - self.b1)
+        v_new = torch._foreach_mul(vs, self.b2)
+        torch._foreach_addcmul_(v_new, gs, gs, value=1 - self.b2)
+        neg_lr = -lr
+        keep = (active > 0).unbind()
+        for i, (p, m, v) in enumerate(zip(ps, ms, vs)):
+            denom = torch.sqrt(v_new[i] / bc2[i]) + self.eps
+            p_new = p + (m_new[i] / bc1[i]) / denom * neg_lr
+            for old, new in ((m, m_new[i]), (v, v_new[i]), (p, p_new)):
+                old.copy_(torch.where(keep[i], new, old))
+
+    @staticmethod
+    def counts_of(state: Dict, names: Sequence[str]) -> np.ndarray:
+        """The step counts of `names`, fp32, for `step_device`."""
+        return np.asarray([state["t"][n] for n in names], np.float32)
+
+    @staticmethod
+    def set_counts(state: Dict, names: Sequence[str], counts) -> None:
+        """Write `step_device`'s counts (a host array) back into state["t"]."""
+        for n, t in zip(names, np.asarray(counts).tolist()):
+            state["t"][n] = int(t)
 
     @staticmethod
     def decay(state: Dict, decay_r: float) -> Dict:

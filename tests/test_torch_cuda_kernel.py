@@ -7,7 +7,8 @@ input checks and launch counters.
 - forward (no dropout) against `fused_attention_reference`;
 - forward with dropout: its keep mask equals the Philox bits of
   `keep_mask_reference` for the seed, and its output equals the plain
-  version on that mask;
+  version on that mask; the key read by pointer from a tensor drawn on the
+  card (`draw_key`), or copied from a Python int;
 - backward and relation pass: every gradient equals autograd through the
   plain version on the same keep mask, and two runs give the same bits;
 - `FusedAttentionFn`: autograd through the kernels, launch counts;
@@ -23,6 +24,8 @@ input checks and launch counters.
 - the relation pass on random inputs at the search's B 128, H 4 (100x100)
   and at the ITM shapes' (36x36), with the live-mask flips between the
   kernel and the plain version counted and their contribution bounded;
+- a search in chunks replayed from CUDA graphs (SCAN_STEPS) against the
+  same search step by step;
 - the probe kernels (`tools/probes.py`): the bias probes at their fixed
   and generic instances, against the plain version, each other and the
   RSA attention forward's pre.
@@ -42,6 +45,7 @@ import pytest
 import torch
 
 from mmnas_tpu_torch.ops import fused_attention as FA
+from mmnas_tpu_torch.ops.primitives import draw_key
 
 pytestmark = pytest.mark.cuda
 
@@ -308,10 +312,61 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
 
 
 def test_cuda_generator_seeds_differ_per_call_and_repeat_per_seed(dev):
+    """The dropout key is drawn on the card from the generator (an int64 [1]
+    tensor the kernel reads there)."""
     g = torch.Generator(dev).manual_seed(5)
-    s1, s2 = FA.draw_seed(g), FA.draw_seed(g)
+    k1, k2 = draw_key(g, dev), draw_key(g, dev)
+    assert k1.device.type == "cuda" and k1.dtype == torch.int64 and k1.shape == (1,)
     g.manual_seed(5)
-    assert s1 != s2 and FA.draw_seed(g) == s1
+    assert FA.key_value(k1) != FA.key_value(k2)
+    assert FA.key_value(draw_key(g, dev)) == FA.key_value(k1)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["mask", "mask+rel", "mask+bias"])
+def test_dropout_key_read_by_pointer_draws_the_reference_mask(dev, dt, kind):
+    """The key by pointer: the kernel's mask is `keep_mask_reference` at the
+    key read back, bit for bit, and a Python int key gives the same mask as
+    the tensor holding its bits."""
+    (args, m, b, r) = on(dev, dt, *make(2, 4, 100, 100, 64, kind, R=64, seed=31))
+    g = torch.Generator(dev).manual_seed(9)
+    key = draw_key(g, dev)
+    out, keep, _ = FA.attention_fwd(*args, m, b, r, dropout_r=RATE, seed=key)
+    ref = FA.keep_mask_reference(FA.key_value(key), 2, 4, 100, 100, RATE)
+    assert torch.equal(keep.bool().cpu(), ref)
+    _, keep_int, _ = FA.attention_fwd(*args, m, b, r, dropout_r=RATE, seed=FA.key_value(key))
+    assert torch.equal(keep_int, keep)
+
+
+def test_replayed_chunk_is_the_per_step_run(dev, tmp_path):
+    """A --UNIFIED_WEIGHT search in chunks of 4 steps, replayed from CUDA
+    graphs, against the same search step by step: the same paths and, to
+    the bit, the same params and alpha; every attention launch of the
+    replays comes from the capture."""
+    from mmnas_tpu_torch.config import SearchCfg
+    from mmnas_tpu_torch.engine.search import SearchExecution
+
+    runs = {}
+    for scan in (1, 4):
+        d = str(tmp_path / str(scan))
+        cfg = SearchCfg(TASK="vqa", SYNTH=True, SYNTH_SIZE=40, BATCH_SIZE=4, HSIZE=64,
+                        ATTFLAT_OUT_SIZE=128, ATTFLAT_MLP_SIZE=16, REL_SIZE=8, FRCNFEAT_LEN=8,
+                        FRCNFEAT_SIZE=16, WORD_EMBED_SIZE=10, MAX_TOKEN=6,
+                        NODES=(("enc", 1), ("dec", 2)), DROPOUT_R=0.1, ALPHA_START=1,
+                        ALPHA_EVERY=2, SEED=13, NUM_WORKERS=1, MAX_EPOCH=2,
+                        UNIFIED_WEIGHT_STEP=True, SCAN_STEPS=scan, EVAL_EVERY_EPOCH=False,
+                        VERSION="replay", CKPT_ROOT=d, ARCH_ROOT=d, LOG_ROOT=d)
+        ex = SearchExecution(cfg, dev)
+        runs[scan] = (ex, ex.run())
+    (_, want), (ex, got) = runs[1], runs[4]
+    assert ex.chunk_log["dispatch"] == "graph"
+    assert ex.chunk_log["weight"]["replays"] == 16 and ex.chunk_log["arch"]["replays"] == 4
+    assert not any(ex.chunk_log["eager_launches"].values())
+    assert repr(got.paths) == repr(want.paths)
+    for (n, p), q in zip(got.net.named_parameters(), want.net.parameters()):
+        assert torch.equal(p, q), n
+    for c in got.alpha:
+        assert torch.equal(got.alpha[c], want.alpha[c])
 
 
 def make_rel(B, H, Lq, Lk, Rr, R, dt, dev, exact=True, seed=4):

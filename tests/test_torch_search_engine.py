@@ -245,6 +245,15 @@ def test_port_cpu_search_never_loads_jax(tmp_path):
         result = SearchExecution(cfg, torch.device("cpu")).run()
         assert len(result.step_losses) == 4 and all(map(math.isfinite, result.step_losses))
         assert [k for k, _, _ in result.paths].count("arch") == 2
+        # SCAN_STEPS: a chunk of 4 (graph dispatch, eagerly on the CPU) under
+        # REMAT, then the same in chunks on the per-step programs
+        for extra in ({{"UNIFIED_WEIGHT_STEP": True, "REMAT": True}}, {{"KPATH": 2}}):
+            cfg = SearchCfg(**dict({SMALL!r}, MAX_EPOCH=1, DROPOUT_R=0.1, SCAN_STEPS=4,
+                                   CKPT_ROOT={str(tmp_path)!r}, ARCH_ROOT={str(tmp_path)!r},
+                                   LOG_ROOT={str(tmp_path)!r}, **extra))
+            result = SearchExecution(cfg, torch.device("cpu")).run()
+            assert len(result.step_losses) == 4 and all(map(math.isfinite, result.step_losses))
+            assert [k for k, _, _ in result.paths].count("arch") == 2
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mmnas_tpu"))
         assert not loaded, loaded
         print("OK")
@@ -260,5 +269,5 @@ def test_search_cli_refuses_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         search_vqa.main(["--SYNTH"])
-    with pytest.raises(NotImplementedError, match="SCAN_STEPS"):
-        SearchExecution(PortSearchCfg(**dict(SMALL, SCAN_STEPS=2)), torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="orbax"):
+        SearchExecution(PortSearchCfg(**dict(SMALL, CKPT_BACKEND="orbax")), torch.device("cpu"))

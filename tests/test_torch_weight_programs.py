@@ -125,23 +125,37 @@ def test_unified_and_hybrid_forwards_match_jax_and_the_sampled_path(nets, name):
             np.testing.assert_allclose(got, sampled, rtol=FWD_TOL, atol=FWD_TOL, err_msg=mode)
 
 
-@pytest.mark.parametrize("mode", ["unified", "hybrid"])
+@pytest.mark.parametrize("mode", ["unified", "hybrid", "full"])
 def test_gradients_match_jax_leaf_by_leaf_and_unsampled_ops_get_zero(nets, mode):
+    """'full' runs under REMAT (every candidate op rematerialized): its
+    parameter gradients are the sampled path's, which the JAX 'unified'
+    gradients are, and its detached inactive branches get none."""
     net, batch, _, jax_grads = nets
     names, leaves = zip(*net.named_parameters())
-    out = net(batch, None, GRAD_IDX, mode=mode)
+    if mode == "full":
+        alpha = {c: torch.randn(len(i), 2 if c == "enc" else 4, generator=torch.Generator()
+                                .manual_seed(3)) for c, i in GRAD_IDX.items()}
+        net.cfg = PortSearchCfg(**dict(TINY, REMAT=True))
+        try:
+            out = net(batch, alpha, GRAD_IDX, mode=mode)
+        finally:
+            net.cfg = PortSearchCfg(**TINY)
+    else:
+        out = net(batch, None, GRAD_IDX, mode=mode)
     grads = torch.autograd.grad((out ** 2).sum(), leaves, allow_unused=True)
     got = {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, leaves, grads)}
+    want = jax_grads["unified" if mode == "full" else mode]
     tree = to_jax_params(net, got)
     paths = jax.tree_util.tree_leaves_with_path(tree)
-    assert jax.tree_util.tree_structure(tree) == jax.tree_util.tree_structure(jax_grads[mode])
-    for (path, a), b in zip(paths, jax.tree_util.tree_leaves(jax_grads[mode])):
+    assert jax.tree_util.tree_structure(tree) == jax.tree_util.tree_structure(want)
+    for (path, a), b in zip(paths, jax.tree_util.tree_leaves(want)):
         np.testing.assert_allclose(a, b, rtol=GRAD_TOL, atol=GRAD_TOL,
                                    err_msg=jax.tree_util.keystr(path))
     # an unsampled candidate's gradient is exactly 0: the decoder's in
-    # 'unified', the encoder's in both (node 0 of each cell shown by name)
+    # 'unified' and 'full', the encoder's in all (node 0 of each cell shown
+    # by name)
     unsampled = [("enc", ni, 1 - int(i)) for ni, i in enumerate(GRAD_IDX["enc"])]
-    if mode == "unified":
+    if mode != "hybrid":
         unsampled += [("dec", ni, j) for ni, i in enumerate(GRAD_IDX["dec"]) for j in range(4)
                       if j != i]
     for cell, ni, j in unsampled:
@@ -201,14 +215,16 @@ def test_kpath_above_one_needs_the_sampled_program(flag):
         SearchExecution(PortSearchCfg(**dict(SMALL, **{flag: True}, KPATH=2)), "cpu")
 
 
-def test_remat_scan_steps_and_orbax_still_raise_naming_the_roadmap(tmp_path):
+def test_orbax_still_raises_naming_the_roadmap(tmp_path):
+    """The orbax checkpoint backend is still to port: the search and the
+    checkpoint reader refuse it. REMAT and SCAN_STEPS, refused before, are
+    taken."""
     from mmnas_tpu_torch.train.checkpoint import load_checkpoint
 
+    NetSearch(PortSearchCfg(**dict(TINY, REMAT=True)), {"token_size": V})
+    SearchExecution(PortSearchCfg(**dict(SMALL, SCAN_STEPS=2)), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        NetSearch(PortSearchCfg(**dict(TINY, REMAT=True)), {"token_size": V})
-    for extra in ({"SCAN_STEPS": 2}, {"CKPT_BACKEND": "orbax"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            SearchExecution(PortSearchCfg(**dict(SMALL, **extra)), "cpu")
+        SearchExecution(PortSearchCfg(**dict(SMALL, CKPT_BACKEND="orbax")), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         load_checkpoint(str(tmp_path / "epoch1.orbax"))
 
